@@ -1,0 +1,100 @@
+"""State carried across between the JAX reference and this port, as numpy.
+
+A WorldState is flattened to dotted names — ``alive``, ``local.pos``,
+``modules.renderer.mi_visible``, ``modules.physics.pair_key``,
+``modules.renderer.counters.visible_count``, ``frame``, ``time`` — the names
+the reference's fields have. Arrays may be single worlds or batches
+``[W, ...]``.
+
+The reference carries fields that the ported slice does not have. They are
+listed in ``SKIPPED`` and nowhere else; ``state_from_numpy`` drops exactly
+those and raises on any other name it does not know.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from lumixengine_tpu_torch.core.transform import Transform
+from lumixengine_tpu_torch.engine.world import WorldState
+from lumixengine_tpu_torch.physics.module import PhysicsState
+from lumixengine_tpu_torch.renderer.culling_system import CullingState
+from lumixengine_tpu_torch.renderer.render_module import RenderState
+
+# reference fields outside the slice: (name prefix, why)
+SKIPPED = (
+    ("modules.animation.", "skeletal animation is not ported"),
+    ("modules.renderer.particles.", "particle emitters are not ported"),
+    ("modules.renderer.prng", "particle randomness is not ported"),
+    ("modules.renderer.counters.particles_", "particle counters"),
+    ("modules.physics.ctrl_", "character controllers are not ported"),
+    ("modules.physics.sap_", "SAP/banded warm-start carry (other broadphases)"),
+    ("modules.physics.veh_", "vehicles are not ported"),
+)
+
+
+def is_skipped(name: str) -> bool:
+    return any(name.startswith(prefix) for prefix, _ in SKIPPED)
+
+
+def _flatten(prefix: str, x, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(x, torch.Tensor):
+        out[prefix] = x.detach().cpu().numpy()
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            _flatten(f"{prefix}.{k}", v, out)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _flatten(f"{prefix}.{f.name}" if prefix else f.name, getattr(x, f.name), out)
+    else:
+        raise TypeError(f"{prefix}: cannot flatten {type(x).__name__}")
+
+
+def state_to_numpy(state: WorldState) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _flatten("", state, out)
+    return out
+
+
+def state_from_numpy(tree: Dict[str, np.ndarray], device) -> WorldState:
+    """Build a WorldState on `device` from dotted-name numpy arrays."""
+    used = set()
+
+    def get(name):
+        used.add(name)
+        return torch.tensor(np.asarray(tree[name]), device=device)
+
+    def xf(prefix):
+        return Transform(pos=get(prefix + ".pos"), rot=get(prefix + ".rot"),
+                         scale=get(prefix + ".scale"))
+
+    def fields_of(cls, prefix, special=()):
+        return {f.name: get(f"{prefix}.{f.name}") for f in dataclasses.fields(cls)
+                if f.name not in special}
+
+    def counters(prefix, names):
+        return {n: get(f"{prefix}.counters.{n}") for n in names}
+
+    modules = {}
+    if any(k.startswith("modules.renderer.") for k in tree):
+        p = "modules.renderer"
+        modules["renderer"] = RenderState(
+            culling=CullingState(entity=get(p + ".culling.entity"),
+                                 radius=get(p + ".culling.radius")),
+            counters=counters(p, ("visible_count", "lights_visible")),
+            **fields_of(RenderState, p, ("culling", "counters")))
+    if any(k.startswith("modules.physics.") for k in tree):
+        p = "modules.physics"
+        modules["physics"] = PhysicsState(
+            counters=counters(p, ("active_contacts", "sap_window_miss", "pruned_pair_miss")),
+            **fields_of(PhysicsState, p, ("counters",)))
+    state = WorldState(alive=get("alive"), parent=get("parent"), level=get("level"),
+                       local=xf("local"), world=xf("world"), modules=modules,
+                       frame=get("frame"), time=get("time"))
+    unknown = sorted(k for k in tree if k not in used and not is_skipped(k))
+    if unknown:
+        raise KeyError(f"fields the port does not know: {unknown}")
+    return state

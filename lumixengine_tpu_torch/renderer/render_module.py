@@ -1,0 +1,205 @@
+"""RenderModule + RendererSystem (counterpart of
+``lumixengine_tpu/renderer/render_module.py``).
+
+The ported components are model_instance, camera, point_light and
+environment. The phases are end_frame (previous-frame transforms of the model
+instances) and the pipeline's cull pass; ``update`` ticks particle emitters
+in the reference, and with none ported it returns the state unchanged. Other
+component types raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
+from lumixengine_tpu_torch.engine.world import World, WorldState
+from lumixengine_tpu_torch.renderer.culling_system import CullingState, CullingSystem
+from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
+from lumixengine_tpu_torch.utils.store import DenseStore
+
+_NOT_PORTED = ("particle_emitter", "terrain", "decal", "curve_decal", "instanced_model",
+               "procedural_geometry", "reflection_probe", "environment_probe",
+               "bone_attachment")
+
+
+@dataclass
+class RenderState:
+    culling: CullingState
+    mi_entity: torch.Tensor       # int32 [K]
+    mi_model: torch.Tensor        # int32 [K]
+    mi_visible: torch.Tensor      # bool [K] (output of the last cull pass)
+    mi_lod: torch.Tensor          # int32 [K]
+    prev_pos: torch.Tensor        # f32 [3,K] previous-frame world pos
+    prev_rot: torch.Tensor        # f32 [4,K]
+    cam_entity: torch.Tensor      # int32 [C]
+    cam_fov: torch.Tensor         # f32 [C]
+    cam_near: torch.Tensor
+    cam_far: torch.Tensor
+    cam_aspect: torch.Tensor
+    cam_ortho_size: torch.Tensor
+    cam_is_ortho: torch.Tensor    # bool [C]
+    pl_entity: torch.Tensor       # int32 [L]
+    pl_color: torch.Tensor        # f32 [3,L]
+    pl_intensity: torch.Tensor
+    pl_range: torch.Tensor
+    pl_visible: torch.Tensor      # bool [L]
+    env_entity: torch.Tensor      # int32 []
+    env_color: torch.Tensor       # f32 [3]
+    env_intensity: torch.Tensor   # f32 []
+    counters: Dict[str, torch.Tensor]
+
+    def replace(self, **kw) -> "RenderState":
+        return dataclasses.replace(self, **kw)
+
+
+class RenderModule(IModule):
+    name = "renderer"
+
+    def __init__(self, world: World, system: "RendererSystem", max_model_instances: int = 4096,
+                 max_cameras: int = 4, max_point_lights: int = 256):
+        super().__init__(world, system)
+        self.culling = CullingSystem(max_model_instances)
+        self.model_instances = DenseStore(max_model_instances, {"model": ((), np.int32, -1)})
+        self.cameras = DenseStore(max_cameras, {
+            "fov": ((), np.float32, np.radians(60.0)),
+            "near": ((), np.float32, 0.1),
+            "far": ((), np.float32, 10000.0),
+            "aspect": ((), np.float32, 16.0 / 9.0),
+            "ortho_size": ((), np.float32, 10.0),
+            "is_ortho": ((), np.bool_, False),
+        })
+        self.point_lights = DenseStore(max_point_lights, {
+            "color": ((3,), np.float32, 1.0),
+            "intensity": ((), np.float32, 1.0),
+            "range": ((), np.float32, 10.0),
+            "fov": ((), np.float32, 2.0 * np.pi),
+            "attenuation": ((), np.float32, 1.0),
+        })
+        self.env_entity = -1
+        self.env_color = np.ones(3, np.float32)
+        self.env_intensity = np.float32(1.0)
+        self._statics = None
+        self._statics_version = -1
+
+    def component_types(self):
+        return ["model_instance", "camera", "point_light", "environment", *_NOT_PORTED]
+
+    def statics(self):
+        """Host view statics (slot indices, model ids, radii), rebuilt on
+        membership change."""
+        self.world._refresh_levels()
+        if self._statics is None or self._statics_version != self.world.topology_version:
+            from lumixengine_tpu_torch.renderer.pipeline import ViewStatics
+
+            self._statics = ViewStatics(self)
+            self._statics_version = self.world.topology_version
+        return self._statics
+
+    def prepare_statics(self, device) -> None:
+        self.statics().on(device)
+
+    def create_component(self, entity: int, ctype: str, **props):
+        self._statics = None
+        if ctype == "model_instance":
+            model_name = props.get("model")
+            mid = (self.system.models.get_id(model_name) if isinstance(model_name, str)
+                   else int(model_name))
+            self.model_instances.add(entity, model=mid)
+            self.culling.add(entity, self.system.models.get(mid).bounding_radius)
+        elif ctype == "camera":
+            self.cameras.add(entity, **props)
+        elif ctype == "point_light":
+            self.point_lights.add(entity, **props)
+        elif ctype == "environment":
+            self.env_entity = entity
+            if "color" in props:
+                self.env_color = np.asarray(props["color"], np.float32)
+            if "intensity" in props:
+                self.env_intensity = np.float32(props["intensity"])
+        else:
+            raise NotImplementedError(f"render component {ctype!r} is not ported")
+
+    def device_state(self, device) -> RenderState:
+        w = self.world
+        mi = self.model_instances.device(device, w)
+        cam = self.cameras.device(device, w)
+        pl = self.point_lights.device(device, w)
+        k = self.model_instances.capacity
+        prev_rot = torch.zeros((4, k), dtype=torch.float32, device=device)
+        prev_rot[3] = 1.0
+
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=device)
+
+        return RenderState(
+            culling=self.culling.device_state(device, w),
+            mi_entity=mi["entity"], mi_model=mi["model"],
+            mi_visible=torch.zeros(k, dtype=torch.bool, device=device),
+            mi_lod=torch.zeros(k, dtype=torch.int32, device=device),
+            prev_pos=torch.zeros((3, k), dtype=torch.float32, device=device),
+            prev_rot=prev_rot,
+            cam_entity=cam["entity"], cam_fov=cam["fov"], cam_near=cam["near"],
+            cam_far=cam["far"], cam_aspect=cam["aspect"],
+            cam_ortho_size=cam["ortho_size"], cam_is_ortho=cam["is_ortho"],
+            pl_entity=pl["entity"], pl_color=pl["color"].T.contiguous(),
+            pl_intensity=pl["intensity"], pl_range=pl["range"],
+            pl_visible=torch.zeros(self.point_lights.capacity, dtype=torch.bool, device=device),
+            env_entity=i32(w.slot(self.env_entity) if self.env_entity >= 0 else -1),
+            env_color=torch.as_tensor(self.env_color, device=device),
+            env_intensity=torch.as_tensor(self.env_intensity, device=device),
+            counters={"visible_count": i32(0), "lights_visible": i32(0)},
+        )
+
+    def end_frame(self, state: WorldState, dt) -> WorldState:
+        """Snapshot the model instances' previous-frame world transforms."""
+        rs: RenderState = state.modules[self.name]
+        eidx = self.statics().on(state.world.pos.device).mi_index
+        rs = rs.replace(prev_pos=state.world.pos.index_select(-1, eidx),
+                        prev_rot=state.world.rot.index_select(-1, eidx))
+        return state.replace(modules={**state.modules, self.name: rs})
+
+    def cull_pass(self, state: WorldState, dt) -> WorldState:
+        """The pipeline's cull/LOD pass on camera 0 (kernel K1)."""
+        from lumixengine_tpu_torch.renderer import pipeline as pipe
+
+        return pipe.cull_pass(state, dt, self, statics=self.statics())
+
+    def update(self, state: WorldState, dt) -> WorldState:
+        """Ticks particle emitters in the reference; none are ported."""
+        return state
+
+
+class RendererSystem(ISystem):
+    name = "renderer_system"
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.models = ModelRegistry()
+        self._baked = False
+
+    def add_model(self, model: Model) -> int:
+        self._baked = False
+        return self.models.add(model)
+
+    def bake(self) -> ModelRegistry:
+        if not self._baked:
+            self.models.bake()
+            self._baked = True
+        return self.models
+
+    def add_particle_script(self, name: str, src: str, imports=None):
+        raise NotImplementedError("particle scripts are not ported")
+
+    def create_modules(self, world: World) -> RenderModule:
+        caps = getattr(self.engine, "module_capacities", {})
+        return RenderModule(
+            world, self,
+            max_model_instances=caps.get("model_instances", min(world.capacity, 4096)),
+            max_cameras=caps.get("cameras", 4),
+            max_point_lights=caps.get("point_lights", 256),
+        )
