@@ -2,9 +2,10 @@
 
 A WorldState is flattened to dotted names — ``alive``, ``local.pos``,
 ``modules.renderer.mi_visible``, ``modules.physics.pair_key``,
-``modules.renderer.counters.visible_count``, ``frame``, ``time`` — the names
-the reference's fields have. Arrays may be single worlds or batches
-``[W, ...]``.
+``modules.renderer.counters.visible_count``,
+``modules.renderer.particles.pe2.storm.channels``, ``modules.animation.palette``,
+``frame``, ``time`` — the names the reference's fields have. Arrays may be
+single worlds or batches ``[W, ...]``.
 
 The reference carries fields that the ported slice does not have. They are
 listed in ``SKIPPED`` and nowhere else; ``state_from_numpy`` drops exactly
@@ -18,18 +19,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lumixengine_tpu_torch.animation.module import AnimState
 from lumixengine_tpu_torch.core.transform import Transform
 from lumixengine_tpu_torch.engine.world import WorldState
 from lumixengine_tpu_torch.physics.module import PhysicsState
 from lumixengine_tpu_torch.renderer.culling_system import CullingState
+from lumixengine_tpu_torch.renderer.particle_system import EmitterState
 from lumixengine_tpu_torch.renderer.render_module import RenderState
 
-# reference fields outside the slice: (name prefix, why)
+# reference fields outside the port: (name prefix, why)
 SKIPPED = (
-    ("modules.animation.", "skeletal animation is not ported"),
-    ("modules.renderer.particles.", "particle emitters are not ported"),
-    ("modules.renderer.prng", "particle randomness is not ported"),
-    ("modules.renderer.counters.particles_", "particle counters"),
     ("modules.physics.ctrl_", "character controllers are not ported"),
     ("modules.physics.sap_", "SAP/banded warm-start carry (other broadphases)"),
     ("modules.physics.veh_", "vehicles are not ported"),
@@ -78,14 +77,30 @@ def state_from_numpy(tree: Dict[str, np.ndarray], device) -> WorldState:
     def counters(prefix, names):
         return {n: get(f"{prefix}.counters.{n}") for n in names}
 
+    def particles(prefix):
+        """{component key: {emitter: EmitterState}} from `prefix`.key.emitter.field."""
+        groups = sorted({tuple(k[len(prefix) + 1:].split(".")[:2]) for k in tree
+                         if k.startswith(prefix + ".")})
+        out: Dict[str, Dict[str, EmitterState]] = {}
+        for pkey, emitter in groups:
+            out.setdefault(pkey, {})[emitter] = EmitterState(
+                **fields_of(EmitterState, f"{prefix}.{pkey}.{emitter}"))
+        return out
+
     modules = {}
     if any(k.startswith("modules.renderer.") for k in tree):
         p = "modules.renderer"
         modules["renderer"] = RenderState(
             culling=CullingState(entity=get(p + ".culling.entity"),
                                  radius=get(p + ".culling.radius")),
-            counters=counters(p, ("visible_count", "lights_visible")),
-            **fields_of(RenderState, p, ("culling", "counters")))
+            particles=particles(p + ".particles"),
+            counters=counters(p, ("visible_count", "lights_visible", "particles_alive",
+                                  "particles_emitted", "particles_killed")),
+            **fields_of(RenderState, p, ("culling", "particles", "counters")))
+    if any(k.startswith("modules.animation.") for k in tree):
+        p = "modules.animation"
+        modules["animation"] = AnimState(counters=counters(p, ("animated",)),
+                                         **fields_of(AnimState, p, ("counters",)))
     if any(k.startswith("modules.physics.") for k in tree):
         p = "modules.physics"
         modules["physics"] = PhysicsState(

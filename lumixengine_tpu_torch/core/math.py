@@ -80,3 +80,21 @@ def quat_to_mat3(q, axis: int = -1):
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_nlerp(a, b, t, axis: int = -1):
+    """Normalized lerp with hemisphere correction. `t` is a number or a
+    tensor with one axis fewer than `a` (the component axis)."""
+    d = torch.sum(a * b, dim=axis, keepdim=True)
+    b = torch.where(d < 0.0, -b, b)
+    if isinstance(t, torch.Tensor) and t.dim() == a.dim() - 1:
+        t = t.unsqueeze(axis)
+    return quat_normalize(a + (b - a) * t, axis)
+
+
+def dual_quat_from_rigid(rot, pos, axis: int = -1):
+    """(rot [..,4,..], pos [..,3,..]) → dual quat [..., 8, ...] = (real | dual)."""
+    px, py, pz = unstack(pos, axis)
+    pq = torch.stack([px, py, pz, torch.zeros_like(px)], dim=axis)
+    dual = 0.5 * quat_mul(pq, rot, axis)
+    return torch.cat([rot, dual], dim=axis)

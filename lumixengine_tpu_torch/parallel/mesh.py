@@ -18,7 +18,14 @@ def replicate_state(state: WorldState, num_worlds: int,
     noise, physics velocities and angular velocities N(0, 0.05²) noise, and
     the sleep counters a random forward stagger in [0, 16). The noise is
     drawn on the generator's device."""
-    batched = map_tensors(lambda t: t.unsqueeze(0).expand((num_worlds,) + t.shape).clone(), state)
+    def tile(t):
+        # uint32 (the particle key) is tiled through an int32 view: torch has
+        # few uint32 kernels
+        u = t.view(torch.int32) if t.dtype == torch.uint32 else t
+        out = u.unsqueeze(0).expand((num_worlds,) + t.shape).clone()
+        return out.view(torch.uint32) if t.dtype == torch.uint32 else out
+
+    batched = map_tensors(tile, state)
     if generator is None:
         return batched
     dev = state.local.pos.device

@@ -1,15 +1,61 @@
 """Model resources (counterpart of ``lumixengine_tpu/renderer/model.py``), as
-far as the cull pass needs them: a bounding radius, up to 4 LOD switch
-distances and a material id per model. ``ModelRegistry.bake`` fills the host
-mirrors the view statics read. Skeletons are outside the ported slice."""
+far as the cull pass and the animation need them: a bounding radius, up to 4
+LOD switch distances, a material id and an optional skeleton per model.
+``ModelRegistry.bake`` fills the host mirrors the view statics read and the
+bank's bone count."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from lumixengine_tpu_torch.core import host_math as hm
+
 MAX_LODS = 4
+
+
+@dataclass
+class Skeleton:
+    """Host skeleton; parents must come before their children."""
+
+    bone_parent: np.ndarray  # int32 [B], -1 root
+    bind_pos: np.ndarray     # f32 [B,3] local bind translation
+    bind_rot: np.ndarray     # f32 [B,4] local bind rotation
+    bone_names: List[str] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.bone_parent = np.asarray(self.bone_parent, np.int32)
+        self.bind_pos = np.asarray(self.bind_pos, np.float32)
+        self.bind_rot = np.asarray(self.bind_rot, np.float32)
+        if np.any(self.bone_parent >= np.arange(len(self.bone_parent))):
+            raise ValueError("skeleton bones must be topologically sorted (parent < child)")
+
+    @property
+    def bone_count(self) -> int:
+        return int(self.bone_parent.shape[0])
+
+    def absolute_bind(self):
+        """Model-space bind pose (host): compose down the chains."""
+        b = self.bone_count
+        abs_pos = np.zeros((b, 3), np.float32)
+        abs_rot = np.zeros((b, 4), np.float32)
+        for i in range(b):
+            p = int(self.bone_parent[i])
+            if p < 0:
+                abs_pos[i], abs_rot[i] = self.bind_pos[i], self.bind_rot[i]
+            else:
+                one = np.ones(3, np.float32)
+                abs_pos[i], abs_rot[i], _ = hm.compose(
+                    abs_pos[p], abs_rot[p], one, self.bind_pos[i], self.bind_rot[i], one)
+        return abs_pos, abs_rot
+
+    def inverse_bind(self):
+        """Inverse of the model-space bind pose (rigid), for skinning palettes."""
+        abs_pos, abs_rot = self.absolute_bind()
+        inv_rot = hm.quat_conjugate(abs_rot)
+        inv_pos = hm.quat_rotate(inv_rot, -abs_pos)
+        return inv_pos, inv_rot
 
 
 @dataclass
@@ -17,6 +63,7 @@ class Model:
     name: str
     bounding_radius: float = 1.0
     lod_distances: Optional[np.ndarray] = None  # f32 [4], inf = unused
+    skeleton: Optional[Skeleton] = None
     material_id: int = 0
 
     def __post_init__(self):
@@ -33,6 +80,7 @@ class ModelRegistry:
         self.host_bounding_radius = np.ones(1, np.float32)
         self.host_lod_dist2 = np.full((MAX_LODS, 1), np.inf, np.float32)
         self.host_material_id = np.zeros(1, np.int32)
+        self.max_bones = 1
 
     def add(self, model: Model) -> int:
         if model.name in self._by_name:
@@ -51,9 +99,10 @@ class ModelRegistry:
     def __len__(self):
         return len(self.models)
 
-    def bake(self) -> None:
+    def bake(self, min_bones: int = 1) -> None:
         """Fill host_bounding_radius [M], host_lod_dist2 [4, M] (squared
-        switch distances) and host_material_id [M]."""
+        switch distances), host_material_id [M] and max_bones (the largest
+        skeleton, at least `min_bones`)."""
         m = max(1, len(self.models))
         radius = np.ones(m, np.float32)
         lod2 = np.full((m, MAX_LODS), np.inf, np.float32)
@@ -66,3 +115,23 @@ class ModelRegistry:
         self.host_bounding_radius = radius
         self.host_lod_dist2 = lod2.T.copy()
         self.host_material_id = mat
+        self.max_bones = max([min_bones] + [mo.skeleton.bone_count for mo in self.models
+                                            if mo.skeleton])
+
+
+def make_humanoid_skeleton(num_bones: int = 32, seed: int = 0) -> Skeleton:
+    """Procedural test skeleton: chains off a root, each bone attached to one
+    of the 4 bones before it; the reference's numpy draws in its order."""
+    rng = np.random.default_rng(seed)
+    parent = np.full(num_bones, -1, np.int32)
+    pos = np.zeros((num_bones, 3), np.float32)
+    rot = np.tile(hm.QUAT_IDENTITY, (num_bones, 1))
+    for i in range(1, num_bones):
+        lo = max(0, i - 4)
+        parent[i] = rng.integers(lo, i)
+        pos[i] = rng.normal(0, 0.15, 3).astype(np.float32) + np.array([0, 0.25, 0], np.float32)
+        axis = rng.normal(size=3).astype(np.float32)
+        axis /= np.linalg.norm(axis)
+        rot[i] = hm.quat_from_axis_angle(axis, rng.uniform(-0.3, 0.3))
+    return Skeleton(bone_parent=parent, bind_pos=pos, bind_rot=rot,
+                    bone_names=[f"bone{i}" for i in range(num_bones)])

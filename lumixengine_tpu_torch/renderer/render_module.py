@@ -1,28 +1,30 @@
 """RenderModule + RendererSystem (counterpart of
 ``lumixengine_tpu/renderer/render_module.py``).
 
-The ported components are model_instance, camera, point_light and
-environment. The phases are end_frame (previous-frame transforms of the model
-instances) and the pipeline's cull pass; ``update`` ticks particle emitters
-in the reference, and with none ported it returns the state unchanged. Other
-component types raise NotImplementedError.
+The ported components are model_instance, camera, point_light, environment
+and particle_emitter. The phases are end_frame (previous-frame transforms of
+the model instances), update (one frame of every particle emitter, with the
+particle counters) and the pipeline's cull pass. Other component types raise
+NotImplementedError; bone attachments (``late_update`` in the reference) are
+among them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from lumixengine_tpu_torch.core import random as prng
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.renderer.culling_system import CullingState, CullingSystem
 from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
 from lumixengine_tpu_torch.utils.store import DenseStore
 
-_NOT_PORTED = ("particle_emitter", "terrain", "decal", "curve_decal", "instanced_model",
+_NOT_PORTED = ("terrain", "decal", "curve_decal", "instanced_model",
                "procedural_geometry", "reflection_probe", "environment_probe",
                "bone_attachment")
 
@@ -51,6 +53,8 @@ class RenderState:
     env_entity: torch.Tensor      # int32 []
     env_color: torch.Tensor       # f32 [3]
     env_intensity: torch.Tensor   # f32 []
+    particles: Dict[str, Any]     # component key -> {emitter name -> EmitterState}
+    prng: torch.Tensor            # uint32 [2] key of the particle randomness
     counters: Dict[str, torch.Tensor]
 
     def replace(self, **kw) -> "RenderState":
@@ -83,11 +87,14 @@ class RenderModule(IModule):
         self.env_entity = -1
         self.env_color = np.ones(3, np.float32)
         self.env_intensity = np.float32(1.0)
+        # particle emitter components: key -> (entity, ParticleSystem instance)
+        self.particle_emitters: Dict[str, tuple] = {}
         self._statics = None
         self._statics_version = -1
 
     def component_types(self):
-        return ["model_instance", "camera", "point_light", "environment", *_NOT_PORTED]
+        return ["model_instance", "camera", "point_light", "environment", "particle_emitter",
+                *_NOT_PORTED]
 
     def statics(self):
         """Host view statics (slot indices, model ids, radii), rebuilt on
@@ -121,6 +128,9 @@ class RenderModule(IModule):
                 self.env_color = np.asarray(props["color"], np.float32)
             if "intensity" in props:
                 self.env_intensity = np.float32(props["intensity"])
+        elif ctype == "particle_emitter":
+            self.particle_emitters[f"pe{entity}"] = (entity,
+                                                     self.system.particle_system(props["script"]))
         else:
             raise NotImplementedError(f"render component {ctype!r} is not ported")
 
@@ -152,7 +162,12 @@ class RenderModule(IModule):
             env_entity=i32(w.slot(self.env_entity) if self.env_entity >= 0 else -1),
             env_color=torch.as_tensor(self.env_color, device=device),
             env_intensity=torch.as_tensor(self.env_intensity, device=device),
-            counters={"visible_count": i32(0), "lights_visible": i32(0)},
+            particles={key: ps.device_state(device)
+                       for key, (e, ps) in self.particle_emitters.items()},
+            prng=prng.PRNGKey(0, device),
+            counters={"visible_count": i32(0), "lights_visible": i32(0),
+                      "particles_alive": i32(0), "particles_emitted": i32(0),
+                      "particles_killed": i32(0)},
         )
 
     def end_frame(self, state: WorldState, dt) -> WorldState:
@@ -170,8 +185,28 @@ class RenderModule(IModule):
         return pipe.cull_pass(state, dt, self, statics=self.statics())
 
     def update(self, state: WorldState, dt) -> WorldState:
-        """Ticks particle emitters in the reference; none are ported."""
-        return state
+        """One frame of every particle emitter, in component-key order, each
+        on its own key folded from the frame counter; the emitter's entity
+        position is the script's `entity_position` (declared `global`s read
+        zeros: nothing sets them)."""
+        if not self.particle_emitters:
+            return state
+        rs: RenderState = state.modules[self.name]
+        key = prng.fold_in(rs.prng, state.frame)
+        particles = dict(rs.particles)
+        alive_n = emitted_n = killed_n = torch.zeros_like(state.frame)
+        for i, (pkey, (entity, ps)) in enumerate(sorted(self.particle_emitters.items())):
+            system = {"entity_position": state.world.pos[..., :, self.world.slot(entity)]}
+            sub = ps.step(particles[pkey], dt, state.time, prng.fold_in(key, i), system=system)
+            particles[pkey] = sub
+            for st in sub.values():
+                alive_n = alive_n + torch.sum(st.alive, dim=-1, dtype=torch.int32)
+                emitted_n = emitted_n + st.emitted
+                killed_n = killed_n + st.killed
+        rs = rs.replace(particles=particles, counters={
+            **rs.counters, "particles_alive": alive_n, "particles_emitted": emitted_n,
+            "particles_killed": killed_n})
+        return state.replace(modules={**state.modules, self.name: rs})
 
 
 class RendererSystem(ISystem):
@@ -181,6 +216,8 @@ class RendererSystem(ISystem):
         super().__init__(engine)
         self.models = ModelRegistry()
         self._baked = False
+        # particle script sources: name -> (src, imports dict)
+        self.particle_scripts: Dict[str, tuple] = {}
 
     def add_model(self, model: Model) -> int:
         self._baked = False
@@ -193,7 +230,14 @@ class RendererSystem(ISystem):
         return self.models
 
     def add_particle_script(self, name: str, src: str, imports=None):
-        raise NotImplementedError("particle scripts are not ported")
+        """Register a .pat particle script (with its imported .pai sources)."""
+        self.particle_scripts[name] = (src, imports or {})
+
+    def particle_system(self, script: str):
+        from lumixengine_tpu_torch.renderer.particle_system import ParticleSystem
+
+        src, imports = self.particle_scripts[script]
+        return ParticleSystem.from_source(src, imports=imports)
 
     def create_modules(self, world: World) -> RenderModule:
         caps = getattr(self.engine, "module_capacities", {})

@@ -59,6 +59,9 @@ class DenseStore:
         self._slot_of[entity] = slot
         return slot
 
+    def get(self, entity: int, field: str):
+        return self.data[field][self._slot_of[entity]]
+
     def device(self, device, world=None) -> Dict[str, torch.Tensor]:
         """Snapshot to tensors on `device`. When `world` is given, the entity
         column is translated into the world's topo-sorted device slots."""

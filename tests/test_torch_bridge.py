@@ -31,6 +31,17 @@ def ref_to_numpy(tree) -> dict:
     return out
 
 
+def ref_from_numpy(template, tree: dict):
+    """A JAX pytree shaped like `template` with its leaves taken from the
+    dotted-name numpy arrays `tree`."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+    new = []
+    for path, leaf in leaves:
+        name = ".".join(str(getattr(k, "name", getattr(k, "key", k))) for k in path)
+        new.append(jnp.asarray(tree[name], dtype=leaf.dtype))
+    return jax.tree_util.tree_unflatten(treedef, new)
+
+
 def reference_world(seed: int = 0):
     from lumixengine_tpu.models import demo_scenes as rds
 
@@ -42,7 +53,9 @@ def reference_world(seed: int = 0):
 def port_world(seed: int = 0):
     from lumixengine_tpu_torch.models import demo_scenes as pds
 
-    return pds.full_frame_world(N_ENTITIES, 0, N_BODIES, 0, seed=seed)
+    engine, world, renderer, _anim, phys = pds.full_frame_world(
+        N_ENTITIES, 0, N_BODIES, 0, seed=seed)
+    return engine, world, renderer, phys
 
 
 def reference_step(engine, world, batched: bool):
@@ -134,4 +147,37 @@ def test_missing_field_raises():
     tree = ref_to_numpy(world.device_state())
     del tree["modules.physics.pair_key"]
     with pytest.raises(KeyError):
+        bridge.state_from_numpy(tree, "cpu")
+
+
+def _flagship_tree(num_worlds):
+    from lumixengine_tpu.models import demo_scenes as rds
+    from lumixengine_tpu.parallel.mesh import replicate_state
+
+    _e, world, *_ = rds.full_frame_world(N_ENTITIES, 8, N_BODIES, 64)
+    return ref_to_numpy(replicate_state(world.device_state(), num_worlds, jax.random.PRNGKey(2)))
+
+
+def test_roundtrip_animation_and_particles():
+    """The flagship's animation state and emitter states, batched, go
+    through the bridge and back unchanged, uint32 key included."""
+    tree = _flagship_tree(3)
+    state = bridge.state_from_numpy(tree, "cpu")
+    anim, rs = state.modules["animation"], state.modules["renderer"]
+    assert anim.pose_pos.shape == (3, 3, 32, 8) and anim.palette.shape == (3, 8, 32, 8)
+    assert rs.particles["pe2"]["storm"].channels.shape == (3, 7, 64)
+    assert rs.prng.dtype == torch.uint32 and rs.prng.shape == (3, 2)
+    back = bridge.state_to_numpy(state)
+    assert set(back) == {k for k in tree if not bridge.is_skipped(k)}
+    assert any(k.startswith("modules.animation.") for k in back)
+    assert any(k.startswith("modules.renderer.particles.pe2.storm.") for k in back)
+    for k, v in back.items():
+        assert v.dtype == tree[k].dtype, k
+        np.testing.assert_array_equal(v, tree[k], err_msg=k)
+
+
+def test_unknown_emitter_field_raises():
+    tree = _flagship_tree(1)
+    tree["modules.renderer.particles.pe2.storm.ribbon"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="ribbon"):
         bridge.state_from_numpy(tree, "cpu")

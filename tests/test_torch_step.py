@@ -1,8 +1,12 @@
-"""The slice as a whole: the reference's slice world at frame 120 (bodies
-resting, contacts active), bridged into the port, then 3 frames of
-build_step(extra=cull_pass) in both packages, compared field by field. The
-reference runs its fused Pallas solver in interpret mode, the semantics
-kernel K2 ports."""
+"""The port as a whole: a reference world at frame 120 (bodies resting,
+contacts active), bridged into the port, then 3 frames of
+build_step(extra=cull_pass) in both packages, compared field by field — the
+slice world (no characters, a 1-slot emitter), and the full flagship at
+test size (characters, particles), with half of the animation clocks set
+to wrap in the second frame. The reference runs its fused Pallas solver in
+interpret mode, the semantics kernel K2 ports."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -12,9 +16,11 @@ import jax.numpy as jnp
 
 from lumixengine_tpu.parallel.mesh import replicate_state as ref_replicate
 from lumixengine_tpu_torch import bridge
+from lumixengine_tpu_torch.models import demo_scenes as pds
 from lumixengine_tpu_torch.parallel.mesh import replicate_state
-from test_torch_bridge import (DT, assert_masks_agree, cull_margins, port_world, ref_to_numpy,
-                               reference_step, settled_reference, use_fused_solver)
+from test_torch_animation import FLAGSHIP_TEST, near_wrap
+from test_torch_bridge import (DT, assert_masks_agree, cull_margins, port_world, ref_from_numpy,
+                               ref_to_numpy, reference_step, settled_reference, use_fused_solver)
 
 torch.set_num_threads(1)
 
@@ -22,8 +28,12 @@ FRAMES = 3
 TRANSFORM_ATOL = 1e-5   # entities the physics does not move
 BODY_POS_ATOL = 1e-3    # physics pos/rot: solver sums reordered, 3 frames
 BODY_VEL_ATOL = 5e-3    # the JAX package's own fused-vs-jnp bound
+CLOCK_ATOL = 0.0       # animation clocks: adds and fmod, the same ops
+POSE_ATOL = 1e-5       # poses, palettes: 13-level compose chains
+PARTICLE_ATOL = 1e-4   # particle channels up to ~50 m (1 ulp 3.8e-6)
 P = "modules.physics."
 R = "modules.renderer."
+A = "modules.animation."
 
 
 def _body_mask(pworld, n_slots):
@@ -93,6 +103,93 @@ def test_three_frames_match_reference(num_worlds, monkeypatch):
     print("max abs err", {k: v for k, v in errs.items() if v > 0})
     assert min(active) > 0
     assert np.all(got[R + "counters.visible_count"] > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def settled_flagship(frames: int = 120):
+    """(engine, world, state) of the reference flagship at test size after
+    `frames` frames of its normal CPU step (bodies down, particles falling,
+    characters walking)."""
+    from lumixengine_tpu.models import demo_scenes as rds
+
+    engine, world, *_ = rds.full_frame_world(*FLAGSHIP_TEST)
+    step = reference_step(engine, world, batched=False)
+    run = jax.jit(lambda s: jax.lax.fori_loop(0, frames, lambda i, s: step(s, jnp.float32(DT)), s))
+    return engine, world, jax.block_until_ready(run(world.device_state()))
+
+
+def compare_arms(got, ref, errs):
+    """The animation and particle fields and counters; returns the names
+    checked."""
+    checked = set()
+
+    def close(k, atol):
+        checked.add(k)
+        _close(k, got[k], ref[k], atol, errs)
+
+    def equal(k):
+        checked.add(k)
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+    for k in ("an_time", "ctrl_clocks", "ctrl_inputs"):
+        close(A + k, CLOCK_ATOL)
+    for k in ("pose_pos", "pose_rot", "palette"):
+        close(A + k, POSE_ATOL)
+    for k in ("pa_enabled", "counters.animated"):
+        equal(A + k)
+    for k in sorted(got):
+        if k.startswith(R + "particles."):
+            if k.endswith((".channels", ".outs")):
+                close(k, PARTICLE_ATOL)
+            else:
+                equal(k)  # alive, emit_acc and the counters
+    for k in ("prng", "counters.particles_alive", "counters.particles_emitted",
+              "counters.particles_killed"):
+        equal(R + k)
+    return checked
+
+
+@pytest.mark.parametrize("num_worlds", [1, 4])
+def test_flagship_three_frames_match_reference(num_worlds, monkeypatch):
+    """The full flagship at test size (512 entities, 8 characters, 32
+    bodies — still the pruned physics branch —, 256 particles): every field
+    the bridge carries."""
+    engine, rworld, rstate = settled_flagship()
+    if num_worlds > 1:
+        rstate = ref_replicate(rstate, num_worlds, jax.random.PRNGKey(0))
+    pengine, pworld, _pr, panim, _pp = pds.full_frame_world(*FLAGSHIP_TEST)
+    assert pworld.modules["physics"].statics().pruned
+    tree = near_wrap(ref_to_numpy(rstate), panim, pworld.modules, lead=1.5)
+    rstate = ref_from_numpy(rstate, tree)
+    use_fused_solver(monkeypatch, rworld)
+    rstep = reference_step(engine, rworld, batched=num_worlds > 1)
+    pstep = pengine.build_step(pworld, "cpu", extra=pworld.modules["renderer"].cull_pass)
+    pstate = bridge.state_from_numpy(tree, "cpu")
+    errs, killed = {}, []
+    for _ in range(FRAMES):
+        rstate = rstep(rstate, jnp.float32(DT))
+        pstate = pstep(pstate, DT)
+        got, ref = bridge.state_to_numpy(pstate), ref_to_numpy(rstate)
+        assert set(got) == {k for k in ref if not bridge.is_skipped(k)}
+        compare(pworld, pstate, got, ref, errs)
+        checked = compare_arms(got, ref, errs)
+        # every other field the bridge carries (the render components,
+        # culling radii, counters, ...) is the same, bit for bit
+        toleranced = {f"{xf}.{f}" for xf in ("local", "world") for f in ("pos", "rot", "scale")}
+        toleranced |= {R + "prev_pos", R + "prev_rot", "time"}
+        toleranced |= {P + f for f in ("pos", "rot", "vel", "angvel", "lam_n", "lam_t1", "lam_t2")}
+        for k in sorted(set(got) - checked - toleranced):
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        killed.append(int(got[R + "counters.particles_killed"].sum()))
+    print(f"W={num_worlds}: particles killed {killed}; max abs err",
+          {k: v for k, v in errs.items() if v > 0})
+    wrapped = got[A + "ctrl_clocks"][..., ::2] < tree[A + "ctrl_clocks"][..., ::2]
+    assert wrapped.all()
+    assert killed[-1] > 0 and np.all(got[R + "counters.particles_alive"] > 0)
+    assert np.all(got[A + "counters.animated"] == 4)
+    assert np.all(got[P + "counters.active_contacts"] > 0)
+    moved = np.abs(got["local.pos"] - tree["local.pos"]).max(axis=-2)
+    assert np.count_nonzero(moved) > 0
 
 
 def test_replicate_state_diverges_worlds():

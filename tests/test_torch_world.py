@@ -78,18 +78,46 @@ def test_initial_device_state(worlds):
 
 @pytest.mark.parametrize("kw", [{"num_characters": 2}, {"particle_capacity": 16}])
 def test_unported_arms_raise(kw):
+    """The animation and particle arms (which raised before they were
+    ported) build what the reference builds: the same component counts and
+    capacities, and an initial state of the same fields, shapes, dtypes and
+    values."""
+    from lumixengine_tpu.models import demo_scenes as rds
     from lumixengine_tpu_torch.models import demo_scenes as pds
 
     args = dict(num_entities=64, num_characters=0, num_bodies=24, particle_capacity=0)
     args.update(kw)
-    with pytest.raises(NotImplementedError):
-        pds.full_frame_world(**args)
+    _e, rw, _r, _a, _p = rds.full_frame_world(**args)
+    _pe, pw, _pr, _pa, _pp = pds.full_frame_world(**args)
+    ran, pan = rw.modules["animation"], pw.modules["animation"]
+    for store in ("animables", "animators"):
+        r, p = getattr(ran, store), getattr(pan, store)
+        assert (len(p), p.capacity) == (len(r), r.capacity)
+        np.testing.assert_array_equal(p.entity, r.entity)
+    rpe, ppe = rw.modules["renderer"].particle_emitters, pw.modules["renderer"].particle_emitters
+    assert {k: (e, ps.caps) for k, (e, ps) in ppe.items()} == \
+        {k: (e, ps.caps) for k, (e, ps) in rpe.items()}
+    ref = ref_to_numpy(rw.device_state())
+    got = bridge.state_to_numpy(pw.device_state("cpu"))
+    assert set(got) == {k for k in ref if not bridge.is_skipped(k)}
+    for k, v in got.items():
+        assert (v.dtype, v.shape) == (ref[k].dtype, ref[k].shape), k
+        if k.startswith("world."):
+            np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, ref[k], err_msg=k)
+    n_char = args["num_characters"]
+    assert len(pan.animables) + len(pan.animators) == n_char
+    assert ppe["pe2"][1].caps == {"storm": max(args["particle_capacity"], 1)}
 
 
 def test_unported_components_raise(worlds):
     _ref, (_pe, pw, _pr, _pp) = worlds
-    with pytest.raises(NotImplementedError):
-        pw.create_component(0, "distance_joint", body_a=1, body_b=2)
+    for ctype, props in (("distance_joint", dict(body_a=1, body_b=2)),
+                         ("property_animator", dict(curves=[])),
+                         ("bone_attachment", dict(parent_entity=1))):
+        with pytest.raises(NotImplementedError):
+            pw.create_component(0, ctype, **props)
 
 
 def test_time_smoother_matches_reference():
