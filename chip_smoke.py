@@ -17,15 +17,39 @@ Phases, each printed on its own line:
      the full flagship full_frame_world(10240, 64, 64, 2048) replicated to
      1024 worlds for 200 frames (hierarchy, 32 animables, 32 locomotion
      animators with root motion and dual-quaternion palettes, 64 rigid
-     bodies, the 2048-particle storm emitter, the cull pass), then the
-     slice full_frame_world(10240, 0, 64, 0) at 256 worlds for 200 frames.
-     Each kernel launches once per frame; the state stays finite; 64
-     characters are animated per world, 0 < particles alive <= 2048, root
-     motion moves the animators. Then 3 frames at W=4 on the card against
-     the plain versions on the CPU, animation and particle fields included,
-     and the threefry stream on the card against the CPU's, bit for bit;
-  6. timings with CUDA events: ms/frame and entity-steps/s of both paths,
-     each kernel beside its plain version.
+     bodies, the 2048-particle storm emitter, the cull pass); the slice
+     full_frame_world(10240, 0, 64, 0) at 256 worlds (a smaller W than the
+     flagship's, to fit the script's time); the skinned crowd
+     skinned_crowd_world(256) (128 animables, 128 locomotion animators, no
+     physics) at CROWD_WORLDS worlds; the 1M-particle storm
+     particle_stress_world(1_000_000) at 1 world. Each kernel of a path
+     launches once per frame (K2 only where there is physics; on the storm
+     K1 launches on the world's 8 empty model-instance slots and culls
+     nothing, as in the reference); the state stays finite; every character
+     is animated, 0 < particles alive <= capacity, root motion moves the
+     animators. Then 3 frames at W=4 on the card against the plain versions
+     on the CPU, animation and particle fields included (the storm's end
+     state tiled to 4 worlds that diverge), and the threefry stream on the
+     card against the CPU's, bit for bit;
+  6. the 10k-box drop box_drop_pile(10_000) (the slot pipeline, no
+     hand-written kernel) as the reference's bench.py --config boxes
+     --steps 600 --trials 1 runs it: 600 steps to warm up, then 600 timed
+     steps, the state carried through, the slot_drop and column_miss
+     certificates summed on the card over all 1200: both 0, the state
+     finite, kinetic energy (sum of |v|^2 + |w|^2) below 50 and more than
+     90% of the boxes asleep at step 1200 (the reference's recorded end
+     state on its TPU: 0.0 and 9887), every sleeping box's centre above
+     BOX_SLEEP_Y_MIN; the reference's 10^3-box test bounds the lowest
+     centre by 0.47 m, which a 22-level pile breaks (an awake box under
+     sleeping ones sinks, in the reference too, PERF.md), so at most
+     BOX_BELOW_MAX boxes lie below 0.47 m and none below BOX_LOWEST_MIN,
+     bounds set from the card's and the reference's readings; then 3 steps
+     from the card's state at step 60 (mid-impact) on the card against the
+     CPU, within BODY_POS_ATOL / BODY_VEL_ATOL with equal certificates;
+  7. timings with CUDA events: ms/frame and entity-steps/s of each path
+     (particle-steps/s of the storm, as bench.py counts it), body-steps/s
+     of the boxes, each kernel beside its plain version, and
+     the torch ops dispatched per frame or step.
 
 Any failure raises and the exit code is not 0. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}. Without a CUDA device
@@ -44,6 +68,22 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES = 10240, 64, 64, 2048
 WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 200, 10, 240
 SLICE_WORLDS = 256       # the slice path (no characters, a 1-slot emitter), at a smaller depth
+CROWD_CHARACTERS, CROWD_WORLDS = 256, 1024
+STORM_CAPACITY = 1_000_000
+N_BOXES, BOX_STEPS, BOX_COMPARE_AT = 10_000, 600, 60  # bench.py: a warm run, then the timed one
+BOX_KE_MAX, BOX_ASLEEP_MIN = 50.0, 0.9   # the reference's settle gate (its 10^3 CI test)
+BOX_Y_MIN = 0.47         # that test's bound on the lowest box centre; see run_boxes
+# At step 1200 awake boxes under sleeping ones sit below BOX_Y_MIN and sink (the reference
+# does the same, PERF.md): the card reads 27 such boxes, the lowest at 0.2456 m and sinking
+# 1.58e-4 m per step; the JAX package on the CPU reads 20. Held to these readings:
+BOX_BELOW_MAX = 30       # boxes whose centre is below BOX_Y_MIN
+BOX_LOWEST_MIN = 0.2     # the lowest centre of any box
+# a box falls asleep only after its ground depth read at most 8 slop (4 cm) at the start of
+# the frame before, and that frame's position pass moves it at most max_correction (4 cm)
+# more: a sleeping box's centre stays above 0.5 - 0.08, less a centimetre for its velocity
+BOX_SLEEP_Y_MIN = 0.41
+# bench.py's recorded TPU run: its end state follows the warm run and the timed one, step 1200
+BOX_REFERENCE_END = {"ke_end": 0.0, "sleeping_end": 9887}
 DT = 1.0 / 60.0
 ITERATIONS, POSITION_ITERATIONS = 10, 3
 TRANSFORM_ATOL = 1e-5    # entities the physics does not move (root motion included)
@@ -100,7 +140,9 @@ def main() -> int:
         return 2
     from lumixengine_tpu_torch.core import geometry as geom
     from lumixengine_tpu_torch.engine.world import map_tensors
-    from lumixengine_tpu_torch.models.demo_scenes import full_frame_world
+    from lumixengine_tpu_torch.models.demo_scenes import (full_frame_world,
+                                                          particle_stress_world,
+                                                          skinned_crowd_world)
     from lumixengine_tpu_torch.ops import culling as cull
     from lumixengine_tpu_torch.ops import hierarchy as hier
     from lumixengine_tpu_torch.ops import native
@@ -200,9 +242,17 @@ def main() -> int:
     flag = full_frame_world(N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES)
     runs = {"flagship": run_path("flagship", flag, W, dev, replicate_state, map_tensors),
             "slice": run_path("slice", (engine, world), SLICE_WORLDS, dev, replicate_state,
-                              map_tensors, step=step)}
+                              map_tensors, step=step),
+            "crowd": run_path("crowd", skinned_crowd_world(CROWD_CHARACTERS), CROWD_WORLDS, dev,
+                              replicate_state, map_tensors),
+            "particles": run_path("particles", particle_stress_world(STORM_CAPACITY), 1, dev,
+                                  replicate_state, map_tensors)}
+    runs["particles"].update(units=STORM_CAPACITY, unit="particle")  # bench.py's unit here
 
-    # 6. timings
+    # 6. the 10k-box drop
+    boxes = run_boxes(dev)
+
+    # 7. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
     prob = problems["settled"]
@@ -210,9 +260,10 @@ def main() -> int:
                                 lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
     paths = "; ".join(
         f"{name} {r['ms']:.3f} ms/frame at W={r['worlds']} = "
-        f"{r['worlds'] * N_ENTITIES / (r['ms'] / 1e3):.4g} entity-steps/s ({r['ops']} ops/frame)"
+        f"{r['worlds'] * r['units'] / (r['ms'] / 1e3):.4g} {r['unit']}-steps/s ({r['ops']} ops/frame)"
         for name, r in runs.items())
-    log(f"[6 time] {card}: {paths};"
+    log(f"[7 time] {card}: {paths}; boxes {boxes['ms']:.3f} ms/step at {N_BOXES} bodies = "
+        f"{N_BOXES / (boxes['ms'] / 1e3):.4g} body-steps/s ({boxes['ops']} ops/step);"
         f" K1 [{W},3,{N_ENTITIES}] {k1_ms:.4f} ms (plain {k1_plain:.4f} ms);"
         f" K2 W={prob.vel.shape[0]} C={prob.act.shape[-1]} {k2_ms:.4f} ms (plain {k2_plain:.4f} ms)")
 
@@ -221,6 +272,8 @@ def main() -> int:
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
          "replaces": "lumixengine_tpu/ops/culling.py:54", "launches": main_launches["K1"],
          "launches_slice": runs["slice"]["launches"]["K1"],
+         "launches_crowd": runs["crowd"]["launches"]["K1"],
+         "launches_particles": runs["particles"]["launches"]["K1"],
          "max_abs_err": k1_err, "mismatches": k1_bad, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "K2 solve_contacts_fused", "route": "cuda",
          "source": "lumixengine_tpu_torch/csrc/solver.cu",
@@ -256,7 +309,9 @@ def check_threefry(dev):
 
 def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=None):
     """FRAMES frames of one path at `num_worlds` worlds on the card, timed
-    and checked, then the 3-frame compare against the CPU."""
+    and checked, then the 3-frame compare against the CPU. The checks follow
+    the world's modules: contacts where there is physics, characters where
+    there is animation, particles where there is an emitter."""
     import torch
 
     from lumixengine_tpu_torch.ops import culling as cull
@@ -264,6 +319,7 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
 
     engine, world = built[0], built[1]
     rm = world.modules["renderer"]
+    has_physics, an = "physics" in world.modules, world.modules.get("animation")
     if step is None:
         step = engine.build_step(world, dev, extra=rm.cull_pass)
     state = replicate_state(world.device_state(dev), num_worlds,
@@ -285,52 +341,168 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     ms_frame = ev0.elapsed_time(ev1) / (FRAMES - WARM_FRAMES)
     finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
     rs = state.modules["renderer"]
-    active = state.modules["physics"].counters["active_contacts"]
     visible = rs.counters["visible_count"]
     alive = rs.counters["particles_alive"]
-    ams = state.modules["animation"]
-    animated = ams.counters["animated"]            # the animables, as the reference counts
-    posed = (ams.pose_pos != 0).any(dim=-3).any(dim=-2).sum(dim=-1)  # pool columns written
-    moved = _root_motion(world, start, state)
-    an = world.modules["animation"]
-    n_char = len(an.animables) + len(an.animators)
-    log(f"[5 {name}] W={num_worlds}: {FRAMES} frames in {wall:.2f} s; launches {launches}; "
-        f"finite {finite}; active contacts {int(active.sum())} (worlds with contacts "
-        f"{int((active > 0).sum())}); visible min/mean {int(visible.min())}/"
-        f"{float(visible.float().mean()):.1f}; characters animated min/max {int(posed.min())}/"
-        f"{int(posed.max())} (animables {int(animated.min())}); particles alive min/max "
-        f"{int(alive.min())}/{int(alive.max())}; "
-        f"animators moved min/max {moved[0]:.3f}/{moved[1]:.3f} m")
-    if launches != {"K1": FRAMES, "K2": FRAMES}:
-        raise AssertionError(f"each kernel must launch once per frame: {launches}")
-    if not finite or int(active.sum()) == 0 or int(visible.min()) <= 0:
-        raise AssertionError("state is not finite, has no contacts or no visible instance")
+    n_inst = int((rm.statics().mi_slots >= 0).sum())
+    facts = [f"{FRAMES} frames in {wall:.2f} s", f"launches {launches}", f"finite {finite}",
+             f"visible min/mean {int(visible.min())}/{float(visible.float().mean()):.1f} of "
+             f"{n_inst}"]
+    if has_physics:
+        active = state.modules["physics"].counters["active_contacts"]
+        facts.append(f"active contacts {int(active.sum())} (worlds with contacts "
+                     f"{int((active > 0).sum())})")
+    n_char = 0
+    if an is not None:
+        ams = state.modules["animation"]
+        animated = ams.counters["animated"]        # the animables, as the reference counts
+        posed = (ams.pose_pos != 0).any(dim=-3).any(dim=-2).sum(dim=-1)  # pool columns written
+        moved = _root_motion(world, start, state)
+        n_char = len(an.animables) + len(an.animators)
+        facts.append(f"characters animated min/max {int(posed.min())}/{int(posed.max())} "
+                     f"(animables {int(animated.min())}); animators moved min/max "
+                     f"{moved[0]:.3f}/{moved[1]:.3f} m")
     cap = sum(ps.caps[e] for _k, (_e, ps) in rm.particle_emitters.items() for e in ps.caps)
-    if not (bool((animated == len(an.animables)).all()) and bool((posed == n_char).all())
-            and int(alive.min()) > 0 and int(alive.max()) <= cap):
+    if cap:
+        facts.append(f"particles alive min/max {int(alive.min())}/{int(alive.max())} of {cap}")
+    log(f"[5 {name}] W={num_worlds}: " + "; ".join(facts))
+    expected = {"K1": FRAMES, "K2": FRAMES if has_physics else 0}
+    if launches != expected:
+        raise AssertionError(f"each kernel of the path must launch once per frame: {launches}")
+    if not finite or (n_inst and int(visible.min()) <= 0):
+        raise AssertionError("state is not finite, or no instance is visible")
+    if has_physics and int(active.sum()) == 0:
+        raise AssertionError("no contacts")
+    if an is not None and not (bool((animated == len(an.animables)).all())
+                               and bool((posed == n_char).all())):
         raise AssertionError(f"characters animated {posed.unique().tolist()} (expected {n_char};"
-                             f" animables {animated.unique().tolist()}), particles alive "
-                             f"{int(alive.min())}..{int(alive.max())} (capacity {cap})")
-    if len(an.animators) and not moved[2]:
+                             f" animables {animated.unique().tolist()})")
+    if an is not None and len(an.animators) and not moved[2]:
         raise AssertionError(f"root motion did not move the animators: {moved}")
+    if cap and not (int(alive.min()) > 0 and int(alive.max()) <= cap):
+        raise AssertionError(f"particles alive {int(alive.min())}..{int(alive.max())} "
+                             f"(capacity {cap})")
     del start
     ops = op_counts(world, state, dev)
     log(f"[5 {name}] torch ops dispatched in one frame at W={num_worlds} (views excluded, "
         f"K1/K2 launches not counted): {sum(ops.values())} = {ops}")
-    cmp = compare_with_plain(engine, world, map_tensors(lambda t: t[:4].clone(), state), step)
-    log(f"[5 {name}] {n_char} characters; 3 frames at W=4, card vs plain on the CPU: "
-        f"max abs err {cmp['errs']}, boundary flips {cmp['flips']}, kill flips {cmp['kills']}")
-    return {"ms": ms_frame, "worlds": num_worlds, "launches": launches, "ops": sum(ops.values())}
+    if num_worlds >= 4:
+        cmp_state = map_tensors(lambda t: t[:4].clone(), state)
+    else:   # a one-world path: its end state tiled to 4 worlds, which diverge
+        cmp_state = replicate_state(map_tensors(lambda t: t[0], state), 4,
+                                    torch.Generator(device=dev).manual_seed(4))
+    del state
+    cmp = compare_with_plain(engine, world, cmp_state, step)
+    log(f"[5 {name}] {n_char} characters; 3 frames at W={cmp_state.local.pos.shape[0]}, card vs "
+        f"plain on the CPU: max abs err {cmp['errs']}, boundary flips {cmp['flips']}, kill flips "
+        f"{cmp['kills']}")
+    return {"ms": ms_frame, "worlds": num_worlds, "units": world.capacity, "unit": "entity",
+            "launches": launches, "ops": sum(ops.values())}
 
 
-def op_counts(world, state, dev):
-    """The torch ops one frame dispatches, per module phase, counted on the
-    host as the phases of Engine.build_step run on `state`. Each non-view op
-    is about one kernel launch."""
+def run_boxes(dev):
+    """The 10k-box drop: two runs of BOX_STEPS steps on the card (the second
+    timed with CUDA events), the certificates summed on the card and read
+    once; the settle gate at the end; the ops of one step; 3 steps from step
+    BOX_COMPARE_AT, card vs CPU."""
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
 
-    from lumixengine_tpu_torch.ops import hierarchy as hier
+    from lumixengine_tpu_torch.models.demo_scenes import box_drop_pile
+
+    step, (pos, rot, vel, ang, carry), consts = box_drop_pile(N_BOXES, device=dev)
+    dt = torch.tensor(DT, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    drop, miss, max_cand, max_active = zero, zero, zero, zero
+    walls = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for i in range(BOX_STEPS):
+            if run == 0 and i == BOX_COMPARE_AT:
+                mid = (pos, rot, vel, ang, carry)  # the step makes new tensors: no copy needed
+            pos, rot, vel, ang, ctr, carry = step(pos, rot, vel, ang, dt, carry, consts)
+            drop = drop + ctr["slot_drop"]
+            miss = miss + ctr["column_miss"]
+            max_cand = torch.maximum(max_cand, ctr["max_candidates"])
+            max_active = torch.maximum(max_active, ctr["active_contacts"])
+        ev1.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            v2 = (vel * vel).sum(0) + (ang * ang).sum(0)
+            half = {"ke": float(v2.sum()), "asleep": int((v2 == 0.0).sum()),
+                    "lowest": float(pos[1].min()), "below": int((pos[1] < BOX_Y_MIN).sum())}
+    ms = ev0.elapsed_time(ev1) / BOX_STEPS
+    finite = all(bool(torch.isfinite(t).all()) for t in (pos, rot, vel, ang))
+    v2 = (vel * vel).sum(0) + (ang * ang).sum(0)
+    end = {"ke_end": float(v2.sum()), "sleeping_end": int((v2 == 0.0).sum())}
+    y_min = float(pos[1].min())
+    asleep = v2 == 0.0
+    y_sleep = float(torch.where(asleep, pos[1], float("inf")).min())
+    deep = pos[1] < BOX_Y_MIN
+    n_deep, n_deep_awake = int(deep.sum()), int((deep & ~asleep).sum())
+    log(f"[6 boxes] {N_BOXES} boxes, 2 x {BOX_STEPS} steps in {walls[0]:.2f} + {walls[1]:.2f} s "
+        f"(timed run {ms:.3f} ms/step = {N_BOXES / (ms / 1e3):.4g} body-steps/s); at step "
+        f"{BOX_STEPS}: {half}; at step {2 * BOX_STEPS}: slot_drop {int(drop)}, column_miss "
+        f"{int(miss)}, finite {finite}, lowest centre {y_min:.4f} m (of a sleeping box "
+        f"{y_sleep:.4f} m), boxes below {BOX_Y_MIN} m {n_deep} ({n_deep_awake} awake), max "
+        f"candidates "
+        f"{int(max_cand)}, active contacts at the end {int(ctr['active_contacts'])} (max "
+        f"{int(max_active)}), sleeping {int(ctr['sleeping'])}; end state {end} (the "
+        f"reference's recorded run: {BOX_REFERENCE_END})")
+    if int(drop) or int(miss) or not finite:
+        raise AssertionError("the box drop fired a certificate or is not finite")
+    if not (y_sleep > BOX_SLEEP_Y_MIN and y_min > BOX_LOWEST_MIN and n_deep <= BOX_BELOW_MAX):
+        raise AssertionError(f"a box sank to {y_min} m (limit {BOX_LOWEST_MIN}), a sleeping one "
+                             f"to {y_sleep} m (limit {BOX_SLEEP_Y_MIN}); {n_deep} boxes below "
+                             f"{BOX_Y_MIN} m (limit {BOX_BELOW_MAX})")
+    if not (end["ke_end"] < BOX_KE_MAX and end["sleeping_end"] > BOX_ASLEEP_MIN * N_BOXES):
+        raise AssertionError(f"the pile did not come to rest: {end}")
+    _, n_ops = count_ops(lambda: step(*mid[:4], dt, mid[4], consts))
+    # the step never waits for the card: any synchronizing call raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*mid[:4], dt, mid[4], consts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"[6 boxes] torch ops dispatched in one step: {n_ops}; one step ran with every "
+        f"synchronizing CUDA call an error")
+
+    cpu_consts = step.init_consts("cpu")
+    gpu, cpu = mid, _to_cpu(mid)
+    errs = {}
+    for _ in range(3):
+        *gb, gctr, gcarry = step(*gpu[:4], dt, gpu[4], consts)
+        *cb, cctr, ccarry = step(*cpu[:4], torch.tensor(DT, dtype=torch.float32), cpu[4],
+                                 cpu_consts)
+        gpu, cpu = (*gb, gcarry), (*cb, ccarry)
+        for name, g, c, atol in zip(("pos", "rot", "vel", "angvel"), gb, cb,
+                                    (BODY_POS_ATOL, BODY_POS_ATOL, BODY_VEL_ATOL,
+                                     BODY_VEL_ATOL)):
+            err = float((g.cpu() - c).abs().max())
+            errs[name] = max(errs.get(name, 0.0), err)
+            if not err <= atol:
+                raise AssertionError(f"boxes {name}: card vs plain {err} > {atol}")
+        certs = {k: (int(gctr[k]), int(cctr[k])) for k in ("slot_drop", "column_miss")}
+        if any(a != b for a, b in certs.values()):
+            raise AssertionError(f"boxes certificates differ, card vs CPU: {certs}")
+    log(f"[6 boxes] 3 steps from step {BOX_COMPARE_AT}, card vs plain on the CPU: max abs err "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }, active contacts "
+        f"{int(gctr['active_contacts'])} / {int(cctr['active_contacts'])}, certificates {certs}")
+    return {"ms": ms, "ops": n_ops, **end}
+
+
+def _to_cpu(tree):
+    if isinstance(tree, tuple):
+        return tuple(_to_cpu(t) for t in tree)
+    return tree.cpu()
+
+
+def count_ops(fn):
+    """(fn(), the number of non-view torch ops it dispatched). Each is about
+    one kernel launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
         n = 0
@@ -340,14 +512,25 @@ def op_counts(world, state, dev):
                 self.n += 1
             return func(*args, **(kwargs or {}))
 
+    with Count() as c:
+        out = fn()
+    return out, c.n
+
+
+def op_counts(world, state, dev):
+    """The torch ops one frame dispatches, per module phase, counted on the
+    host as the phases of Engine.build_step run on `state`."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import hierarchy as hier
+
     counts = {}
     dt = torch.tensor(DT, dtype=torch.float32, device=dev)
 
     def run(key, fn):
-        with Count() as c:
-            out = fn()
-        if c.n:
-            counts[key] = counts.get(key, 0) + c.n
+        out, n = count_ops(fn)
+        if n:
+            counts[key] = counts.get(key, 0) + n
         return out
 
     rm = world.modules["renderer"]
@@ -403,14 +586,15 @@ def compare_with_plain(engine, world, state, step):
     from lumixengine_tpu_torch.renderer import pipeline
 
     rm = world.modules["renderer"]
-    an = world.modules["animation"]
+    an = world.modules.get("animation")
     cpu_step = engine.build_step(world, "cpu", extra=rm.cull_pass)
-    pst = world.modules["physics"].statics()
-    body = np.zeros(N_ENTITIES, bool)
-    body[pst.entity_slots[pst.dyn_mask]] = True
+    body = np.zeros(world.capacity, bool)
+    if "physics" in world.modules:
+        pst = world.modules["physics"].statics()
+        body[pst.entity_slots[pst.dyn_mask]] = True
     mi_body = body[rm.statics().mi_slots.clip(0)]
-    char = np.zeros(N_ENTITIES, bool)
-    for store in (an.animables, an.animators):
+    char = np.zeros(world.capacity, bool)
+    for store in (an.animables, an.animators) if an is not None else ():
         char[world.to_slots(store.entity[store.entity >= 0])] = True
     gpu, cpu = state, state.to("cpu")
     errs, flips, kills = {}, [], []
@@ -436,21 +620,17 @@ def compare_with_plain(engine, world, state, step):
             k = "modules.renderer." + f
             close(k, got[k][..., ~mi_body], ref[k][..., ~mi_body], TRANSFORM_ATOL)
             close(k + "[bodies]", got[k][..., mi_body], ref[k][..., mi_body], BODY_POS_ATOL)
-        for f in ("pos", "rot"):
-            close("physics." + f, got["modules.physics." + f], ref["modules.physics." + f],
-                  BODY_POS_ATOL)
-        for f in ("vel", "angvel", "lam_n", "lam_t1", "lam_t2"):
-            close("physics." + f, got["modules.physics." + f], ref["modules.physics." + f],
-                  BODY_VEL_ATOL)
-        for f in ("an_time", "ctrl_clocks"):
-            close("animation." + f, got["modules.animation." + f], ref["modules.animation." + f],
-                  CLOCK_ATOL)
-        for f in ("pose_pos", "pose_rot", "palette"):
-            close("animation." + f, got["modules.animation." + f], ref["modules.animation." + f],
-                  POSE_ATOL)
+        tolerances = [(("pos", "rot"), "physics", BODY_POS_ATOL),
+                      (("vel", "angvel", "lam_n", "lam_t1", "lam_t2"), "physics", BODY_VEL_ATOL),
+                      (("an_time", "ctrl_clocks"), "animation", CLOCK_ATOL),
+                      (("pose_pos", "pose_rot", "palette"), "animation", POSE_ATOL)]
+        for fields, module, atol in tolerances:
+            for f in fields if module in world.modules else ():
+                k = f"modules.{module}.{f}"
+                close(f"{module}.{f}", got[k], ref[k], atol)
         for k in ("modules.physics.sleep", "modules.physics.pair_key", "frame",
                   "modules.animation.counters.animated", "modules.renderer.prng"):
-            if not np.array_equal(got[k], ref[k]):
+            if k in ref and not np.array_equal(got[k], ref[k]):
                 raise AssertionError(f"{k}: card and plain differ")
         kills.append(_compare_particles(prev, got, ref, close, diverged))
         margins = [m.numpy() for m in pipeline.cull_margins(cpu, rm)]

@@ -2,14 +2,18 @@
 
 ``full_frame_world`` is the flagship scene builder: transform hierarchy,
 frustum culling, skinned characters (animables and locomotion animators with
-root motion), rigid bodies and a particle emitter. It makes the same numpy
+root motion), rigid bodies and a particle emitter. ``skinned_crowd_world``
+and ``particle_stress_world`` are the crowd and the 1M-particle stress;
+``box_drop_pile`` is the 10k-box drop on the slot pipeline (the scene the
+reference's ``bench.py --config boxes`` builds). Each makes the same numpy
 RNG draws in the same order as the reference, and keeps its capacities, so
-one seed gives one scene and one state layout in both packages. The crowd,
-1M-particle, script and headless builders are not ported.
+one seed gives one scene and one state layout in both packages. The script
+and headless builders are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from lumixengine_tpu_torch.core import host_math as hm
 from lumixengine_tpu_torch.engine.engine import Engine
@@ -97,6 +101,88 @@ def build_engine(with_animation: bool = False, **caps):
         inputs=["speed"]))
     engine.add_system(anim)
     return engine, renderer, anim
+
+
+def skinned_crowd_world(num_characters: int = 256, animator_fraction: float = 0.5,
+                        seed: int = 0):
+    """The skinned crowd (BASELINE.md config 2): half animables (looping
+    clips), half animators (locomotion controller with root motion), and a
+    camera. Returns (engine, world, renderer, anim)."""
+    rng = np.random.default_rng(seed)
+    engine, renderer, anim = build_engine(
+        with_animation=True,
+        model_instances=num_characters + 8,
+        animables=num_characters,
+        animators=num_characters,
+    )
+    world = engine.create_world(capacity=num_characters + 8)
+    cam = world.create_entity(position=(0.0, 10.0, 60.0), name="camera")
+    world.create_component(cam, "camera", fov=np.radians(70.0), near=0.3, far=500.0)
+    n_animators = int(num_characters * animator_fraction)
+    for i in range(num_characters):
+        e = world.create_entity(
+            position=(rng.uniform(-50, 50), 0.0, rng.uniform(-50, 50)),
+            rotation=hm.quat_from_axis_angle(np.array([0, 1, 0], np.float32),
+                                             rng.uniform(0, 2 * np.pi)),
+        )
+        world.create_component(e, "model_instance", model="character")
+        if i < n_animators:
+            world.create_component(e, "animator", controller="locomotion",
+                                   inputs={"speed": float(rng.uniform(0.0, 5.0))})
+        else:
+            world.create_component(e, "animable",
+                                   clip=["idle", "walk", "run"][int(rng.integers(3))],
+                                   start_time=float(rng.uniform(0, 1)))
+    return engine, world, renderer, anim
+
+
+def particle_stress_world(capacity: int = 1_000_000):
+    """The particle stress (BASELINE.md config 4): one `storm` emitter at
+    `capacity`. Returns (engine, world, renderer)."""
+    engine, renderer = build_engine(model_instances=8)
+    renderer.add_particle_script("storm", PARTICLE_STRESS_SCRIPT % {"cap": capacity})
+    world = engine.create_world(capacity=8)
+    cam = world.create_entity(position=(0.0, 10.0, 80.0), name="camera")
+    world.create_component(cam, "camera")
+    e = world.create_entity(name="storm")
+    world.create_component(e, "particle_emitter", script="storm")
+    return engine, world, renderer
+
+
+# the reference bench's published tier for the box drop (bench.py --config boxes)
+BOX_DROP_TIER = dict(slots=28, window=40, iterations=6, position_iterations=2, warm_start=True,
+                     over_relax=1.4, settle_damping=0.05, sleep_speed=0.15, sleep_frames=15,
+                     wake_speed=0.3)
+
+
+def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cpu"):
+    """The 10k-box drop (BASELINE.md config 3, the PhysX parity scene): unit
+    boxes (half extent 0.5, mass 1, friction 0.6, no restitution) on the
+    first `num_bodies` cells of a cubic lattice at 1.1 m pitch, jittered by
+    0-5 cm, lifted 2 m, at rest; the slot pipeline at the published tier.
+
+    Returns (step, state, consts): `state` = (pos, rot, vel, angvel, carry)
+    on `device`, `consts` = the body tables there; one frame is
+    step(pos, rot, vel, angvel, dt, carry, consts)."""
+    from lumixengine_tpu_torch.ops import physics_ops as P
+    from lumixengine_tpu_torch.ops import physics_slots as PSL
+
+    nb = num_bodies
+    rng = np.random.default_rng(seed)
+    step = PSL.make_slot_world_step(
+        np.full(nb, P.SHAPE_BOX, np.int32), np.full(nb, 0.5, np.float32),
+        np.full((3, nb), 0.5, np.float32), np.ones(nb, bool), np.ones(nb, np.float32),
+        np.full((3, nb), 1.0 / (1.0 / 12 * 2.0), np.float32), np.full(nb, 0.6, np.float32),
+        np.zeros(nb, np.float32), **BOX_DROP_TIER)
+    side = int(np.ceil(nb ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)[:nb]
+    pos = (grid * 1.1 + rng.uniform(0, 0.05, (nb, 3)) + [0.0, 2.0, 0.0]).T.astype(np.float32)
+    rot = np.zeros((4, nb), np.float32)
+    rot[3] = 1.0
+    zeros = np.zeros((3, nb), np.float32)
+    state = tuple(torch.as_tensor(a, device=device) for a in (pos, rot, zeros, zeros)) + (
+        step.init_carry(device),)
+    return step, state, step.init_consts(device)
 
 
 def full_frame_world(num_entities: int = 10240, num_characters: int = 64,

@@ -14,6 +14,7 @@ of ``vmap``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -79,9 +80,16 @@ def integrate_positions(pos, rot, vel, angvel, dt, dyn_mask):
     return torch.where(m, new_pos, pos), torch.where(m, new_rot, rot)
 
 
+@functools.lru_cache(maxsize=None)
+def _corner_signs(device: torch.device) -> torch.Tensor:
+    """The corner signs on `device`, copied there once: a copy from the host
+    per call would wait for the device each time."""
+    return torch.as_tensor(_CORNER_SIGNS, device=device)
+
+
 def box_corners(pos, rot, half_extents):
     """World-space box corners: [..., 3, 8, NB]."""
-    signs = torch.as_tensor(_CORNER_SIGNS, device=pos.device)
+    signs = _corner_signs(pos.device)
     local = half_extents[..., :, None, :] * signs[:, :, None]
     return pos[..., :, None, :] + lm.quat_rotate(rot[..., :, None, :], local, axis=-3)
 
@@ -153,13 +161,15 @@ def pair_contacts(pos, rot, shape, radius, half_extents, pair_a, pair_b,
                   points_per_pair: int = 4) -> Contacts:
     """Narrowphase over a pair list (int64 [P] or per world [..., P]):
     sphere-sphere single point, sphere-box closest feature, box-box the
-    `points_per_pair` deepest corners. C = points_per_pair · P slots."""
+    `points_per_pair` deepest corners. C = points_per_pair · P slots.
+    PhysStatics refuses capsules, so there are none here."""
     k = points_per_pair
     point, normal, depth, active = pair_contacts_from_data(
         take_vecs(pos, pair_a), take_vecs(rot, pair_a), take_rows(radius, pair_a),
         take_vecs(half_extents, pair_a), take_rows(shape, pair_a),
         take_vecs(pos, pair_b), take_vecs(rot, pair_b), take_rows(radius, pair_b),
-        take_vecs(half_extents, pair_b), take_rows(shape, pair_b), points_per_pair=k)
+        take_vecs(half_extents, pair_b), take_rows(shape, pair_b), points_per_pair=k,
+        any_caps=False)
     return Contacts(body_a=pair_a.tile((k,)), body_b=pair_b.tile((k,)), point=point,
                     normal=normal, depth=depth, active=active)
 
@@ -179,10 +189,14 @@ def _clip(x, lo, hi):
 
 def pair_contacts_from_data(pos_a, rot_a, rad_a, he_a, shape_a,
                             pos_b, rot_b, rad_b, he_b, shape_b,
-                            points_per_pair: int = 4):
+                            points_per_pair: int = 4, any_caps: bool = True):
     """Narrowphase core on gathered per-pair arrays ([..., P] / [..., 3|4, P])
     → (point, normal, depth, active) in slot-major [k, P] flattened layout.
-    Sphere and box shapes only (PhysStatics refuses the others)."""
+    Sphere and box shapes only: capsules are not ported, so the caller says
+    none is present (`any_caps=False`, decided on the host from the shape
+    table, as in the reference)."""
+    if any_caps:
+        raise NotImplementedError("capsule contacts are not ported")
     P = pos_a.shape[-1]
     k = points_per_pair
     dev = pos_a.device
