@@ -5,13 +5,16 @@
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build of the hand-written kernels (nvcc, sm_90a) from lumixengine_tpu_torch/csrc;
+  2. build of the hand-written kernels (nvcc, sm_90a) from lumixengine_tpu_torch/csrc,
+     with what ptxas reports for each kernel (registers, shared memory, spills);
   3. K1 (frustum cull) against its plain PyTorch version on the cull pass's
      own operands at [1024, 10240]: bit for bit;
   4. K2 (fused contact solve) against its plain version on the contact sets
      of the slice world settled at W=1024 (NB=64, C=1792, 10 + 3 iterations),
-     and as a pile, within solver.K2_PLAIN_ATOL; the plain version run one
-     iteration or one projection pass short must exceed that limit;
+     as a pile, and on the largest shape the module makes,
+     full_frame_world(2048, 0, 256, 0) piled at W=1024 (NB=256, C=7168),
+     within solver.K2_PLAIN_ATOL; the plain version run one iteration or one
+     projection pass short must exceed that limit;
   5. the main paths, each through Engine.build_step(extra=cull_pass) on the
      card with the launch counts set to 0 just before and read just after:
      the full flagship full_frame_world(10240, 64, 64, 2048) replicated to
@@ -48,8 +51,11 @@ Phases, each printed on its own line:
      CPU, within BODY_POS_ATOL / BODY_VEL_ATOL with equal certificates;
   7. timings with CUDA events: ms/frame and entity-steps/s of each path
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
-     of the boxes, each kernel beside its plain version, and
-     the torch ops dispatched per frame or step.
+     of the boxes, each kernel beside its plain version (plain, kernel,
+     kernel, plain; K2 on the settled and the piled problem) and against its
+     bound: the bytes it must move over 3.35 TB/s or its operations over 67
+     TFLOP/s (fp32), whichever is longer; and the torch ops dispatched per
+     frame or step.
 
 Any failure raises and the exit code is not 0. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}. Without a CUDA device
@@ -96,6 +102,10 @@ PARTICLE_ATOL = 1e-4     # particle channels, |values| <= ~60 (1 ulp at 32..64 i
 KILL_MARGIN = 1e-4       # kills this close to a threshold (pos.y = 0, t = 6) may flip
 STORM_G = 9.8
 DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
+FP32_FLOP_PER_S = 67e12     # outside the tensor cores
+KERNEL_REPS = 50
+NO_LIBRARY = "no single PyTorch call computes it"
 
 
 def log(msg: str) -> None:
@@ -122,10 +132,18 @@ def cuda_time(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def alternate(plain, kernel, reps: int):
+def alternate(plain, kernel, plain_reps: int, kernel_reps: int = KERNEL_REPS):
     """Times in the order plain, kernel, kernel, plain; returns the means."""
-    p1, k1, k2, p2 = (cuda_time(f, reps) for f in (plain, kernel, kernel, plain))
+    p1 = cuda_time(plain, plain_reps)
+    k1, k2 = cuda_time(kernel, kernel_reps), cuda_time(kernel, kernel_reps)
+    p2 = cuda_time(plain, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: int, flops: int):
+    """(least ms for the work on the card, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def max_err(xs, ys) -> float:
@@ -141,7 +159,7 @@ def main() -> int:
     from lumixengine_tpu_torch.core import geometry as geom
     from lumixengine_tpu_torch.engine.world import map_tensors
     from lumixengine_tpu_torch.models.demo_scenes import (full_frame_world,
-                                                          particle_stress_world,
+                                                          particle_stress_world, pile_bodies,
                                                           skinned_crowd_world)
     from lumixengine_tpu_torch.ops import culling as cull
     from lumixengine_tpu_torch.ops import hierarchy as hier
@@ -165,10 +183,11 @@ def main() -> int:
     native.library()
     log(f"[2 build] {native.library_path().name} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(native.NVCC_FLAGS[:2])})")
+    for line in ptxas_report(native.build_log()):
+        log(f"[2 ptxas] {line}")
 
     engine, world, _renderer, _anim, _phys = full_frame_world(N_ENTITIES, 0, N_BODIES, 0)
     rm, pm = world.modules["renderer"], world.modules["physics"]
-    st = pm.statics()
     single = world.device_state(dev)
     step = engine.build_step(world, dev, extra=rm.cull_pass)
 
@@ -203,18 +222,15 @@ def main() -> int:
     settle = replicate_state(single, W, torch.Generator(device=dev).manual_seed(3))
     for _ in range(SETTLE_FRAMES):
         settle = step(settle, DT)
-    physics = settle.modules["physics"]
-    i = torch.arange(N_BODIES, device=dev)
-    grid = torch.stack([(i % 4) * 0.95, 0.45 + (i // 16) * 0.95, ((i // 4) % 4) * 0.95]).float()
-    piled = settle.replace(modules={**settle.modules, "physics": physics.replace(
-        pos=grid.expand(physics.pos.shape).contiguous())})
+    piled = pile_bodies(settle)
     k2_err = 0.0
     problems = {}
     faults = {"one iteration short": 0.0, "one projection pass short": 0.0}
-    for name, s in (("settled", settle), ("piled", piled)):
-        prob = pm.solver_problem(s, DT)
+    wide = wide_problem(dev, W, replicate_state)
+    for name, s in (("settled", settle), ("piled", piled), ("piled NB=256", wide)):
+        prob = pm.solver_problem(s, DT) if name != "piled NB=256" else s
         problems[name] = prob
-        n_pair = int(prob.act[:, -pm.points_per_pair * st.pair_budget:].sum())
+        n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
         outk = S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS)
         outp = S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS)
         err = max_err(outk, outp)
@@ -224,9 +240,11 @@ def main() -> int:
             f"{err:.3e} (limit {S.K2_PLAIN_ATOL:g})")
         if not ok or not err <= S.K2_PLAIN_ATOL:
             raise AssertionError(f"K2 disagrees with its plain version: {err} (finite {ok})")
-        if int(prob.act.sum()) == 0 or (name == "piled" and n_pair == 0):
+        if int(prob.act.sum()) == 0 or (name.startswith("piled") and n_pair == 0):
             raise AssertionError(f"K2 check on {name} has no contacts to solve")
         k2_err = max(k2_err, err)
+        if name == "piled NB=256":
+            continue
         for fault, its in (("one iteration short", (ITERATIONS - 1, POSITION_ITERATIONS)),
                            ("one projection pass short", (ITERATIONS, POSITION_ITERATIONS - 1))):
             faults[fault] = max(faults[fault], max_err(S.solve_plain(prob, *its), outp))
@@ -234,7 +252,7 @@ def main() -> int:
     log(f"[4 K2] plain version with a planted fault, max abs err vs plain: {shown}")
     if not min(faults.values()) > S.K2_PLAIN_ATOL:
         raise AssertionError(f"the K2 limit {S.K2_PLAIN_ATOL} does not catch a planted fault: {faults}")
-    del settle, piled, problems["piled"]
+    del settle, piled, wide, problems["piled NB=256"]
 
     # 5. the main paths
     stream = check_threefry(dev)
@@ -255,17 +273,34 @@ def main() -> int:
     # 7. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
+    k1_bound, k1_by = bound(cull.k1_bytes(W, N_ENTITIES), cull.k1_flops(W, N_ENTITIES))
+    k2 = {}
+    for name in ("settled", "piled"):
+        prob = problems[name]
+        w_, _, nb = prob.vel.shape
+        c = prob.act.shape[-1]
+        n_active = int(prob.act.sum())
+        n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
+        ms, plain_ms = alternate(lambda: S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS),
+                                 lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
+        nbytes = S.k2_bytes(w_, nb, c, int((prob.act != 0).sum()))
+        bound_ms, by = bound(nbytes, S.k2_flops(w_, nb, c, n_active, n_pair, ITERATIONS,
+                                                POSITION_ITERATIONS))
+        k2[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_by": by, "share_of_bound": bound_ms / ms, "W": w_, "C": c}
+        log(f"[7 K2] {card}: {name} W={w_} NB={nb} C={c} (active {n_active}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound "
+            f"{bound_ms / ms:.3f}")
     prob = problems["settled"]
-    k2_ms, k2_plain = alternate(lambda: S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS),
-                                lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
     paths = "; ".join(
         f"{name} {r['ms']:.3f} ms/frame at W={r['worlds']} = "
         f"{r['worlds'] * r['units'] / (r['ms'] / 1e3):.4g} {r['unit']}-steps/s ({r['ops']} ops/frame)"
         for name, r in runs.items())
     log(f"[7 time] {card}: {paths}; boxes {boxes['ms']:.3f} ms/step at {N_BOXES} bodies = "
         f"{N_BOXES / (boxes['ms'] / 1e3):.4g} body-steps/s ({boxes['ops']} ops/step);"
-        f" K1 [{W},3,{N_ENTITIES}] {k1_ms:.4f} ms (plain {k1_plain:.4f} ms);"
-        f" K2 W={prob.vel.shape[0]} C={prob.act.shape[-1]} {k2_ms:.4f} ms (plain {k2_plain:.4f} ms)")
+        f" K1 [{W},3,{N_ENTITIES}] {k1_ms:.4f} ms (plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms);"
+        f" K2 settled W={prob.vel.shape[0]} C={prob.act.shape[-1]} {k2['settled']['ms']:.4f} ms "
+        f"(plain {k2['settled']['plain_ms']:.4f} ms, bound {k2['settled']['bound_ms']:.4f} ms)")
 
     main_launches = runs["flagship"]["launches"]
     kernels = [
@@ -274,18 +309,55 @@ def main() -> int:
          "launches_slice": runs["slice"]["launches"]["K1"],
          "launches_crowd": runs["crowd"]["launches"]["K1"],
          "launches_particles": runs["particles"]["launches"]["K1"],
-         "max_abs_err": k1_err, "mismatches": k1_bad, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "mismatches": k1_bad, "ms": k1_ms, "plain_ms": k1_plain,
+         "bytes": cull.k1_bytes(W, N_ENTITIES), "bound_ms": k1_bound, "bound_by": k1_by,
+         "bound_of": k1_by, "share_of_bound": k1_bound / k1_ms, "library_ms": None,
+         "library_note": NO_LIBRARY},
         {"name": "K2 solve_contacts_fused", "route": "cuda",
          "source": "lumixengine_tpu_torch/csrc/solver.cu",
          "replaces": "lumixengine_tpu/ops/solver_pallas.py:165", "launches": main_launches["K2"],
          "launches_slice": runs["slice"]["launches"]["K2"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": k2_err, "ms": k2["settled"]["ms"], "plain_ms": k2["settled"]["plain_ms"],
+         "bytes": k2["settled"]["bytes"], "bound_ms": k2["settled"]["bound_ms"],
+         "bound_by": k2["settled"]["bound_by"], "bound_of": k2["settled"]["bound_by"],
+         "share_of_bound": k2["settled"]["share_of_bound"], "ms_piled": k2["piled"]["ms"],
+         "plain_ms_piled": k2["piled"]["plain_ms"], "bound_ms_piled": k2["piled"]["bound_ms"],
+         "share_of_bound_piled": k2["piled"]["share_of_bound"], "library_ms": None,
+         "library_note": NO_LIBRARY},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ptxas_report(log: str):
+    """One line per kernel from nvcc's ptxas output: its name, then its
+    stack, spills, registers and shared memory."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            name = ("K2 compact" if "solve_kernelILb1" in fn else "K2 in place"
+                    if "solve_kernel" in fn else "K1" if "cull" in fn else fn)
+        elif name and ("spill" in line or "Used" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def wide_problem(dev, num_worlds, replicate_state):
+    """K2's operands at the largest shape the module makes: the slice world
+    with 256 bodies, full_frame_world(2048, 0, 256, 0), its bodies piled up
+    as in phase 4 (NB=256, C=7168), at `num_worlds` worlds."""
+    import torch
+
+    from lumixengine_tpu_torch.models.demo_scenes import full_frame_world, pile_bodies
+
+    _e, world, _r, _a, _p = full_frame_world(2048, 0, 256, 0)
+    state = replicate_state(world.device_state(dev), num_worlds,
+                            torch.Generator(device=dev).manual_seed(5))
+    return world.modules["physics"].solver_problem(pile_bodies(state), DT)
 
 
 def check_threefry(dev):

@@ -155,15 +155,16 @@ BOX_DROP_TIER = dict(slots=28, window=40, iterations=6, position_iterations=2, w
                      wake_speed=0.3)
 
 
-def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cpu"):
+def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cuda"):
     """The 10k-box drop (BASELINE.md config 3, the PhysX parity scene): unit
     boxes (half extent 0.5, mass 1, friction 0.6, no restitution) on the
     first `num_bodies` cells of a cubic lattice at 1.1 m pitch, jittered by
     0-5 cm, lifted 2 m, at rest; the slot pipeline at the published tier.
 
     Returns (step, state, consts): `state` = (pos, rot, vel, angvel, carry)
-    on `device`, `consts` = the body tables there; one frame is
-    step(pos, rot, vel, angvel, dt, carry, consts)."""
+    on `device` (the card unless the caller asks for the CPU), `consts` = the
+    body tables there; one frame is step(pos, rot, vel, angvel, dt, carry,
+    consts)."""
     from lumixengine_tpu_torch.ops import physics_ops as P
     from lumixengine_tpu_torch.ops import physics_slots as PSL
 
@@ -183,6 +184,17 @@ def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cpu"):
     state = tuple(torch.as_tensor(a, device=device) for a in (pos, rot, zeros, zeros)) + (
         step.init_carry(device),)
     return step, state, step.init_consts(device)
+
+
+def pile_bodies(state):
+    """`state` (a WorldState with a physics module) with every world's rigid
+    bodies moved into a tight pile: 4 x 4 to a layer at 0.95 m pitch, so that
+    neighbours overlap by 5 cm and the pair stream carries contacts."""
+    ph = state.modules["physics"]
+    i = torch.arange(ph.pos.shape[-1], device=ph.pos.device)
+    grid = torch.stack([(i % 4) * 0.95, 0.45 + (i // 16) * 0.95, ((i // 4) % 4) * 0.95])
+    pos = grid.to(ph.pos.dtype).expand(ph.pos.shape).contiguous()
+    return state.replace(modules={**state.modules, "physics": ph.replace(pos=pos)})
 
 
 def full_frame_world(num_entities: int = 10240, num_characters: int = 64,

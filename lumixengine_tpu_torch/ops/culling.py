@@ -26,6 +26,18 @@ def frustum_cull_plain(centers: torch.Tensor, radii: torch.Tensor,
     return torch.amin(dist, dim=1) >= -radii
 
 
+def k1_bytes(w: int, k: int) -> int:
+    """Bytes a K1 launch must move: centres (12 B) and radius (4 B) read and
+    the mask (1 B) written per sphere, the 8 planes (128 B) read per world."""
+    return w * k * 17 + w * 8 * 4 * 4
+
+
+def k1_flops(w: int, k: int) -> int:
+    """Float operations of a K1 launch: per sphere 6 plane tests of 3
+    multiplies and 3 adds, 5 minimums and the compare against -r."""
+    return w * k * (6 * 6 + 5 + 1)
+
+
 def frustum_cull_cuda(centers: torch.Tensor, radii: torch.Tensor,
                       planes: torch.Tensor) -> torch.Tensor:
     """Launch K1 on the current stream. Same contract as the plain version."""

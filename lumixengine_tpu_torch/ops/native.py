@@ -3,7 +3,8 @@
 The ``.cu`` sources have a plain C interface. At first use they are compiled
 with ``nvcc`` for ``sm_90a`` into one shared library under
 ``lumixengine_tpu_torch/_build/``, whose file name carries a hash of the
-sources and flags (a source change rebuilds), and loaded with ``ctypes``.
+sources and flags (a source change rebuilds), and loaded with ``ctypes``. What ``ptxas -v`` reports for each kernel (registers, shared
+memory, spills) is kept beside the library (``build_log``).
 Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("cull.cu", "solver.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,8 +63,16 @@ def build() -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_log() -> str:
+    """nvcc's output for the built library: ptxas' registers, shared memory
+    and spills per kernel."""
+    log = build().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.cache
@@ -72,9 +81,9 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.lumix_frustum_cull.argtypes = [_P, _P, _P, _P, _I, _I, _P]
     lib.lumix_frustum_cull.restype = _I
-    lib.lumix_solve_contacts.argtypes = [_P] * 31 + [_I] * 5 + [_P]
+    lib.lumix_solve_contacts.argtypes = [_P] * 31 + [_I] * 11 + [_P]
     lib.lumix_solve_contacts.restype = _I
-    lib.lumix_solve_contacts_smem.argtypes = [_I]
+    lib.lumix_solve_contacts_smem.argtypes = [_I] * 4
     lib.lumix_solve_contacts_smem.restype = ctypes.c_size_t
     return lib
 

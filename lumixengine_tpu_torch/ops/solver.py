@@ -5,18 +5,25 @@ K2 replaces ``lumixengine_tpu/ops/solver_pallas.py::solve_contacts_fused``
 (kernel ``_make_kernel``): warm-start impulses, ``iterations`` projected-
 Jacobi passes, then ``position_iterations`` split-impulse passes that return
 ``dpos`` for the caller to add after ``integrate_positions``. The CUDA source
-is ``csrc/solver.cu``; its note says what bounds it on the H100 (the
-dependent iteration chain and shared-memory atomics) and how one CTA per
-world keeps every gather and scatter on chip.
+is ``csrc/solver.cu``; its note says what bounds it on the H100 (device
+memory: 28 bytes per contact slot, 104 more per active one) and how each
+contact is read once and held in shared memory across every pass: the
+active slots of a world in one CTA of a compact kernel (two tiers of
+capacity), or, for a world with more active slots, every slot in place,
+split over a cluster of up to 8 CTAs.
 
 Where the TPU version contracted one-hot incidence matrices, this one reads
 ``body_a`` / ``body_b`` index vectors (int32 ``[W, C]``, -1 = ground) and
-scatters by index. ``solve`` takes the plain version for CPU tensors and
-launches K2 for CUDA tensors; there is no fallback between the two.
+gathers each body's contacts by index. ``solve`` takes the plain version for
+CPU tensors and launches K2 for CUDA tensors; there is no fallback between
+the two. ``k2_plan`` says how K2 lays a world out on the card and raises for
+a shape beyond its limit; ``k2_bytes`` and ``k2_flops`` give the work a
+launch must do.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -26,9 +33,10 @@ from lumixengine_tpu_torch.ops import native
 from lumixengine_tpu_torch.ops import physics_ops as P
 
 AX = -2
-# K2 against solve_plain on the same inputs. The shared-memory atomics only
-# reorder float sums (about 1e-6 on an H100); one projection pass too few on
-# settled contacts already moves dpos by about 5e-4.
+# K2 against solve_plain on the same inputs. K2 sums each body's impulses in
+# another order and multiplies by relax / k where the plain version divides
+# by k and multiplies by relax (about 1e-6 on an H100); one projection pass
+# too few on settled contacts already moves dpos by about 5e-4.
 K2_PLAIN_ATOL = 1e-4
 
 
@@ -211,38 +219,165 @@ def solve_plain(p: ContactProblem, iterations: int, position_iterations: int):
     return v, w, dpos, ln, lt1, lt2
 
 
+# K2's layout on the card (csrc/solver.cu). The compact kernel holds a world
+# in one CTA of K2_CAP_THREADS threads: the act row (C words), a bit per
+# slot, and records of `cap` active slots (134 B each). It
+# runs in two tiers (K2_TIERS): with the capacity at which 4 CTAs share an
+# SM, then at 3 on the worlds the first left. The in-place kernel takes the
+# worlds left after that: their slots split over a cluster of up to
+# K2_CLUSTER_MAX CTAs, each holding its share's 30 operand rows (120 B a
+# slot) in at most K2_SMEM_MAX bytes of shared memory.
+K2_SMEM_MAX = 232_448     # the shared memory one block may use on sm_90 (227 KB)
+K2_SMEM_SM = 233_472      # an SM's shared memory, 1,024 B of it reserved per block
+K2_TIERS = (4, 3)         # compact CTAs per SM, tier by tier
+K2_CAP_THREADS = 256      # 8 warps: 2 on each of an SM's 4 register-file quarters
+K2_CLUSTER_MAX = 8        # the portable cluster size
+K2_ROWS = 30              # operand words per contact slot
+K2_HEADER = 256           # mbarriers, the active count, warp totals
+K2_SHARE_MAX = 32_764     # slots per CTA: an incidence is 2 * slot + side in 16 bits
+
+
+@dataclass(frozen=True)
+class K2Plan:
+    cluster: int      # in place: CTAs per world
+    share: int        # in place: contact slots per CTA, a multiple of 4
+    threads: int      # in place: threads per CTA
+    smem: int         # in place: dynamic shared memory per CTA, bytes
+    caps: tuple       # compact: each tier's capacity (0: no such kernel)
+    cap_smems: tuple  # compact: each tier's dynamic shared memory per CTA, bytes
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def k2_smem(nb: int, stride: int, c: int = 0, compact: bool = False) -> int:
+    """Shared memory of one CTA (csrc/solver.cu::layout): the in-place
+    kernel's with `stride` = its share of slots, the compact kernel's with
+    `stride` = cap for C = `c` slots."""
+    o = K2_HEADER
+    if compact:
+        o += _up(4 * c, 16)
+    o += 4 * K2_ROWS * stride + _up(2 * stride, 16)
+    if compact:
+        o += _up(4 * -(-c // 32), 16) + 12 * stride
+    return o + 4 * (23 * nb + 1)
+
+
+def k2_max_c(nb: int) -> int:
+    """The most contact slots K2 takes at `nb` bodies."""
+    share = (K2_SMEM_MAX - k2_smem(nb, 0)) // (4 * K2_ROWS + 2) // 4 * 4
+    while share > 0 and k2_smem(nb, share) > K2_SMEM_MAX:
+        share -= 4
+    return max(0, min(share, K2_SHARE_MAX)) * K2_CLUSTER_MAX
+
+
+def k2_cap(nb: int, c: int, per_sm: int) -> int:
+    """The compact kernel's capacity (a multiple of 8) when `per_sm` of its
+    CTAs share an SM, else 0."""
+    budget = K2_SMEM_SM // per_sm - 1_024
+    if c > 65535:
+        return 0
+    cap = (budget - k2_smem(nb, 0, c, True)) // (4 * K2_ROWS + 14) // 8 * 8
+    while cap > 0 and k2_smem(nb, cap, c, True) > budget:
+        cap -= 8
+    return min(cap, c, K2_SHARE_MAX) if cap >= 32 else 0
+
+
+@functools.lru_cache(maxsize=64)
+def k2_plan(nb: int, c: int) -> K2Plan:
+    """The smallest cluster whose CTAs hold the world in place, and each
+    compact tier's capacity (none for a tier that holds no more than the
+    one before); raises ValueError beyond K2's limit."""
+    if nb < 1 or nb > 65534 or c < 0 or c % 4:
+        raise ValueError(f"K2 takes 1 to 65534 bodies and C a multiple of 4 slots, got NB={nb}, "
+                         f"C={c}")
+    for s in (1, 2, 4, 8):
+        share = max(4, _up(-(-c // s), 4))
+        if share <= K2_SHARE_MAX and k2_smem(nb, share) <= K2_SMEM_MAX:
+            threads = 1024 if share > 1024 else max(128, min(512, _up(share, 128)))
+            caps = []
+            for per_sm in K2_TIERS:
+                cap = k2_cap(nb, c, per_sm)
+                caps.append(cap if cap > max(caps, default=0) else 0)
+            return K2Plan(s, share, threads, k2_smem(nb, share), tuple(caps),
+                          tuple(k2_smem(nb, cap, c, True) if cap else 0 for cap in caps))
+    raise ValueError(f"K2 holds a world in at most {K2_CLUSTER_MAX} CTAs of {K2_SMEM_MAX} bytes "
+                     f"of shared memory: at NB={nb} that is C <= {k2_max_c(nb)}, got C={c}")
+
+
+def k2_bytes(w: int, nb: int, c: int, n_active: int) -> int:
+    """Bytes a launch must move with `n_active` of its w * c slots active:
+    act and the 3 warm-start lambdas read and the 3 lambdas written for
+    every slot; the other 26 operand words of an active slot read (an
+    inactive one's lambdas are 0 whatever they hold); 9 body words read and
+    9 written a world, and inv_mass."""
+    return 4 * (w * c * 7 + n_active * (K2_ROWS - 4) + w * 18 * nb + nb)
+
+
+def k2_flops(w: int, nb: int, c: int, n_active: int, n_pair: int, iterations: int,
+             position_iterations: int) -> int:
+    """Float operations a launch does on these inputs (atomic adds count as
+    adds): the warm-start lambdas of every slot; per active contact the warm
+    start, each velocity pass and each position pass, and as much again on
+    the second body for the `n_pair` contacts that have one; per body the
+    update after each pass."""
+    per_active = 36 + 96 * iterations + 24 * position_iterations
+    per_pair = 21 + 33 * iterations + 3 * position_iterations
+    per_body = 12 * (1 + iterations) + 6 * position_iterations
+    return 4 * w * c + n_active * per_active + n_pair * per_pair + w * nb * per_body
+
+
+_BODY_FIELDS = ("inv_inertia", "vel", "angvel")
+_VEC_FIELDS = ("r_a", "r_b", "n", "t1", "t2")
+
+
+@functools.lru_cache(maxsize=64)
+def _operand_spec(w: int, nb: int, c: int):
+    """(name, dtype, shape) of every ContactProblem field, in field order."""
+    spec = []
+    for f in dataclasses.fields(ContactProblem):
+        name = f.name
+        dtype = torch.int32 if name in ("body_a", "body_b") else torch.float32
+        shape = ((nb,) if name == "inv_mass" else (w, 3, nb) if name in _BODY_FIELDS
+                 else (w, 3, c) if name in _VEC_FIELDS else (w, c))
+        spec.append((name, dtype, shape))
+    return tuple(spec)
+
+
 def solve_cuda(p: ContactProblem, iterations: int, position_iterations: int):
-    """Launch K2 on the current stream. Same contract as solve_plain."""
+    """Launch K2 on the current stream, laid out by k2_plan. Same contract
+    as solve_plain."""
     dev = p.vel.device
+    if dev.type != "cuda":
+        raise ValueError(f"solve_cuda takes CUDA tensors, got {dev}")
     w_, three, nb = p.vel.shape
     c = p.act.shape[-1]
-    for name, t in p.tensors().items():
-        want = torch.int32 if name in ("body_a", "body_b") else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"{name} must be {want}, got {t.dtype}")
-    shapes = {"inv_mass": (nb,), "inv_inertia": (w_, 3, nb), "angvel": (w_, 3, nb)}
-    for name in ("r_a", "r_b", "n", "t1", "t2"):
-        shapes[name] = (w_, 3, c)
-    for name in ("body_a", "body_b", "k_n", "k_t1", "k_t2", "v_target", "mu", "act", "relax",
-                 "ln0", "lt10", "lt20", "e0_p", "relax_p", "k_lin"):
-        shapes[name] = (w_, c)
-    for name, shape in shapes.items():
-        if tuple(getattr(p, name).shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(getattr(p, name).shape)}, expected {shape}")
-    native.check_operands(dev, **p.tensors())
+    ptrs = []
+    index = dev.index
+    for name, dtype, shape in _operand_spec(w_, nb, c):
+        t = getattr(p, name)
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.get_device() != index or not t.is_contiguous():
+            native.check_operands(dev, **{name: t})
+        ptr = t.data_ptr()
+        if ptr % 16:
+            raise ValueError(f"{name} must start on 16 bytes (K2 copies its rows in bulk)")
+        ptrs.append(ptr)
+    plan = k2_plan(nb, c)
     lib = native.library()
-    if lib.lumix_solve_contacts_smem(nb) > 48 * 1024:
-        raise ValueError(f"K2 keeps the bodies in 48 KB of shared memory: NB={nb} is too many")
-    vel = torch.empty_like(p.vel)
-    ang = torch.empty_like(p.vel)
-    dpos = torch.empty_like(p.vel)
-    ln, lt1, lt2, lam_p = (torch.empty_like(p.act) for _ in range(4))
-    t = p.tensors()
-    ptrs = [t[f.name].data_ptr() for f in dataclasses.fields(ContactProblem)]
+    vel, ang, dpos = torch.empty((3, w_, 3, nb), device=dev)
+    ln, lt1, lt2 = torch.empty((3, w_, c), device=dev)
+    lists = torch.empty(2 + 2 * w_ if any(plan.caps) else 0, dtype=torch.int32, device=dev)
     rc = lib.lumix_solve_contacts(*ptrs, vel.data_ptr(), ang.data_ptr(), dpos.data_ptr(),
-                                  ln.data_ptr(), lt1.data_ptr(), lt2.data_ptr(), lam_p.data_ptr(),
+                                  ln.data_ptr(), lt1.data_ptr(), lt2.data_ptr(),
+                                  lists.data_ptr() if any(plan.caps) else None,
                                   w_, nb, c, int(iterations), int(position_iterations),
-                                  native.stream_handle(dev))
+                                  plan.cluster, plan.share, plan.threads, *plan.caps,
+                                  K2_CAP_THREADS, native.stream_handle(dev))
     native.check(rc, "lumix_solve_contacts")
     solve_cuda.launches += 1
     return vel, ang, dpos, ln, lt1, lt2

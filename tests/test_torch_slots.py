@@ -367,7 +367,7 @@ def test_capsules_are_refused():
 def test_box_drop_pile_is_the_bench_scene():
     """box_drop_pile builds the reference bench's scene: the lattice, the
     jitter draws and the published tier."""
-    step, (pos, rot, vel, ang, carry), consts = pds.box_drop_pile(100)
+    step, (pos, rot, vel, ang, carry), consts = pds.box_drop_pile(100, device="cpu")
     rng = np.random.default_rng(0)
     g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(-1, 3)[:100]
     want = (g * 1.1 + rng.uniform(0, 0.05, (100, 3)) + [0.0, 2.0, 0.0]).T.astype(np.float32)
