@@ -18,7 +18,7 @@ Phases, each printed on its own line:
   5. the main paths, each through Engine.build_step(extra=cull_pass) on the
      card with the launch counts set to 0 just before and read just after:
      the full flagship full_frame_world(10240, 64, 64, 2048) replicated to
-     1024 worlds for 200 frames (hierarchy, 32 animables, 32 locomotion
+     1024 worlds for FRAMES frames (hierarchy, 32 animables, 32 locomotion
      animators with root motion and dual-quaternion palettes, 64 rigid
      bodies, the 2048-particle storm emitter, the cull pass); the slice
      full_frame_world(10240, 0, 64, 0) at 256 worlds (a smaller W than the
@@ -49,13 +49,31 @@ Phases, each printed on its own line:
      bounds set from the card's and the reference's readings; then 3 steps
      from the card's state at step 60 (mid-impact) on the card against the
      CPU, within BODY_POS_ATOL / BODY_VEL_ATOL with equal certificates;
-  7. timings with CUDA events: ms/frame and entity-steps/s of each path
+  7. the PhysicsModule beyond the flagship, each path with the launch counts
+     set to 0 just before it and read just after: the nine committed
+     goldens (tests/data/golden_*.npz) at W=1 for their full step counts,
+     each held to the bounds of the JAX package's
+     tests/test_golden_trajectories.py (capsule_stack, whose outcome
+     rounding decides, as an ensemble of 64 starts held to the JAX
+     package's count of worlds within the bounds), K2 launching once a
+     step wherever there is a contact stream and held to its plain version
+     on each world's last contact set; a world farm: hinge_pendulum and
+     capsule_stack each replicated to 4096 diverging worlds for 200 frames
+     (ms/frame, body-steps/s of the dynamic bodies, torch ops per frame, K2
+     on the farm's contact set against plain, timed and against its bound);
+     the banded branch, which `auto` picks above 256 actor slots: a
+     10,000-box block on the bench's grid at 10,240 slots (sweep window 40),
+     300 steps at W=1
+     (ms/step, the window certificate summed on the card: 0, finite, the
+     lowest box centre), then a 1,000-box block 90 steps in, 3 steps on the
+     card against the CPU;
+  8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
-     of the boxes, each kernel beside its plain version (plain, kernel,
-     kernel, plain; K2 on the settled and the piled problem) and against its
-     bound: the bytes it must move over 3.35 TB/s or its operations over 67
-     TFLOP/s (fp32), whichever is longer; and the torch ops dispatched per
-     frame or step.
+     of the boxes, of the farms and of the banded block, each kernel beside
+     its plain version (plain, kernel, kernel, plain; K2 on the settled and
+     the piled problem) and against its bound: the bytes it must move over
+     3.35 TB/s or its operations over 67 TFLOP/s (fp32), whichever is
+     longer; and the torch ops dispatched per frame or step.
 
 Any failure raises and the exit code is not 0. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}. Without a CUDA device
@@ -72,7 +90,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES = 10240, 64, 64, 2048
-WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 200, 10, 240
+WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 100, 10, 240
 SLICE_WORLDS = 256       # the slice path (no characters, a 1-slot emitter), at a smaller depth
 CROWD_CHARACTERS, CROWD_WORLDS = 256, 1024
 STORM_CAPACITY = 1_000_000
@@ -90,6 +108,18 @@ BOX_LOWEST_MIN = 0.2     # the lowest centre of any box
 BOX_SLEEP_Y_MIN = 0.41
 # bench.py's recorded TPU run: its end state follows the warm run and the timed one, step 1200
 BOX_REFERENCE_END = {"ke_end": 0.0, "sleeping_end": 9887}
+# the PhysicsModule beyond the flagship: the goldens at W=1, two of them as a world farm,
+# and a block of boxes on the banded branch (bench.py's grid, 10240 actor slots)
+FARM_GOLDENS, FARM_WORLDS, FARM_FRAMES = ("hinge_pendulum", "capsule_stack"), 4096, 200
+BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 300
+# the sweep window (sap_neighbors) of the banded block: over 300 steps of the 10k block the
+# card's window certificate summed 1,602,273 at the module's default 16, 4,318 at 32 and 0 at
+# 40 and 48 (tools/banded_window.py; at 1,000 boxes the JAX package on the CPU summed 8,206 at
+# 16, 72 at 24 and 0 at 32): the narrowest window measured to hold every contact
+BANDED_WINDOW = 40
+BANDED_COMPARE_BOXES, BANDED_COMPARE_CAPACITY, BANDED_COMPARE_AT = 1000, 1024, 90
+SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds below it
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 DT = 1.0 / 60.0
 ITERATIONS, POSITION_ITERATIONS = 10, 3
 TRANSFORM_ATOL = 1e-5    # entities the physics does not move (root motion included)
@@ -270,7 +300,12 @@ def main() -> int:
     # 6. the 10k-box drop
     boxes = run_boxes(dev)
 
-    # 7. timings
+    # 7. the PhysicsModule: the goldens, the farm, the banded branch
+    goldens = run_goldens(dev)
+    farms = {name: run_farm(name, dev, replicate_state) for name in FARM_GOLDENS}
+    banded = run_banded(dev)
+
+    # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
     k1_bound, k1_by = bound(cull.k1_bytes(W, N_ENTITIES), cull.k1_flops(W, N_ENTITIES))
@@ -288,7 +323,7 @@ def main() -> int:
                                                 POSITION_ITERATIONS))
         k2[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
                     "bound_by": by, "share_of_bound": bound_ms / ms, "W": w_, "C": c}
-        log(f"[7 K2] {card}: {name} W={w_} NB={nb} C={c} (active {n_active}): {ms:.4f} ms, plain "
+        log(f"[8 K2] {card}: {name} W={w_} NB={nb} C={c} (active {n_active}): {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, {nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound "
             f"{bound_ms / ms:.3f}")
     prob = problems["settled"]
@@ -296,12 +331,17 @@ def main() -> int:
         f"{name} {r['ms']:.3f} ms/frame at W={r['worlds']} = "
         f"{r['worlds'] * r['units'] / (r['ms'] / 1e3):.4g} {r['unit']}-steps/s ({r['ops']} ops/frame)"
         for name, r in runs.items())
-    log(f"[7 time] {card}: {paths}; boxes {boxes['ms']:.3f} ms/step at {N_BOXES} bodies = "
+    log(f"[8 time] {card}: {paths}; boxes {boxes['ms']:.3f} ms/step at {N_BOXES} bodies = "
         f"{N_BOXES / (boxes['ms'] / 1e3):.4g} body-steps/s ({boxes['ops']} ops/step);"
         f" K1 [{W},3,{N_ENTITIES}] {k1_ms:.4f} ms (plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms);"
         f" K2 settled W={prob.vel.shape[0]} C={prob.act.shape[-1]} {k2['settled']['ms']:.4f} ms "
         f"(plain {k2['settled']['plain_ms']:.4f} ms, bound {k2['settled']['bound_ms']:.4f} ms)")
 
+    log(f"[8 time] {card}: " + "; ".join(
+        f"farm {name} {r['ms']:.3f} ms/frame at W={FARM_WORLDS} = {r['rate']:.4g} body-steps/s "
+        f"({r['ops']} ops/frame)" for name, r in farms.items())
+        + f"; banded {BANDED_BOXES} boxes {banded['ms']:.3f} ms/step = "
+        f"{BANDED_BOXES / (banded['ms'] / 1e3):.4g} body-steps/s ({banded['ops']} ops/step)")
     main_launches = runs["flagship"]["launches"]
     kernels = [
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
@@ -309,6 +349,8 @@ def main() -> int:
          "launches_slice": runs["slice"]["launches"]["K1"],
          "launches_crowd": runs["crowd"]["launches"]["K1"],
          "launches_particles": runs["particles"]["launches"]["K1"],
+         "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"] + sum(
+             r["launches"]["K1"] for r in farms.values()),
          "max_abs_err": k1_err, "mismatches": k1_bad, "ms": k1_ms, "plain_ms": k1_plain,
          "bytes": cull.k1_bytes(W, N_ENTITIES), "bound_ms": k1_bound, "bound_by": k1_by,
          "bound_of": k1_by, "share_of_bound": k1_bound / k1_ms, "library_ms": None,
@@ -317,12 +359,18 @@ def main() -> int:
          "source": "lumixengine_tpu_torch/csrc/solver.cu",
          "replaces": "lumixengine_tpu/ops/solver_pallas.py:165", "launches": main_launches["K2"],
          "launches_slice": runs["slice"]["launches"]["K2"],
-         "max_abs_err": k2_err, "ms": k2["settled"]["ms"], "plain_ms": k2["settled"]["plain_ms"],
+         "launches_goldens": goldens["launches"]["K2"],
+         "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
+         "launches_banded": banded["launches"]["K2"],
+         "max_abs_err": max(k2_err, goldens["k2_err"], *(r["k2"]["max_abs_err"]
+                                                          for r in farms.values())),
+         "ms": k2["settled"]["ms"], "plain_ms": k2["settled"]["plain_ms"],
          "bytes": k2["settled"]["bytes"], "bound_ms": k2["settled"]["bound_ms"],
          "bound_by": k2["settled"]["bound_by"], "bound_of": k2["settled"]["bound_by"],
          "share_of_bound": k2["settled"]["share_of_bound"], "ms_piled": k2["piled"]["ms"],
          "plain_ms_piled": k2["piled"]["plain_ms"], "bound_ms_piled": k2["piled"]["bound_ms"],
-         "share_of_bound_piled": k2["piled"]["share_of_bound"], "library_ms": None,
+         "share_of_bound_piled": k2["piled"]["share_of_bound"],
+         "farm": {name: r["k2"] for name, r in farms.items()}, "library_ms": None,
          "library_note": NO_LIBRARY},
     ]
     log(card)
@@ -386,9 +434,6 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     there is animation, particles where there is an emitter."""
     import torch
 
-    from lumixengine_tpu_torch.ops import culling as cull
-    from lumixengine_tpu_torch.ops import solver as S
-
     engine, world = built[0], built[1]
     rm = world.modules["renderer"]
     has_physics, an = "physics" in world.modules, world.modules.get("animation")
@@ -399,8 +444,7 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     start = state
     torch.cuda.synchronize()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    cull.frustum_cull_cuda.launches = 0
-    S.solve_cuda.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     for f in range(FRAMES):
         if f == WARM_FRAMES:
@@ -409,7 +453,7 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     ev1.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches}
+    launches = _launches()
     ms_frame = ev0.elapsed_time(ev1) / (FRAMES - WARM_FRAMES)
     finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
     rs = state.modules["renderer"]
@@ -563,6 +607,264 @@ def run_boxes(dev):
         f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }, active contacts "
         f"{int(gctr['active_contacts'])} / {int(cctr['active_contacts'])}, certificates {certs}")
     return {"ms": ms, "ops": n_ops, **end}
+
+
+def _golden(name):
+    import numpy as np
+
+    with np.load(os.path.join(GOLDEN_DIR, f"golden_{name}.npz")) as f:
+        return dict(f)
+
+
+def _zero_launches():
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import solver as S
+
+    cull.frustum_cull_cuda.launches = 0
+    S.solve_cuda.launches = 0
+
+
+def _launches():
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import solver as S
+
+    return {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches}
+
+
+def run_goldens(dev):
+    """The nine committed goldens (tests/data/golden_*.npz) at W=1 on the
+    card for their full step counts, each held to the bounds of the JAX
+    package's tests/test_golden_trajectories.py, capsule_stack as the
+    ensemble of physics_scenes.golden_ensemble (its outcome is decided by
+    rounding, in the JAX package too). K2 launches once a step in every
+    world that has a contact stream. Then K2 against its plain version on
+    each such world's contact set at its last step."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import solver as S
+
+    expected, k2_err, t0 = 0, 0.0, time.perf_counter()
+    torch.cuda.synchronize()
+    _zero_launches()
+    finals = []
+    for name in PS.GOLDEN_NAMES:
+        g = _golden(name)
+        engine, world, state, slots = PS.golden_world(g, dev)
+        pm = world.modules["physics"]
+        st = pm.statics()
+        steps = int(g["steps"])
+        state, traj = PS.run_recorded(engine.build_step(world, dev), state,
+                                      slots[PS.GOLDEN_RECORD.get(name, 0)], steps)
+        expected += steps * bool(st.ground_plane or len(st.pair_a))
+        finals.append((name, g, pm, state, traj, slots))
+    cap = _golden("capsule_stack")
+    engine, world, ens, cap_slots = PS.golden_ensemble(cap, PS.CAPSULE_WORLDS, PS.CAPSULE_EPS,
+                                                       dev)
+    step = engine.build_step(world, dev)
+    for _ in range(int(cap["steps"])):
+        ens = step(ens, DT)
+    expected += int(cap["steps"])
+    torch.cuda.synchronize()
+    launches, wall = _launches(), time.perf_counter() - t0
+    for name, g, pm, state, traj, slots in finals:
+        ms = state.modules["physics"]
+        if name == "tumbling":
+            got = PS.check_tumbling(g, ms.rot.cpu().numpy(), slots[0])
+        elif name == "capsule_stack":
+            pos = ms.pos.cpu().numpy()
+            holds = PS.golden_passes(name, g, pos[None], ms.vel.cpu().numpy()[None], slots)
+            got = {"holds": bool(holds[0]), "top": pos[:, slots[2]].round(4).tolist()}
+        else:
+            got = PS.check_golden(name, g, traj.cpu().numpy(), ms.pos.cpu().numpy(),
+                                  ms.vel.cpu().numpy(), slots)
+        err = None
+        if pm.statics().ground_plane or len(pm.statics().pair_a):
+            prob = pm.solver_problem(state, DT)
+            err = max_err(S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS),
+                          S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS))
+            if not err <= S.K2_PLAIN_ATOL:
+                raise AssertionError(f"K2 on golden {name}: {err} vs plain")
+            k2_err = max(k2_err, err)
+        shown = {k: (float(f"{v:.4g}") if isinstance(v, float) else v) for k, v in got.items()}
+        how = ("held to the bounds as an ensemble below" if name == "capsule_stack" else
+               "within the bounds of tests/test_golden_trajectories.py")
+        log(f"[7 golden] {name}: {int(g['steps'])} steps at W=1, NB={ms.pos.shape[-1]}, {how}: "
+            f"{shown}; K2 vs plain "
+            f"{'no contact stream' if err is None else f'{err:.3e}'}")
+    ms = ens.modules["physics"]
+    pos = ms.pos.cpu().numpy()
+    holds = PS.golden_passes("capsule_stack", cap, pos, ms.vel.cpu().numpy(), cap_slots)
+    statics = np.asarray(cap["init_pos"][:2], np.float32).T
+    moved = int((pos[:, :, cap_slots[:2]] != statics[None]).any(axis=(1, 2)).sum())
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(ens))
+    need = PS.CAPSULE_REFERENCE_PASSES - PS.CAPSULE_PASS_MARGIN
+    log(f"[7 golden] capsule_stack ensemble: {PS.CAPSULE_WORLDS} worlds, N(0, "
+        f"{PS.CAPSULE_EPS:g}^2) m/s on the top capsule's start velocity (world 0 none): "
+        f"{int(holds.sum())} within the bounds (world 0 {bool(holds[0])}; the JAX package "
+        f"{PS.CAPSULE_REFERENCE_PASSES} on the CPU, at least {need} required), worlds with a "
+        f"static moved {moved}, finite {finite}")
+    log(f"[7 golden] nine goldens and the ensemble in {wall:.2f} s, launches {launches} "
+        f"(K2 expected {expected})")
+    if launches != {"K1": 0, "K2": expected}:
+        raise AssertionError(f"the goldens' launches {launches}, expected K2 {expected}")
+    if int(holds.sum()) < need or moved or not finite:
+        raise AssertionError(f"capsule_stack ensemble: {int(holds.sum())} within the bounds, "
+                             f"{moved} moved statics, finite {finite}")
+    return {"launches": launches, "k2_err": k2_err}
+
+
+def run_farm(name, dev, replicate_state):
+    """Golden `name` replicated to FARM_WORLDS diverging worlds, FARM_FRAMES
+    frames timed with CUDA events; K2 on the farm's contact set against its plain
+    version, timed beside it and against its bound."""
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import solver as S
+
+    g = _golden(name)
+    engine, world, state, _slots = PS.golden_world(g, dev)
+    pm = world.modules["physics"]
+    step = engine.build_step(world, dev)
+    state = replicate_state(state, FARM_WORLDS, torch.Generator(device=dev).manual_seed(6))
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    for f in range(FARM_FRAMES):
+        if f == WARM_FRAMES:
+            ev0.record()
+        state = step(state, DT)
+    ev1.record()
+    torch.cuda.synchronize()
+    launches = _launches()
+    ms = ev0.elapsed_time(ev1) / (FARM_FRAMES - WARM_FRAMES)
+    phys = state.modules["physics"]
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
+    n_dyn = int(pm.statics().dyn_mask.sum())
+    active = phys.counters["active_contacts"]
+    _, n_ops = count_ops(lambda: step(state, DT))
+    prob = pm.solver_problem(state, DT)
+    # a capsule takes a sphere's inertia, as in the reference, and in a few
+    # perturbed capsule worlds the top capsule spins up to hundreds of rad/s
+    # (the JAX package too, from the same states): a float32 ulp there exceeds
+    # K2's absolute limit, so K2 is held to plain on the worlds whose bodies
+    # move below SANE_SPEED before and after the solve
+    plain = S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS)
+    sane = torch.stack([t.abs().amax(dim=(1, 2)) for t in (prob.vel, prob.angvel, *plain[:2])]
+                       ).amax(dim=0) < SANE_SPEED
+    sub = S.ContactProblem(**{k: v if k == "inv_mass" else v[sane].contiguous()
+                              for k, v in prob.tensors().items()})
+    err = max_err(S.solve_cuda(sub, ITERATIONS, POSITION_ITERATIONS),
+                  S.solve_plain(sub, ITERATIONS, POSITION_ITERATIONS))
+    n_fast = FARM_WORLDS - int(sane.sum())
+    k_ms, plain_ms = alternate(lambda: S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS),
+                               lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
+    w_, _, nb = prob.vel.shape
+    c = prob.act.shape[-1]
+    n_act = int((prob.act != 0).sum())
+    n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
+    nbytes = S.k2_bytes(w_, nb, c, n_act)
+    bound_ms, by = bound(nbytes, S.k2_flops(w_, nb, c, n_act, n_pair, ITERATIONS,
+                                            POSITION_ITERATIONS))
+    k2 = {"W": w_, "NB": nb, "C": c, "active": n_act, "max_abs_err": err,
+          "worlds_compared": FARM_WORLDS - n_fast, "ms": k_ms,
+          "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": by,
+          "share_of_bound": bound_ms / k_ms}
+    rate = FARM_WORLDS * n_dyn / (ms / 1e3)
+    log(f"[7 farm] {name}: W={FARM_WORLDS}, {n_dyn} dynamic bodies a world, {FARM_FRAMES} frames: "
+        f"{ms:.3f} ms/frame = {rate:.4g} body-steps/s, {n_ops} torch ops/frame, launches "
+        f"{launches}, finite {finite}, active contacts {int(active.sum())} (worlds with "
+        f"contacts {int((active > 0).sum())}), worlds with a body above {SANE_SPEED:g} m/s or "
+        f"rad/s {n_fast}; K2 on its contact set W={w_} NB={nb} C={c} (active {n_act}): "
+        f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, {nbytes} bytes, bound {bound_ms:.4f} ms "
+        f"({by}), max abs err vs plain {err:.3e} (on the other worlds)")
+    if launches != {"K1": 0, "K2": FARM_FRAMES} or not finite:
+        raise AssertionError(f"farm {name}: launches {launches}, finite {finite}")
+    if n_fast > FARM_WORLDS // 100:
+        raise AssertionError(f"farm {name}: {n_fast} worlds spun up")
+    if not err <= S.K2_PLAIN_ATOL:
+        raise AssertionError(f"K2 on the {name} farm: {err} vs plain")
+    return {"ms": ms, "rate": rate, "ops": n_ops, "launches": launches, "k2": k2}
+
+
+def run_banded(dev):
+    """PhysicsModule's banded branch, which `auto` picks above 256 actor
+    slots: BANDED_BOXES boxes on the bench's grid at BANDED_CAPACITY slots
+    with a sweep window of BANDED_WINDOW,
+    BANDED_STEPS steps at W=1, the window certificate summed on the card and
+    read once (must be 0), the state finite, no box centre below
+    BOX_LOWEST_MIN; then a block of BANDED_COMPARE_BOXES boxes run
+    BANDED_COMPARE_AT steps on the card and 3 more on the card and on the
+    CPU, within BODY_POS_ATOL / BODY_VEL_ATOL with equal certificates and
+    active-contact counts."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    engine, world = PS.box_block(BANDED_BOXES, BANDED_CAPACITY, neighbors=BANDED_WINDOW)
+    pm = world.modules["physics"]
+    if not pm.statics().sap:
+        raise AssertionError("the box block did not take the banded branch")
+    occ = torch.as_tensor(pm.statics().occupied, device=dev)
+    step = engine.build_step(world, dev)
+    state = world.device_state(dev)
+    miss = torch.zeros((), dtype=torch.int32, device=dev)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for i in range(BANDED_STEPS):
+        if i == WARM_FRAMES:
+            ev0.record()
+        state = step(state, DT)
+        miss = miss + state.modules["physics"].counters["sap_window_miss"]
+    ev1.record()
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _launches()
+    ms = ev0.elapsed_time(ev1) / (BANDED_STEPS - WARM_FRAMES)
+    phys = state.modules["physics"]
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
+    lowest = float(phys.pos[1][occ].min())
+    _, n_ops = count_ops(lambda: step(state, DT))
+    log(f"[7 banded] {BANDED_BOXES} boxes at {BANDED_CAPACITY} actor slots, window "
+        f"{BANDED_WINDOW}, {BANDED_STEPS} "
+        f"steps at W=1 in {wall:.2f} s ({ms:.3f} ms/step), {n_ops} torch ops/step, launches "
+        f"{launches}: sap_window_miss summed {int(miss)}, finite {finite}, lowest box centre "
+        f"{lowest:.4f} m, active contacts at the end {int(phys.counters['active_contacts'])}")
+    if int(miss) or not finite or not lowest > BOX_LOWEST_MIN:
+        raise AssertionError(f"banded block: miss {int(miss)}, finite {finite}, lowest {lowest}")
+
+    engine, world = PS.box_block(BANDED_COMPARE_BOXES, BANDED_COMPARE_CAPACITY,
+                                  neighbors=BANDED_WINDOW)
+    step = engine.build_step(world, dev)
+    cpu_step = engine.build_step(world, "cpu")
+    gpu = world.device_state(dev)
+    for _ in range(BANDED_COMPARE_AT):
+        gpu = step(gpu, DT)
+    cpu, errs = gpu.to("cpu"), {}
+    for _ in range(3):
+        gpu, cpu = step(gpu, DT), cpu_step(cpu, DT)
+        got, ref = bridge.state_to_numpy(gpu), bridge.state_to_numpy(cpu)
+        for f, atol in (("pos", BODY_POS_ATOL), ("rot", BODY_POS_ATOL), ("vel", BODY_VEL_ATOL),
+                        ("angvel", BODY_VEL_ATOL)):
+            k = "modules.physics." + f
+            errs[f] = max(errs.get(f, 0.0), float(np.abs(got[k] - ref[k]).max()))
+            if not errs[f] <= atol:
+                raise AssertionError(f"banded {f}: card vs plain {errs[f]} > {atol}")
+        certs = {c: (int(got[f"modules.physics.counters.{c}"]),
+                     int(ref[f"modules.physics.counters.{c}"]))
+                 for c in ("sap_window_miss", "active_contacts")}
+        if any(a != b for a, b in certs.values()):
+            raise AssertionError(f"banded counters differ, card vs CPU: {certs}")
+    same_rank = float(np.mean(got["modules.physics.sap_rank"] == ref["modules.physics.sap_rank"]))
+    log(f"[7 banded] {BANDED_COMPARE_BOXES} boxes, 3 steps from step {BANDED_COMPARE_AT}, card "
+        f"vs the CPU: max abs err {({k: float(f'{v:.3g}') for k, v in errs.items()})}, counters "
+        f"(card, CPU) {certs}, sweep ranks equal {same_rank:.4f}")
+    return {"ms": ms, "ops": n_ops, "launches": launches, "miss": int(miss), "lowest": lowest}
 
 
 def _to_cpu(tree):

@@ -30,7 +30,6 @@ from lumixengine_tpu_torch.renderer.render_module import RenderState
 # reference fields outside the port: (name prefix, why)
 SKIPPED = (
     ("modules.physics.ctrl_", "character controllers are not ported"),
-    ("modules.physics.sap_", "SAP/banded warm-start carry (other broadphases)"),
     ("modules.physics.veh_", "vehicles are not ported"),
 )
 

@@ -1,8 +1,9 @@
 """Rigid-body operators on tensors (counterpart of
-``lumixengine_tpu/ops/physics_ops.py``), the subset the pruned broadphase
-branch runs: velocity/position integration, world AABBs, ground and pair
-contacts for spheres and boxes, tangent frames, the world inverse inertia and
-sleeping.
+``lumixengine_tpu/ops/physics_ops.py``), the subset the PhysicsModule's
+broadphase branches run: velocity/position integration, world AABBs, ground
+and pair contacts for spheres, boxes and capsules, tangent frames, the world
+inverse inertia and sleeping. Convex hulls, heightfields, raycasts and
+sweeps are not ported.
 
 SoA layout, body axis last: pos ``[..., 3, NB]``, rot ``[..., 4, NB]``.
 Contact slots are ``[..., C]`` / ``[..., 3, C]``; normals point from body a
@@ -95,7 +96,8 @@ def box_corners(pos, rot, half_extents):
 
 
 def world_aabb(pos, rot, shape, radius, half_extents):
-    """Conservative world AABB per body → (mins [..,3,NB], maxs [..,3,NB])."""
+    """Conservative world AABB per body → (mins [..,3,NB], maxs [..,3,NB]).
+    A capsule is bounded by its radius alone, as in the reference."""
     z = torch.zeros_like(radius)
     ex = torch.abs(lm.quat_rotate(rot, torch.stack([half_extents[..., 0, :], z, z], dim=AX), axis=AX))
     ey = torch.abs(lm.quat_rotate(rot, torch.stack([z, half_extents[..., 1, :], z], dim=AX), axis=AX))
@@ -124,10 +126,13 @@ def _slot_masks(k: int, device):
 
 
 def ground_contacts(pos, rot, shape, radius, half_extents, dyn_mask,
-                    ground_y: float = 0.0, slots_per_body: int = 4) -> Contacts:
+                    ground_y: float = 0.0, slots_per_body: int = 4,
+                    any_caps: bool = True) -> Contacts:
     """Contacts of every dynamic body vs the plane y = ground_y (normal +Y):
     boxes give their `slots_per_body` deepest corners, spheres their lowest
-    point. Slot layout [k, NB] flattened. Capsules are outside the slice."""
+    point, capsules both axis endpoints dropped by the radius. Slot layout
+    [k, NB] flattened. Without `any_caps` (decided on the host from the
+    shape table) the capsule arm is not computed."""
     nb = pos.shape[-1]
     k = slots_per_body
     corners = box_corners(pos, rot, half_extents)             # [..,3,8,NB]
@@ -138,14 +143,25 @@ def ground_contacts(pos, rot, shape, radius, half_extents, dyn_mask,
     box_dep = top_d.transpose(-1, -2)                         # [..,k,NB]
 
     z = torch.zeros_like(radius)
-    sph_low = pos - torch.stack([z, radius, z], dim=AX)
+    rdrop = torch.stack([z, radius, z], dim=AX)
+    sph_low = pos - rdrop
     sph_dep = ground_y - sph_low[..., 1, :]
     slot0, not0 = _slot_masks(k, pos.device)
-    sph_pts = sph_low[..., :, None, :] * slot0
-    sph_deps = sph_dep[..., None, :] * slot0 - not0
+    pts = sph_low[..., :, None, :] * slot0
+    dep = sph_dep[..., None, :] * slot0 - not0
+    if any_caps:
+        c0, c1 = capsule_segment(pos, rot, half_extents[..., 1, :])
+        cap0, cap1 = c0 - rdrop, c1 - rdrop
+        slot1 = (torch.arange(k, device=pos.device) == 1).to(torch.float32)[:, None]
+        cap_pts = cap0[..., :, None, :] * slot0 + cap1[..., :, None, :] * slot1
+        cap_deps = ((ground_y - cap0[..., 1, :])[..., None, :] * slot0
+                    + (ground_y - cap1[..., 1, :])[..., None, :] * slot1 - (1.0 - slot0 - slot1))
+        is_cap = shape == SHAPE_CAPSULE
+        pts = torch.where(is_cap[..., None, None, :], cap_pts, pts)
+        dep = torch.where(is_cap[..., None, :], cap_deps, dep)
     is_box = shape == SHAPE_BOX
-    pts = torch.where(is_box[..., None, None, :], box_pts, sph_pts)
-    dep = torch.where(is_box[..., None, :], box_dep, sph_deps)
+    pts = torch.where(is_box[..., None, None, :], box_pts, pts)
+    dep = torch.where(is_box[..., None, :], box_dep, dep)
     c = k * nb
     point = pts.reshape(pts.shape[:-2] + (c,))
     depth = dep.reshape(dep.shape[:-2] + (c,))
@@ -158,20 +174,37 @@ def ground_contacts(pos, rot, shape, radius, half_extents, dyn_mask,
 
 
 def pair_contacts(pos, rot, shape, radius, half_extents, pair_a, pair_b,
-                  points_per_pair: int = 4) -> Contacts:
+                  points_per_pair: int = 4, any_caps: bool = True) -> Contacts:
     """Narrowphase over a pair list (int64 [P] or per world [..., P]):
     sphere-sphere single point, sphere-box closest feature, box-box the
-    `points_per_pair` deepest corners. C = points_per_pair · P slots.
-    PhysStatics refuses capsules, so there are none here."""
+    `points_per_pair` deepest corners, a capsule as a sphere at the closest
+    point of its axis. C = points_per_pair · P slots. The caller says on the
+    host whether any pair holds a capsule (`any_caps`), as the reference
+    decides from its static shape table."""
     k = points_per_pair
     point, normal, depth, active = pair_contacts_from_data(
         take_vecs(pos, pair_a), take_vecs(rot, pair_a), take_rows(radius, pair_a),
         take_vecs(half_extents, pair_a), take_rows(shape, pair_a),
         take_vecs(pos, pair_b), take_vecs(rot, pair_b), take_rows(radius, pair_b),
         take_vecs(half_extents, pair_b), take_rows(shape, pair_b), points_per_pair=k,
-        any_caps=False)
+        any_caps=any_caps)
     return Contacts(body_a=pair_a.tile((k,)), body_b=pair_b.tile((k,)), point=point,
                     normal=normal, depth=depth, active=active)
+
+
+def capsule_segment(pos, rot, half_height):
+    """Capsule axis endpoints (local +Y axis): (pa, pb) each [..., 3, N]."""
+    z = torch.zeros_like(half_height)
+    up = lm.quat_rotate(rot, torch.stack([z, half_height, z], dim=AX), axis=AX)
+    return pos + up, pos - up
+
+
+def closest_point_on_segment(p, a, b):
+    """Closest point to p on segment ab, all [..., 3, N]."""
+    ab = b - a
+    t = torch.sum((p - a) * ab, dim=AX) / torch.clamp_min(torch.sum(ab * ab, dim=AX), 1e-12)
+    t = torch.clamp(t, 0.0, 1.0)
+    return a + ab * t[..., None, :]
 
 
 def _sphere_sphere(pa, ra, pb, rb):
@@ -192,14 +225,22 @@ def pair_contacts_from_data(pos_a, rot_a, rad_a, he_a, shape_a,
                             points_per_pair: int = 4, any_caps: bool = True):
     """Narrowphase core on gathered per-pair arrays ([..., P] / [..., 3|4, P])
     → (point, normal, depth, active) in slot-major [k, P] flattened layout.
-    Sphere and box shapes only: capsules are not ported, so the caller says
-    none is present (`any_caps=False`, decided on the host from the shape
-    table, as in the reference)."""
-    if any_caps:
-        raise NotImplementedError("capsule contacts are not ported")
+    With `any_caps` a capsule takes part as a sphere at the closest point of
+    its axis segment to the other body (one refinement each way)."""
     P = pos_a.shape[-1]
     k = points_per_pair
     dev = pos_a.device
+    if any_caps:
+        cap_a = shape_a == SHAPE_CAPSULE
+        cap_b = shape_b == SHAPE_CAPSULE
+        a0, a1 = capsule_segment(pos_a, rot_a, he_a[..., 1, :])
+        b0, b1 = capsule_segment(pos_b, rot_b, he_b[..., 1, :])
+        pa_eff = closest_point_on_segment(closest_point_on_segment(pos_a, b0, b1), a0, a1)
+        pb_eff = closest_point_on_segment(closest_point_on_segment(pos_b, a0, a1), b0, b1)
+        pos_a = torch.where(cap_a[..., None, :], pa_eff, pos_a)
+        pos_b = torch.where(cap_b[..., None, :], pb_eff, pos_b)
+        shape_a = torch.where(cap_a, SHAPE_SPHERE, shape_a)
+        shape_b = torch.where(cap_b, SHAPE_SPHERE, shape_b)
 
     ss_pt, ss_n, ss_d = _sphere_sphere(pos_a, rad_a, pos_b, rad_b)
 

@@ -327,7 +327,7 @@ def make_slot_world_step(
         t1, t2 = PBD._tangents0(normal)
         # ---- ground contacts: body-major grids, no gathers ----------------
         g = P.ground_contacts(pos, rot, shape_j, radius_j, he_j, dyn_j,
-                              ground_y=ground_y, slots_per_body=gslots)
+                              ground_y=ground_y, slots_per_body=gslots, any_caps=any_caps)
         g_point = g.point.reshape(3, gslots, nb)
         g_normal = g.normal.reshape(3, gslots, nb)
         g_depth = g.depth.reshape(gslots, nb)

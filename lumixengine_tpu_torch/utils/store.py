@@ -59,6 +59,9 @@ class DenseStore:
         self._slot_of[entity] = slot
         return slot
 
+    def slot_of(self, entity: int) -> int:
+        return self._slot_of.get(entity, -1)
+
     def get(self, entity: int, field: str):
         return self.data[field][self._slot_of[entity]]
 

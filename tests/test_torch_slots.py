@@ -357,11 +357,27 @@ def test_static_bodies_and_spheres_mix():
 
 
 def test_capsules_are_refused():
+    """Capsules are no longer refused: the narrowphase the slot pipeline
+    runs takes them through its capsule arm, as the reference does, here on
+    a capsule beside a capsule and beside a box, on either side."""
     x = torch.zeros(3, 2)
+    xb = torch.tensor([[0.45, -0.45], [0.0, 0.5], [0.0, 0.1]])
     q = torch.tensor([[0.0, 0], [0, 0], [0, 0], [1, 1]])
-    s = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="capsule"):
-        PP.pair_contacts_from_data(x, q, s, x, s, x, q, s, x, s, any_caps=True)
+    r = torch.full((2,), 0.25)
+    he = torch.full((3, 2), 0.4)
+    for shape_b in (PP.SHAPE_CAPSULE, PP.SHAPE_BOX):
+        sa = torch.full((2,), PP.SHAPE_CAPSULE, dtype=torch.int64)
+        sb = torch.full((2,), shape_b, dtype=torch.int64)
+        got = PP.pair_contacts_from_data(x, q, r, he, sa, xb, q, r, he, sb, any_caps=True)
+        ref = RP.pair_contacts_from_data(*(jnp.asarray(t.numpy()) for t in (
+            x, q, r, he, sa.int(), xb, q, r, he, sb.int())), any_caps=True)
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+        assert bool(got[3].any())
+        m = np.asarray(ref[3])
+        for g, w in zip(got[:3], ref[:3]):
+            w = np.asarray(w)
+            keep = np.broadcast_to(m, w.shape)
+            np.testing.assert_allclose(g.numpy()[keep], w[keep], rtol=0, atol=1e-6)
 
 
 def test_box_drop_pile_is_the_bench_scene():

@@ -113,7 +113,7 @@ def test_unported_arms_raise(kw):
 
 def test_unported_components_raise(worlds):
     _ref, (_pe, pw, _pr, _pp) = worlds
-    for ctype, props in (("distance_joint", dict(body_a=1, body_b=2)),
+    for ctype, props in (("physics_controller", dict(radius=0.4)),
                          ("property_animator", dict(curves=[])),
                          ("bone_attachment", dict(parent_entity=1))):
         with pytest.raises(NotImplementedError):
