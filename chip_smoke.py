@@ -30,10 +30,29 @@ Phases, each printed on its own line:
      K1 launches on the world's 8 empty model-instance slots and culls
      nothing, as in the reference); the state stays finite; every character
      is animated, 0 < particles alive <= capacity, root motion moves the
-     animators. Then 3 frames at W=4 on the card against the plain versions
+     animators. K1 is then held bit for bit to its plain version on the
+     operands the path's own cull pass gives it, at the path's W and K (the
+     world camera and a random view per world). Then 3 frames at W=4 on the
+     card against the plain versions
      on the CPU, animation and particle fields included (the storm's end
      state tiled to 4 worlds that diverge), and the threefry stream on the
-     card against the CPU's, bit for bit;
+     card against the CPU's, bit for bit. Two paths of the RenderModule's
+     views follow: the headless demo tick headless_demo_world(2048) at
+     W=4096 (BASELINE config 1, bench.py --config demo), and the render
+     config, the full flagship at W=1024 with each frame followed by
+     shadow_pass (4 cascades, LIGHT_DIR) and fill_clusters on every world
+     (bench.py --config render), their caster counts, cluster counts and
+     overflow summed and read. After the timed frames, one prepare_view in
+     each sort mode (K1 once a call) with its draw order checked, and
+     record_frame on world 0; the torch ops of prepare_view, the shadow pass
+     and the cluster pass; the cluster pass timed against its bound (on
+     both paths; the bound counts the live lights only). Each
+     path's 3-frame compare also holds prepare_view (both sort modes), the
+     caster masks and the cluster words, lists, counts and overflow to the
+     CPU's outside their margins (the port's pipeline.DEPTH_EPS,
+     shadows.SHADOW_MARGIN and clusters.CLUSTER_D2_EPS). Then a small crowd
+     with two bone attachments, K1 against plain on its operands, 3 frames
+     card vs CPU, each attachment at its bone's pose;
   6. the 10k-box drop box_drop_pile(10_000) (the slot pipeline, no
      hand-written kernel) as the reference's bench.py --config boxes
      --steps 600 --trials 1 runs it: 600 steps to warm up, then 600 timed
@@ -66,8 +85,12 @@ Phases, each printed on its own line:
      300 steps at W=1
      (ms/step, the window certificate summed on the card: 0, finite, the
      lowest box centre), then a 1,000-box block 90 steps in, 3 steps on the
-     card against the CPU;
+     card against the CPU; and ballistic and d6_slider on the card and on
+     the CPU side by side for their full arcs: each physics field's largest
+     gap, the first step past GAP_LIMIT, and the first torch op whose
+     outputs differ (first_divergent_op);
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
+     (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
      of the boxes, of the farms and of the banded block, each kernel beside
      its plain version (plain, kernel, kernel, plain; K2 on the settled and
@@ -119,6 +142,11 @@ BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 300
 BANDED_WINDOW = 40
 BANDED_COMPARE_BOXES, BANDED_COMPARE_CAPACITY, BANDED_COMPARE_AT = 1000, 1024, 90
 SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds below it
+# the headless demo tick (bench.py --config demo at headless_demo_world's default, ~2k entities;
+# bench.py's CLI default would build 10,240) at bench.py's default world count
+DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
+LIGHT_DIR = (0.3, -1.0, 0.2)   # bench.py --config render's shadow light
+GAP_GOLDENS, GAP_LIMIT = ("ballistic", "d6_slider"), 1e-5   # the card-vs-CPU golden gap
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 DT = 1.0 / 60.0
 ITERATIONS, POSITION_ITERATIONS = 10, 3
@@ -180,13 +208,64 @@ def max_err(xs, ys) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
 
 
+def random_planes(num_worlds: int, dev, seed: int = 2):
+    """A random perspective view per world: planes [W, 8, 4]."""
+    import torch
+
+    from lumixengine_tpu_torch.core import geometry as geom
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((num_worlds, 4), generator=g, device=dev)
+    eye = torch.randn((num_worlds, 3), generator=g, device=dev) * 20.0
+    return geom.perspective_frustum(eye, q / q.norm(dim=-1, keepdim=True),
+                                    1.2, 16 / 9, 0.3, 150.0).planes.contiguous()
+
+
+def k1_check(centers, radii, plane_sets):
+    """K1 against its plain version over the same spheres, for each plane
+    set [W, 8, 4]: (mismatches, max abs err, visible fraction of each set)."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import culling as cull
+
+    bad, err, fracs = 0, 0.0, []
+    for planes in plane_sets:
+        vk = cull.frustum_cull_cuda(centers, radii, planes)
+        vp = cull.frustum_cull_plain(centers, radii, planes)
+        torch.cuda.synchronize()
+        bad += int((vk != vp).sum())
+        err = max(err, max_err([vk.float()], [vp.float()]))
+        fracs.append(float(vk.float().mean()))
+    return bad, err, fracs
+
+
+def k1_on_path(name, world, state):
+    """K1 against its plain version on the operands the path's cull pass
+    gives it at the path's own W and K: the world camera and a random view
+    per world. Raises on a mismatch."""
+    from lumixengine_tpu_torch.renderer import pipeline
+
+    rm = world.modules["renderer"]
+    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"], rm.statics())
+    centers, radii = centers.contiguous(), radii.contiguous()
+    w = centers.shape[0]
+    bad, err, fracs = k1_check(centers, radii, (frustum.planes.contiguous(),
+                                                random_planes(w, centers.device)))
+    shape = list(centers.shape)
+    log(f"[5 {name}] K1 on the path's own operands {shape}, world camera and random views: "
+        f"{bad} mismatches with the plain version (visible fractions "
+        f"{[float(f'{f:.4f}') for f in fracs]})")
+    if bad:
+        raise AssertionError(f"K1 is not bit-exact on the {name} path: {bad} mismatches")
+    return {"mismatches": bad, "max_abs_err": err, "shape": shape}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from lumixengine_tpu_torch.core import geometry as geom
     from lumixengine_tpu_torch.engine.world import map_tensors
     from lumixengine_tpu_torch.models.demo_scenes import (full_frame_world,
                                                           particle_stress_world, pile_bodies,
@@ -228,25 +307,13 @@ def main() -> int:
     centers, radii = centers.contiguous(), radii.contiguous()
     cam_planes = frustum.planes.contiguous()
     del batch
-    g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn((W, 4), generator=g, device=dev)
-    eye = torch.randn((W, 3), generator=g, device=dev) * 20.0
-    rand_planes = geom.perspective_frustum(eye, q / q.norm(dim=-1, keepdim=True),
-                                           1.2, 16 / 9, 0.3, 150.0).planes.contiguous()
-    k1_bad, k1_err = 0, 0.0
-    for planes in (cam_planes, rand_planes):
-        vk = cull.frustum_cull_cuda(centers, radii, planes)
-        vp = cull.frustum_cull_plain(centers, radii, planes)
-        torch.cuda.synchronize()
-        k1_bad += int((vk != vp).sum())
-        k1_err = max(k1_err, max_err([vk.float()], [vp.float()]))
-        frac = float(vk.float().mean())
-        if not 0.0 < frac < 1.0:
-            raise AssertionError(f"K1 check is degenerate: visible fraction {frac}")
+    k1_bad, k1_err, fracs = k1_check(centers, radii, (cam_planes, random_planes(W, dev)))
     log(f"[3 K1] [{W},3,{centers.shape[-1]}] world-camera and random views: "
         f"{k1_bad} mismatches with the plain version")
     if k1_bad:
         raise AssertionError(f"K1 is not bit-exact: {k1_bad} mismatches")
+    if not all(0.0 < f < 1.0 for f in fracs):
+        raise AssertionError(f"K1 check is degenerate: visible fractions {fracs}")
 
     # 4. K2 on the main path's shapes: settled contact sets, and the same worlds piled up
     settle = replicate_state(single, W, torch.Generator(device=dev).manual_seed(3))
@@ -296,12 +363,20 @@ def main() -> int:
             "particles": run_path("particles", particle_stress_world(STORM_CAPACITY), 1, dev,
                                   replicate_state, map_tensors)}
     runs["particles"].update(units=STORM_CAPACITY, unit="particle")  # bench.py's unit here
+    from lumixengine_tpu_torch.models.demo_scenes import headless_demo_world
+
+    runs["demo"] = run_path("demo", headless_demo_world(DEMO_ENTITIES), DEMO_WORLDS, dev,
+                            replicate_state, map_tensors, views=True)
+    runs["render"] = run_path("render", flag, W, dev, replicate_state, map_tensors, views=True,
+                              passes=True)
+    attach = run_attachments(dev, replicate_state)
 
     # 6. the 10k-box drop
     boxes = run_boxes(dev)
 
     # 7. the PhysicsModule: the goldens, the farm, the banded branch
     goldens = run_goldens(dev)
+    gaps = {name: golden_gap(name, dev) for name in GAP_GOLDENS}
     farms = {name: run_farm(name, dev, replicate_state) for name in FARM_GOLDENS}
     banded = run_banded(dev)
 
@@ -342,6 +417,21 @@ def main() -> int:
         f"({r['ops']} ops/frame)" for name, r in farms.items())
         + f"; banded {BANDED_BOXES} boxes {banded['ms']:.3f} ms/step = "
         f"{BANDED_BOXES / (banded['ms'] / 1e3):.4g} body-steps/s ({banded['ops']} ops/step)")
+    for name in ("render", "demo"):
+        cl = runs[name]["clusters"]
+        log(f"[8 clusters] {card}: fill_clusters on the {name} path at W={cl['W']}, C={cl['C']}, "
+            f"{cl['L_live']} lights in {cl['L']} slots (padded to {cl['L_pad']}): {cl['ms']:.4f} ms "
+            f"a call on the card's clock (enqueue {cl['enqueue_ms']:.4f} ms), {cl['ops']} torch "
+            f"ops; bound {cl['bound_ms']:.4f} ms ({cl['bound_by']}: {cl['bytes']} bytes, "
+            f"{cl['flops']} float ops over the live lights), share of bound "
+            f"{cl['bound_ms'] / cl['ms']:.6f}; over every padded light slot, as the pass computes "
+            f"them: {cl['flops_padded']} float ops, {cl['bound_ms_padded']:.4f} ms, share "
+            f"{cl['bound_ms_padded'] / cl['ms']:.6f}")
+    k1_paths = {name: r["k1"] for name, r in runs.items()}
+    k1_paths["attachments"] = attach["k1"]
+    k1_bad += sum(r["mismatches"] for r in k1_paths.values())
+    k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
+    log(f"[8 goldens] card vs CPU over the full arcs: {gaps}")
     main_launches = runs["flagship"]["launches"]
     kernels = [
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
@@ -349,9 +439,16 @@ def main() -> int:
          "launches_slice": runs["slice"]["launches"]["K1"],
          "launches_crowd": runs["crowd"]["launches"]["K1"],
          "launches_particles": runs["particles"]["launches"]["K1"],
+         "launches_demo": runs["demo"]["launches"]["K1"],
+         "launches_render": runs["render"]["launches"]["K1"],
+         "launches_prepare_view": runs["render"]["view_launches"] + runs["demo"]["view_launches"],
+         "launches_attachments": attach["launches"]["K1"],
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"] + sum(
              r["launches"]["K1"] for r in farms.values()),
-         "max_abs_err": k1_err, "mismatches": k1_bad, "ms": k1_ms, "plain_ms": k1_plain,
+         "max_abs_err": k1_err, "mismatches": k1_bad,
+         "checked_shapes": {"phase 3": [W, 3, N_ENTITIES], **{
+             name: r["shape"] for name, r in k1_paths.items()}},
+         "ms": k1_ms, "plain_ms": k1_plain,
          "bytes": cull.k1_bytes(W, N_ENTITIES), "bound_ms": k1_bound, "bound_by": k1_by,
          "bound_of": k1_by, "share_of_bound": k1_bound / k1_ms, "library_ms": None,
          "library_note": NO_LIBRARY},
@@ -359,6 +456,7 @@ def main() -> int:
          "source": "lumixengine_tpu_torch/csrc/solver.cu",
          "replaces": "lumixengine_tpu/ops/solver_pallas.py:165", "launches": main_launches["K2"],
          "launches_slice": runs["slice"]["launches"]["K2"],
+         "launches_render": runs["render"]["launches"]["K2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -427,11 +525,15 @@ def check_threefry(dev):
     return {"cuda": cuda[0, :8].tolist(), "cpu": cpu[0, :8].tolist()}
 
 
-def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=None):
+def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=None, views=False,
+             passes=False):
     """FRAMES frames of one path at `num_worlds` worlds on the card, timed
     and checked, then the 3-frame compare against the CPU. The checks follow
     the world's modules: contacts where there is physics, characters where
-    there is animation, particles where there is an emitter."""
+    there is animation, particles where there is an emitter. With `passes`
+    each frame is followed by the shadow and cluster passes (the render
+    config); with `views` prepare_view, record_frame and the passes are
+    checked and counted after the timed frames and in the compare."""
     import torch
 
     engine, world = built[0], built[1]
@@ -439,6 +541,7 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     has_physics, an = "physics" in world.modules, world.modules.get("animation")
     if step is None:
         step = engine.build_step(world, dev, extra=rm.cull_pass)
+    frame = render_frame(step, rm) if passes else step
     state = replicate_state(world.device_state(dev), num_worlds,
                             torch.Generator(device=dev).manual_seed(0))
     start = state
@@ -449,7 +552,7 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     for f in range(FRAMES):
         if f == WARM_FRAMES:
             ev0.record()
-        state = step(state, DT)
+        state = frame(state, DT)
     ev1.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -463,6 +566,9 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     facts = [f"{FRAMES} frames in {wall:.2f} s", f"launches {launches}", f"finite {finite}",
              f"visible min/mean {int(visible.min())}/{float(visible.float().mean()):.1f} of "
              f"{n_inst}"]
+    if passes:
+        facts.append(f"shadow casters + cluster lights + overflow summed over the frames "
+                     f"{int(frame.probe)}")
     if has_physics:
         active = state.modules["physics"].counters["active_contacts"]
         facts.append(f"active contacts {int(active.sum())} (worlds with contacts "
@@ -488,6 +594,8 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
         raise AssertionError("state is not finite, or no instance is visible")
     if has_physics and int(active.sum()) == 0:
         raise AssertionError("no contacts")
+    if passes and int(frame.probe) <= 0:
+        raise AssertionError("the shadow and cluster passes found no caster and no light")
     if an is not None and not (bool((animated == len(an.animables)).all())
                                and bool((posed == n_char).all())):
         raise AssertionError(f"characters animated {posed.unique().tolist()} (expected {n_char};"
@@ -498,21 +606,184 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
         raise AssertionError(f"particles alive {int(alive.min())}..{int(alive.max())} "
                              f"(capacity {cap})")
     del start
-    ops = op_counts(world, state, dev)
+    k1 = k1_on_path(name, world, state)
+    ops = op_counts(world, state, dev, passes=passes)
     log(f"[5 {name}] torch ops dispatched in one frame at W={num_worlds} (views excluded, "
         f"K1/K2 launches not counted): {sum(ops.values())} = {ops}")
+    out = {"ms": ms_frame, "worlds": num_worlds, "units": world.capacity, "unit": "entity",
+           "launches": launches, "ops": sum(ops.values()), "k1": k1}
+    if views:
+        out.update(view_checks(name, world, state, map_tensors))
+        out["clusters"] = time_clusters(world, state)
     if num_worlds >= 4:
         cmp_state = map_tensors(lambda t: t[:4].clone(), state)
     else:   # a one-world path: its end state tiled to 4 worlds, which diverge
         cmp_state = replicate_state(map_tensors(lambda t: t[0], state), 4,
                                     torch.Generator(device=dev).manual_seed(4))
     del state
-    cmp = compare_with_plain(engine, world, cmp_state, step)
+    cmp = compare_with_plain(engine, world, cmp_state, step, views=views)
     log(f"[5 {name}] {n_char} characters; 3 frames at W={cmp_state.local.pos.shape[0]}, card vs "
         f"plain on the CPU: max abs err {cmp['errs']}, boundary flips {cmp['flips']}, kill flips "
-        f"{cmp['kills']}")
-    return {"ms": ms_frame, "worlds": num_worlds, "units": world.capacity, "unit": "entity",
-            "launches": launches, "ops": sum(ops.values())}
+        f"{cmp['kills']}" + (f", view/shadow/cluster flips {cmp['view_flips']}" if views else ""))
+    return out
+
+
+def render_frame(step, rm):
+    """`step` followed by the render config's two per-view passes on every
+    world, as bench.py --config render runs them: 4 shadow cascades and the
+    cluster pass. Their caster counts, cluster counts and overflow are
+    summed into `frame.probe`, a device scalar read after the frames."""
+    from lumixengine_tpu_torch.renderer import clusters, shadows
+
+    statics = rm.statics()
+
+    def frame(state, dt):
+        state = step(state, dt)
+        sv = shadows.shadow_pass(state, rm, light_dir=LIGHT_DIR, statics=statics)
+        cl = clusters.fill_clusters(state, rm, statics=statics)
+        frame.probe = frame.probe + (sv.caster_count.sum() + cl.count.sum() + cl.overflow.sum())
+        return state
+
+    frame.probe = 0
+    return frame
+
+
+def view_checks(name, world, state, map_tensors):
+    """One prepare_view in each sort mode on the batch (K1 once each, with
+    the launch counts set to 0 just before and read just after), the draw
+    order checked on the card, record_frame on world 0, and the torch ops
+    of prepare_view and shadow_pass at this W (the cluster pass's in
+    time_clusters)."""
+    import torch
+
+    from lumixengine_tpu_torch.renderer import draw_stream, pipeline, shadows
+
+    rm = world.modules["renderer"]
+    torch.cuda.synchronize()
+    _zero_launches()
+    views = {mode: pipeline.prepare_view(state, rm, sort_mode=mode)
+             for mode in (pipeline.SORT_MATERIAL, pipeline.SORT_DEPTH)}
+    torch.cuda.synchronize()
+    launches = _launches()
+    if launches != {"K1": 2, "K2": 0}:
+        raise AssertionError(f"prepare_view must launch K1 once a call: {launches}")
+    for mode, v in views.items():
+        order = v.order.long()
+        hi, lo = v.sort_key.gather(-1, order), v.sort_key_lo.gather(-1, order)
+        ascending = (hi[..., 1:] > hi[..., :-1]) | ((hi[..., 1:] == hi[..., :-1])
+                                                   & (lo[..., 1:] >= lo[..., :-1]))
+        rank = torch.arange(order.shape[-1], device=order.device)
+        first = v.visible.gather(-1, order) == (rank < v.visible_count[..., None])
+        if not (bool(ascending.all()) and bool(first.all()) and torch.equal(
+                v.visible_count, state.modules["renderer"].counters["visible_count"])):
+            raise AssertionError(f"prepare_view (sort mode {mode}): the draw order is not the keys'")
+    stream = draw_stream.record_frame(map_tensors(lambda t: t[0], views[pipeline.SORT_MATERIAL]),
+                                      state.modules["renderer"], rm)
+    layers = {"prepare_view": lambda: pipeline.prepare_view(state, rm),
+              "shadow_pass": lambda: shadows.shadow_pass(state, rm, LIGHT_DIR)}
+    ops = {k: count_ops(fn)[1] for k, fn in layers.items()}
+    ms = {k: float(f"{cuda_time(fn, 5):.4f}") for k, fn in layers.items()}
+    log(f"[5 {name}] prepare_view in both sort modes: launches {launches}, draw order ascending "
+        f"in its keys with the visible instances first; record_frame on world 0: "
+        f"{len(stream.commands)} commands {[c.op for c in stream.commands]}; at "
+        f"W={state.alive.shape[0]}, torch ops a call {ops}, ms a call {ms}")
+    return {"view_launches": launches["K1"], "layer_ops": ops, "layer_ms": ms}
+
+
+def time_clusters(world, state):
+    """The cluster pass at the path's W on the card: ms a call (CUDA events
+    over 5 calls), the host's enqueue time of one call, its torch ops, and
+    its bound: the bytes it must move (camera, the live lights' positions
+    and ranges and the light mask read once; lists, counts and overflow
+    written once) over 3.35 TB/s, or its float operations (per world,
+    cluster and live light: 3 axes of clamp (2), subtract, square, add, and
+    the range compare) over 67 TFLOP/s, whichever is longer. A masked light
+    slot's test is decided by the mask alone, so it needs no arithmetic;
+    the pass as written computes every slot of the padded light axis, and
+    that count is returned beside the bound (`flops_padded`)."""
+    import torch
+
+    from lumixengine_tpu_torch.renderer import clusters
+
+    rm = world.modules["renderer"]
+    st = rm.statics()
+
+    def call():
+        return clusters.fill_clusters(state, rm, statics=st)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ms = cuda_time(call, 5)
+    _, n_ops = count_ops(call)
+    w = state.alive.shape[0]
+    c = 1
+    for n in clusters.GRID:
+        c *= n
+    n_l = rm.point_lights.capacity
+    n_live = int(st.pl_mask.sum())
+    l_pad = -(-n_l // clusters.WORD) * clusters.WORD
+    k = clusters.MAX_LIGHTS_PER_CLUSTER
+    nbytes = w * (7 + 4) * 4 + w * n_live * (3 + 1) * 4 + n_l + w * c * (k + 1) * 4 + w * 4
+    flops, flops_padded = w * c * n_live * 16, w * c * l_pad * 16
+    bound_ms, by = bound(nbytes, flops)
+    return {"ms": ms, "enqueue_ms": enqueue_ms, "ops": n_ops, "W": w, "C": c, "L": n_l,
+            "L_live": n_live, "L_pad": l_pad, "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": by, "flops_padded": flops_padded,
+            "bound_ms_padded": bound(nbytes, flops_padded)[0]}
+
+
+def run_attachments(dev, replicate_state):
+    """The skinned crowd at 4 characters with two bone attachments (a sword
+    on bone 5 of an animable, a lamp with an offset rotation on bone 9 of an
+    animator), replicated to 4 worlds: 3 frames on the card against the CPU;
+    each attachment's local transform is its bone's pose ∘ offset."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.core import math as lm
+    from lumixengine_tpu_torch.models.demo_scenes import skinned_crowd_world
+
+    engine, world, _r, _a = skinned_crowd_world(4)
+    rm, an = world.modules["renderer"], world.modules["animation"]
+    parents = (int(an.animables.entity[an.animables.entity >= 0][0]),
+               int(an.animators.entity[an.animators.entity >= 0][0]))
+    offsets = (((0.0, 0.2, 0.0), (0.0, 0.0, 0.0, 1.0)),
+               ((0.1, 0.0, -0.3), (0.0, float(np.sin(0.4)), 0.0, float(np.cos(0.4)))))
+    attached = []
+    for parent, bone, (op, orot) in zip(parents, (5, 9), offsets):
+        e = world.create_entity()
+        world.create_component(e, "bone_attachment", parent_entity=parent, bone=bone,
+                               offset_pos=op, offset_rot=orot)
+        attached.append(e)
+    step = engine.build_step(world, dev, extra=rm.cull_pass)
+    state = replicate_state(world.device_state(dev), 4, torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    _zero_launches()
+    step(state, DT)
+    torch.cuda.synchronize()
+    launches = _launches()
+    k1 = k1_on_path("attachments", world, state)
+    cmp = compare_with_plain(engine, world, state, step)
+    end, ams = cmp["state"], cmp["state"].modules["animation"]
+    err = 0.0
+    for e, parent, bone, (op, orot) in zip(attached, parents, (5, 9), offsets):
+        col = (an.pool_col_animable(an.animables.slot_of(parent)) if parent in an.animables
+               else an.pool_col_animator(an.animators.slot_of(parent)))
+        bp, br = ams.pose_pos[..., :, bone, col], ams.pose_rot[..., :, bone, col]
+        want_p = bp + lm.quat_rotate(br, torch.tensor(op, device=dev))
+        want_r = lm.quat_mul(br, torch.tensor(orot, device=dev))
+        slot = world.slot(e)
+        err = max(err, max_err([end.local.pos[..., :, slot], end.local.rot[..., :, slot]],
+                               [want_p, want_r]))
+    log(f"[5 attachments] skinned_crowd_world(4) + 2 bone attachments at W=4: launches in a frame "
+        f"{launches};"
+        f" 3 frames card vs plain on the CPU: max abs err {cmp['errs']}; attachment local vs "
+        f"bone pose ∘ offset on the card: {err:.3e}")
+    if launches != {"K1": 1, "K2": 0} or not err <= TRANSFORM_ATOL:
+        raise AssertionError(f"bone attachments: launches {launches}, pose error {err}")
+    return {"launches": launches, "err": err, "k1": k1}
 
 
 def run_boxes(dev):
@@ -715,6 +986,126 @@ def run_goldens(dev):
     return {"launches": launches, "k2_err": k2_err}
 
 
+def golden_gap(name, dev):
+    """Golden `name` at W=1 stepped on the card and on the CPU side by side
+    for its full arc: each physics field's largest gap, the first step where
+    it passes GAP_LIMIT and the first step where the two differ at all; then
+    that step again from the CPU's state before it on both devices, op by op
+    (first_divergent_op), and K2 against the plain solve on its contact set
+    there."""
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import solver as S
+
+    g = _golden(name)
+    engine, world, gpu, _slots = PS.golden_world(g, dev)
+    pm = world.modules["physics"]
+    gstep, cstep = engine.build_step(world, dev), engine.build_step(world, "cpu")
+    cpu = gpu.to("cpu")
+    fields = ("pos", "rot", "vel", "angvel")
+
+    def rows(state):
+        ph = state.modules["physics"]
+        return torch.cat([getattr(ph, f).reshape(-1) for f in fields])
+
+    cpu_states, grows, crows = [cpu], [], []
+    for _ in range(int(g["steps"])):
+        gpu, cpu = gstep(gpu, DT), cstep(cpu, DT)
+        grows.append(rows(gpu))
+        crows.append(rows(cpu))
+        cpu_states.append(cpu)
+    sizes = [getattr(cpu.modules["physics"], f).numel() for f in fields]
+    diff = (torch.stack(grows).cpu() - torch.stack(crows)).abs()
+    gap = torch.stack([d.amax(dim=-1) for d in diff.split(sizes, dim=-1)], dim=-1)  # [steps, fields]
+
+    def first(mask):
+        hit = torch.nonzero(mask).flatten()
+        return int(hit[0]) + 1 if len(hit) else None
+
+    out = {"steps": int(g["steps"]),
+           "max_gap": {f: float(f"{float(gap[:, i].max()):.4g}") for i, f in enumerate(fields)},
+           f"first_step_over_{GAP_LIMIT:g}": {f: first(gap[:, i] > GAP_LIMIT)
+                                               for i, f in enumerate(fields)},
+           "first_step_differing": first(gap.amax(dim=-1) > 0)}
+    k = out["first_step_differing"]
+    if k is not None:
+        before = cpu_states[k - 1]
+        out["first_op"] = first_divergent_op(cstep, gstep, before, dev)
+        st = pm.statics()
+        if st.ground_plane or len(st.pair_a):
+            prob = pm.solver_problem(before.to(dev), DT)
+            out["k2_vs_plain_there"] = max_err(
+                [t.cpu() for t in S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS)],
+                S.solve_plain(pm.solver_problem(before, DT), ITERATIONS, POSITION_ITERATIONS))
+    log(f"[7 gap] {name}: card vs CPU, {out}")
+    return out
+
+
+def first_divergent_op(cpu_step, gpu_step, state, dev):
+    """One step from the same state on the CPU and on the card, each torch op
+    recorded with its outputs: the first op whose outputs differ, where the
+    port calls it, and by how much. Both sides take the plain contact solve
+    here, so that the two op streams line up (K2 is one library call, not a
+    torch op; its own gap is measured beside)."""
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from lumixengine_tpu_torch.ops import solver as S
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            # views, fresh allocations and host-to-device constant copies
+            # (the card's step copies constants the CPU's uses in place)
+            if not (getattr(func, "is_view", False) or "empty" in name
+                    or name.startswith(("aten._to_copy", "aten.lift_fresh"))):
+                where = next((f"{os.path.relpath(fr.filename, root)}:{fr.lineno}"
+                              for fr in reversed(traceback.extract_stack())
+                              if "lumixengine_tpu_torch" in fr.filename), "?")
+                outs = [t.detach().cpu().clone() for t in tree_flatten(out)[0]
+                        if isinstance(t, torch.Tensor)]
+                self.ops.append((name, outs, where))
+            return out
+
+    solve = S.solve
+    S.solve = S.solve_plain
+    try:
+        recs = []
+        for step, where in ((cpu_step, "cpu"), (gpu_step, dev)):
+            with Record() as rec:
+                step(state.to(where), torch.tensor(DT, dtype=torch.float32, device=where))
+            recs.append(rec.ops)
+    finally:
+        S.solve = solve
+    def same(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.is_floating_point():
+            return bool(((a == b) | (a.isnan() & b.isnan())).all())
+        return torch.equal(a, b)
+
+    for i, ((fc, tc, at), (fg, tg, _)) in enumerate(zip(*recs)):
+        if fc != fg:
+            return {"op_index": i, "streams_part": (fc, fg), "ops": len(recs[0])}
+        for a, b in zip(tc, tg):
+            if not same(a, b):
+                d = (a.double() - b.double()).abs()
+                return {"op_index": i, "op": fc, "at": at, "ops": len(recs[0]),
+                        "max_abs_diff": float(d.max()), "elements_differing": int((d > 0).sum())}
+    return {"op_index": None, "ops": len(recs[0])}
+
+
 def run_farm(name, dev, replicate_state):
     """Golden `name` replicated to FARM_WORLDS diverging worlds, FARM_FRAMES
     frames timed with CUDA events; K2 on the farm's contact set against its plain
@@ -891,12 +1282,14 @@ def count_ops(fn):
     return out, c.n
 
 
-def op_counts(world, state, dev):
+def op_counts(world, state, dev, passes=False):
     """The torch ops one frame dispatches, per module phase, counted on the
-    host as the phases of Engine.build_step run on `state`."""
+    host as the phases of Engine.build_step run on `state` (and with
+    `passes`, the render config's shadow and cluster passes)."""
     import torch
 
     from lumixengine_tpu_torch.ops import hierarchy as hier
+    from lumixengine_tpu_torch.renderer import clusters, shadows
 
     counts = {}
     dt = torch.tensor(DT, dtype=torch.float32, device=dev)
@@ -913,7 +1306,10 @@ def op_counts(world, state, dev):
             state = run(f"{m.name}.{phase}", lambda: getattr(m, phase)(state, dt))
     state = run("hierarchy", lambda: state.replace(
         world=hier.propagate_plan(state.local, world.plan)))
-    run("renderer.cull_pass", lambda: rm.cull_pass(state, dt))
+    state = run("renderer.cull_pass", lambda: rm.cull_pass(state, dt))
+    if passes:
+        run("shadow_pass", lambda: shadows.shadow_pass(state, rm, LIGHT_DIR))
+        run("fill_clusters", lambda: clusters.fill_clusters(state, rm))
     return counts
 
 
@@ -951,9 +1347,11 @@ def _storm_kill_margin(channels, dt):
     return np.minimum(np.abs(y), np.abs(t - 6.0))
 
 
-def compare_with_plain(engine, world, state, step):
+def compare_with_plain(engine, world, state, step, views=False):
     """3 frames from the same W=4 state: the card's step (kernels) against the
-    CPU step (plain versions), at the CPU parity tests' tolerances."""
+    CPU step (plain versions), at the CPU parity tests' tolerances; with
+    `views`, each frame's prepare_view (both sort modes), shadow and cluster
+    passes too. Returns the errors, the flips and the card's end state."""
     import numpy as np
 
     from lumixengine_tpu_torch import bridge
@@ -971,7 +1369,7 @@ def compare_with_plain(engine, world, state, step):
     for store in (an.animables, an.animators) if an is not None else ():
         char[world.to_slots(store.entity[store.entity >= 0])] = True
     gpu, cpu = state, state.to("cpu")
-    errs, flips, kills = {}, [], []
+    errs, flips, kills, view_flips = {}, [], [], []
     diverged = {}  # emitter -> slots whose kill flipped (they differ from then on)
 
     def close(name, a, b, atol):
@@ -1020,8 +1418,77 @@ def compare_with_plain(engine, world, state, step):
             if not np.array_equal(c, got["modules.renderer." + mask].sum(-1)):
                 raise AssertionError(f"{counter} disagrees with its mask")
         flips.append(frame_flips)
+        if views:
+            view_flips.append(compare_views(rm, gpu, cpu, margins, close))
     return {"errs": {k: float(f"{v:.3g}") for k, v in errs.items() if v}, "flips": flips,
-            "kills": kills}
+            "kills": kills, "view_flips": view_flips, "state": gpu}
+
+
+def compare_views(rm, gpu, cpu, margins, close):
+    """prepare_view in both sort modes, shadow_pass and fill_clusters of
+    the card's state against the CPU's: the visible and LOD masks equal
+    outside the cull margins, the keys equal away from every margin and
+    the depth rounding, the draw order and instance buffers equal in the
+    worlds whose keys all agree; cascade geometry within 1e-5 of its
+    largest magnitude, casters equal outside shadows.SHADOW_MARGIN; cluster
+    words equal outside clusters.CLUSTER_D2_EPS, lists and counts equal in
+    the clusters with no flipped test, overflow off by at most the flips.
+    Returns the flips (instances at a margin, casters, cluster tests)."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.renderer import clusters, pipeline, shadows
+
+    vis_m, lod_m, _light_m = margins
+    depth_near = (pipeline.depth_margins(cpu, rm) < pipeline.DEPTH_EPS).numpy()
+    out = {"view": 0}
+    for mode in (pipeline.SORT_MATERIAL, pipeline.SORT_DEPTH):
+        g = pipeline.prepare_view(gpu, rm, sort_mode=mode)
+        c = pipeline.prepare_view(cpu, rm, sort_mode=mode)
+        moved = g.visible.cpu().numpy() != c.visible.numpy()
+        lod_off = g.lod.cpu().numpy() != c.lod.numpy()
+        if np.any(moved & (np.abs(vis_m) >= MARGIN)) or np.any(lod_off & (np.abs(lod_m) >= MARGIN)):
+            raise AssertionError(f"prepare_view {mode}: a mask differs away from its margin")
+        moved |= lod_off | depth_near
+        off = ((g.sort_key.cpu() != c.sort_key) | (g.sort_key_lo.cpu() != c.sort_key_lo)).numpy()
+        if np.any(off & ~moved):
+            raise AssertionError(f"prepare_view {mode}: a key differs away from every margin")
+        same = torch.as_tensor(~off.any(-1))
+        for f in ("order", "instance_model", "instance_slot", "visible_count"):
+            if not torch.equal(getattr(g, f).cpu()[same], getattr(c, f)[same]):
+                raise AssertionError(f"prepare_view {mode}: {f} differs in a world whose keys agree")
+        for f in ("instance_pos", "instance_rot", "instance_scale"):
+            close(f"view.{f}", getattr(g, f).cpu()[same].numpy(), getattr(c, f)[same].numpy(),
+                  TRANSFORM_ATOL)
+        out["view"] += int(off.sum())
+
+    sg = shadows.shadow_pass(gpu, rm, LIGHT_DIR)
+    sc = shadows.shadow_pass(cpu, rm, LIGHT_DIR)
+    for f in ("splits", "center", "radius", "light_pos", "extent"):
+        ref = getattr(sc, f).numpy()
+        close(f"shadow.{f}", getattr(sg, f).cpu().numpy(), ref, 1e-5 * np.abs(ref).max())
+    off = (sg.casters.cpu() != sc.casters).numpy()
+    near = (shadows.caster_margins(cpu, rm, sc, LIGHT_DIR).abs() < shadows.SHADOW_MARGIN).numpy()
+    counts = np.abs(sg.caster_count.cpu().numpy().astype(np.int64) - sc.caster_count.numpy())
+    if np.any(off & ~near) or np.any(counts > off.sum(-1)):
+        raise AssertionError("shadow casters differ away from a cascade plane")
+    out["casters"] = int(off.sum())
+
+    ig, ic = clusters.cluster_inputs(gpu, rm), clusters.cluster_inputs(cpu, rm)
+    wg, wc = clusters._touch_words(*ig).cpu(), clusters._touch_words(*ic)
+    off = clusters.unpack_words(wg ^ wc).numpy()
+    if np.any(off & (clusters.touch_margins(*ic).numpy() >= clusters.CLUSTER_D2_EPS)):
+        raise AssertionError("cluster words differ away from a light's range")
+    lg, lc = clusters.fill_clusters(gpu, rm), clusters.fill_clusters(cpu, rm)
+    same = torch.as_tensor(~off.any(-1))
+    if not (torch.equal(lg.lights.cpu()[same], lc.lights[same])
+            and torch.equal(lg.count.cpu()[same], lc.count[same])
+            and int((lg.overflow.cpu() - lc.overflow).abs().max()) <= int(off.sum())):
+        raise AssertionError("cluster lists, counts or overflow differ, card vs CPU")
+    if int(lc.count.sum()) == 0:
+        raise AssertionError("the cluster compare holds no light")
+    out["cluster_tests"] = int(off.sum())
+    return out
 
 
 def _compare_particles(prev, got, ref, close, diverged):

@@ -196,6 +196,15 @@ class AnimationModule(IModule):
     def pool_size(self) -> int:
         return self.animables.capacity + self.animators.capacity
 
+    def pool_col_animable(self, slot: int) -> int:
+        """The pose-pool column of animable store slot `slot`."""
+        return slot
+
+    def pool_col_animator(self, slot: int) -> int:
+        """The pose-pool column of animator store slot `slot` (animators
+        follow the animables' columns)."""
+        return self.animables.capacity + slot
+
     def device_state(self, device) -> AnimState:
         b = self.system.max_bones
         p = self.pool_size

@@ -132,6 +132,9 @@ class World:
                 pp, pr, ps, g_pos, g_rot, g_scale)
         self._levels_dirty = True
 
+    def get_parent(self, e: int) -> int:
+        return int(self.parent[e])
+
     def _refresh_levels(self) -> None:
         if not self._levels_dirty:
             return

@@ -2,13 +2,14 @@
 
 ``full_frame_world`` is the flagship scene builder: transform hierarchy,
 frustum culling, skinned characters (animables and locomotion animators with
-root motion), rigid bodies and a particle emitter. ``skinned_crowd_world``
-and ``particle_stress_world`` are the crowd and the 1M-particle stress;
-``box_drop_pile`` is the 10k-box drop on the slot pipeline (the scene the
-reference's ``bench.py --config boxes`` builds). Each makes the same numpy
-RNG draws in the same order as the reference, and keeps its capacities, so
-one seed gives one scene and one state layout in both packages. The script
-and headless builders are not ported.
+root motion), rigid bodies and a particle emitter. ``headless_demo_world`` is
+the headless demo tick (~2k props in a hierarchy of depth <= 4, a camera and
+32 point lights). ``skinned_crowd_world`` and ``particle_stress_world`` are
+the crowd and the 1M-particle stress; ``box_drop_pile`` is the 10k-box drop
+on the slot pipeline (the scene the reference's ``bench.py --config boxes``
+builds). Each makes the same numpy RNG draws in the same order as the
+reference, and keeps its capacities, so one seed gives one scene and one
+state layout in both packages. ``script_stress_world`` is not ported.
 """
 from __future__ import annotations
 
@@ -287,3 +288,53 @@ def full_frame_world(num_entities: int = 10240, num_characters: int = 64,
         world.create_component(e, "model_instance", model=model_names[int(rng.integers(3))])
         props.append(e)
     return engine, world, renderer, anim, phys
+
+
+def headless_demo_world(num_entities: int = 2048, seed: int = 0, engine: Engine | None = None,
+                        hierarchy_fraction: float = 0.35, instance_fraction: float = 0.9):
+    """The headless demo tick (BASELINE.md config 1): scattered props, some
+    parented (depth <= 4), one camera, an environment and up to 32 point
+    lights. Returns (engine, world, renderer_system)."""
+    rng = np.random.default_rng(seed)
+    if engine is None:
+        engine, renderer = build_engine(model_instances=num_entities)
+    else:
+        renderer = engine.system_manager.get_system("renderer_system")
+    world = engine.create_world(capacity=num_entities)
+
+    cam = world.create_entity(position=(0.0, 5.0, 40.0), name="camera")
+    world.create_component(cam, "camera", fov=np.radians(70.0), near=0.3, far=500.0)
+    env = world.create_entity(name="sun")
+    world.create_component(env, "environment", color=(1.0, 0.96, 0.9), intensity=3.0)
+
+    for _ in range(min(32, num_entities // 16)):
+        e = world.create_entity(position=rng.uniform(-80, 80, 3).astype(np.float32))
+        world.create_component(e, "point_light", color=rng.uniform(0.2, 1.0, 3),
+                               intensity=rng.uniform(1, 8), range=rng.uniform(5, 25))
+
+    model_names = ["cube", "rock", "tree"]
+    props = []
+    prop_level = {}
+    for _ in range(num_entities - world.entity_count):
+        parent = -1
+        if props and rng.random() < hierarchy_fraction:
+            cand = int(rng.choice(props[-256:]))
+            if prop_level.get(cand, 0) < 3:   # hierarchy depth <= 4
+                parent = cand
+        pos = rng.uniform(-100, 100, 3).astype(np.float32)
+        pos[1] = abs(pos[1]) * 0.1
+        axis = rng.normal(size=3).astype(np.float32)
+        axis /= np.linalg.norm(axis)
+        e = world.create_entity(
+            position=pos,
+            rotation=hm.quat_from_axis_angle(axis, rng.uniform(0, np.pi)),
+            scale=np.full(3, rng.uniform(0.5, 2.0), np.float32),
+        )
+        if parent >= 0:
+            world.set_parent(e, parent)
+            world.set_local_transform(e, position=rng.uniform(-3, 3, 3).astype(np.float32))
+        prop_level[e] = prop_level.get(parent, -1) + 1 if parent >= 0 else 0
+        if rng.random() < instance_fraction:
+            world.create_component(e, "model_instance", model=model_names[int(rng.integers(3))])
+        props.append(e)
+    return engine, world, renderer

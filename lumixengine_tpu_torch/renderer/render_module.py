@@ -1,12 +1,13 @@
 """RenderModule + RendererSystem (counterpart of
 ``lumixengine_tpu/renderer/render_module.py``).
 
-The ported components are model_instance, camera, point_light, environment
-and particle_emitter. The phases are end_frame (previous-frame transforms of
-the model instances), update (one frame of every particle emitter, with the
-particle counters) and the pipeline's cull pass. Other component types raise
-NotImplementedError; bone attachments (``late_update`` in the reference) are
-among them.
+The ported components are model_instance, camera, point_light, environment,
+particle_emitter, instanced_model (host instance blobs, culled as one sphere
+each by ``pipeline.prepare_view``) and bone_attachment. The phases are
+end_frame (previous-frame transforms of the model instances), update (one
+frame of every particle emitter, with the particle counters), late_update
+(bone attachments follow their animated bone) and the pipeline's cull pass.
+Other component types raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from lumixengine_tpu_torch.core import math as lm
 from lumixengine_tpu_torch.core import random as prng
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
@@ -24,9 +26,8 @@ from lumixengine_tpu_torch.renderer.culling_system import CullingState, CullingS
 from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
 from lumixengine_tpu_torch.utils.store import DenseStore
 
-_NOT_PORTED = ("terrain", "decal", "curve_decal", "instanced_model",
-               "procedural_geometry", "reflection_probe", "environment_probe",
-               "bone_attachment")
+_NOT_PORTED = ("terrain", "decal", "curve_decal", "procedural_geometry", "reflection_probe",
+               "environment_probe")
 
 
 @dataclass
@@ -89,22 +90,37 @@ class RenderModule(IModule):
         self.env_intensity = np.float32(1.0)
         # particle emitter components: key -> (entity, ParticleSystem instance)
         self.particle_emitters: Dict[str, tuple] = {}
+        # BoneAttachment: the entity follows a bone of an animated parent
+        self.bone_attachments = DenseStore(64, {
+            "parent_entity": ((), np.int32, -1),
+            "bone": ((), np.int32, 0),
+            "offset_pos": ((3,), np.float32, 0.0),
+            "offset_rot": ((4,), np.float32, (0.0, 0.0, 0.0, 1.0)),
+        })
+        # InstancedModel: per-entity instance blobs (host arrays)
+        self.instanced_models: Dict[int, dict] = {}
         self._statics = None
         self._statics_version = -1
+        self._anim_statics = None     # the animation statics the view statics were built on
 
     def component_types(self):
         return ["model_instance", "camera", "point_light", "environment", "particle_emitter",
-                *_NOT_PORTED]
+                "instanced_model", "bone_attachment", *_NOT_PORTED]
 
     def statics(self):
-        """Host view statics (slot indices, model ids, radii), rebuilt on
-        membership change."""
+        """Host view statics (slot indices, model ids, radii, the attachment
+        wiring), rebuilt on membership change here, in the hierarchy or in
+        the animation module (whose pool columns the attachments read)."""
         self.world._refresh_levels()
-        if self._statics is None or self._statics_version != self.world.topology_version:
+        anim = self.world.modules.get("animation")
+        anim_statics = anim.statics() if anim is not None else None
+        if (self._statics is None or self._statics_version != self.world.topology_version
+                or self._anim_statics is not anim_statics):
             from lumixengine_tpu_torch.renderer.pipeline import ViewStatics
 
             self._statics = ViewStatics(self)
             self._statics_version = self.world.topology_version
+            self._anim_statics = anim_statics
         return self._statics
 
     def prepare_statics(self, device) -> None:
@@ -131,6 +147,26 @@ class RenderModule(IModule):
         elif ctype == "particle_emitter":
             self.particle_emitters[f"pe{entity}"] = (entity,
                                                      self.system.particle_system(props["script"]))
+        elif ctype == "instanced_model":
+            mid = props.get("model")
+            mid = self.system.models.get_id(mid) if isinstance(mid, str) else int(mid)
+            n = int(props.get("count", 0))
+            self.instanced_models[entity] = {
+                "model": mid,
+                "pos": np.asarray(props.get("positions", np.zeros((n, 3))), np.float32),
+                "rot": np.asarray(props.get("rotations", np.tile([0, 0, 0, 1.0], (max(n, 1), 1))),
+                                  np.float32),
+                "scale": np.asarray(props.get("scales", np.ones((max(n, 1), 3))), np.float32),
+            }
+        elif ctype == "bone_attachment":
+            parent = int(props.get("parent_entity", -1))
+            self.bone_attachments.add(
+                entity, parent_entity=np.int32(parent), bone=np.int32(props.get("bone", 0)),
+                offset_pos=np.asarray(props.get("offset_pos", (0.0,) * 3), np.float32),
+                offset_rot=np.asarray(props.get("offset_rot", (0, 0, 0, 1.0)), np.float32))
+            # the attachment follows the bone in the animated entity's space
+            if parent >= 0 and self.world.get_parent(entity) < 0:
+                self.world.set_parent(entity, parent)
         else:
             raise NotImplementedError(f"render component {ctype!r} is not ported")
 
@@ -178,6 +214,48 @@ class RenderModule(IModule):
                         prev_rot=state.world.rot.index_select(-1, eidx))
         return state.replace(modules={**state.modules, self.name: rs})
 
+    def late_update(self, state: WorldState, dt) -> WorldState:
+        """Bone attachments follow their animated bone: the attachment's
+        local transform (a child of the animated entity) = the bone's
+        model-space pose ∘ the offset. Returns at once without attachments."""
+        if not len(self.bone_attachments) or "animation" not in state.modules:
+            return state
+        statics = self.statics()
+        if statics.ba_flat.size == 0:
+            return state
+        ams = state.modules["animation"]
+        d = statics.on(ams.pose_pos.device)
+        bpos = ams.pose_pos.flatten(-2).index_select(-1, d.ba_flat)   # [.., 3, A]
+        brot = ams.pose_rot.flatten(-2).index_select(-1, d.ba_flat)   # [.., 4, A]
+        new_lp = bpos + lm.quat_rotate(brot, d.ba_offset_pos, axis=-2)
+        new_lr = lm.quat_mul(brot, d.ba_offset_rot, axis=-2)
+        local = state.local.replace(pos=state.local.pos.index_copy(-1, d.ba_slots, new_lp),
+                                    rot=state.local.rot.index_copy(-1, d.ba_slots, new_lr))
+        return state.replace(local=local)
+
+    def attachment_wiring(self):
+        """The static wiring of the attachments whose parent is animated, on
+        the host: (flat index bone · pool + column into the [.., B, P] pose
+        pool int64 [A], world slot int64 [A], offset pos f32 [3, A], offset
+        rot f32 [4, A])."""
+        ba, anim = self.bone_attachments, self.world.modules.get("animation")
+        flat, eslots, offp, offr = [], [], [], []
+        for slot in np.nonzero(ba.entity >= 0)[0] if anim is not None else ():
+            parent = int(ba.data["parent_entity"][slot])
+            if parent in anim.animables:
+                col = anim.pool_col_animable(anim.animables.slot_of(parent))
+            elif parent in anim.animators:
+                col = anim.pool_col_animator(anim.animators.slot_of(parent))
+            else:
+                continue
+            flat.append(int(ba.data["bone"][slot]) * anim.pool_size + col)
+            eslots.append(self.world.slot(int(ba.entity[slot])))
+            offp.append(ba.data["offset_pos"][slot])
+            offr.append(ba.data["offset_rot"][slot])
+        return (np.asarray(flat, np.int64), np.asarray(eslots, np.int64),
+                np.asarray(offp, np.float32).reshape(-1, 3).T.copy(),
+                np.asarray(offr, np.float32).reshape(-1, 4).T.copy())
+
     def cull_pass(self, state: WorldState, dt) -> WorldState:
         """The pipeline's cull/LOD pass on camera 0 (kernel K1)."""
         from lumixengine_tpu_torch.renderer import pipeline as pipe
@@ -218,6 +296,11 @@ class RendererSystem(ISystem):
         self._baked = False
         # particle script sources: name -> (src, imports dict)
         self.particle_scripts: Dict[str, tuple] = {}
+        # render plugins, called by draw_stream.record_frame
+        self.plugins: list = []
+
+    def add_plugin(self, plugin) -> None:
+        self.plugins.append(plugin)
 
     def add_model(self, model: Model) -> int:
         self._baked = False

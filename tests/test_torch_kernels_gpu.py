@@ -376,3 +376,93 @@ def test_k2_on_the_golden_worlds(cuda, name):
         assert int(sane.sum()) >= 0.95 * w, int(sane.sum())
         _check_k2(S.ContactProblem(**{k: v if k == "inv_mass" else v[sane].contiguous()
                                       for k, v in prob.tensors().items()}))
+
+
+def _demo_state_on_both(cuda, worlds=8):
+    """The headless demo world (512 entities) replicated to `worlds` worlds,
+    3 frames in on the card, and the same state copied to the CPU."""
+    from lumixengine_tpu_torch.models.demo_scenes import headless_demo_world
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, _r = headless_demo_world(512)
+    rm = world.modules["renderer"]
+    step = engine.build_step(world, cuda, extra=rm.cull_pass)
+    s = replicate_state(world.device_state(cuda), worlds, torch.Generator(device=cuda).manual_seed(3))
+    for _ in range(3):
+        s = step(s, 1.0 / 60.0)
+    return rm, s, s.to("cpu")
+
+
+@pytest.mark.parametrize("sort_mode", [0, 1])
+def test_prepare_view_on_the_card(cuda, sort_mode):
+    """prepare_view launches K1 once; from the same state the card's view is
+    the CPU's: masks, keys (a depth key may round apart within DEPTH_EPS of
+    an integer), and the draw order and instance buffers wherever the keys
+    agree."""
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.renderer import pipeline
+
+    rm, gpu, cpu = _demo_state_on_both(cuda)
+    before = cull.frustum_cull_cuda.launches
+    g = pipeline.prepare_view(gpu, rm, sort_mode=sort_mode)
+    assert cull.frustum_cull_cuda.launches == before + 1
+    c = pipeline.prepare_view(cpu, rm, sort_mode=sort_mode)
+    assert torch.equal(g.visible.cpu(), c.visible) and torch.equal(g.lod.cpu(), c.lod)
+    off = (g.sort_key.cpu() != c.sort_key) | (g.sort_key_lo.cpu() != c.sort_key_lo)
+    assert not (off & (pipeline.depth_margins(cpu, rm) >= pipeline.DEPTH_EPS)).any()
+    same = ~off.any(-1)
+    for f in ("order", "instance_model", "instance_slot", "visible_count", "lights_visible"):
+        assert torch.equal(getattr(g, f).cpu()[same], getattr(c, f)[same]), f
+    torch.testing.assert_close(g.instance_pos.cpu()[same], c.instance_pos[same], rtol=0, atol=0)
+
+
+def test_shadow_and_cluster_passes_on_the_card(cuda):
+    """From the same state: the cascades within 1e-5 of their magnitude, the
+    casters equal outside SHADOW_MARGIN of a plane, the cluster words equal
+    outside CLUSTER_D2_EPS of a light's range and the lists equal where no
+    test flipped."""
+    import numpy as np
+
+    from lumixengine_tpu_torch.renderer import clusters, shadows
+
+    rm, gpu, cpu = _demo_state_on_both(cuda)
+    light = (0.3, -1.0, 0.2)
+    sg, sc = shadows.shadow_pass(gpu, rm, light), shadows.shadow_pass(cpu, rm, light)
+    for f in ("splits", "center", "radius", "light_pos", "extent"):
+        ref = getattr(sc, f)
+        torch.testing.assert_close(getattr(sg, f).cpu(), ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    near = shadows.caster_margins(cpu, rm, sc, light).abs() < shadows.SHADOW_MARGIN
+    assert not ((sg.casters.cpu() != sc.casters) & ~near).any()
+    ig, ic = clusters.cluster_inputs(gpu, rm), clusters.cluster_inputs(cpu, rm)
+    off = clusters.unpack_words(clusters._touch_words(*ig).cpu() ^ clusters._touch_words(*ic))
+    assert not (off & (clusters.touch_margins(*ic) >= clusters.CLUSTER_D2_EPS)).any()
+    lg, lc = clusters.fill_clusters(gpu, rm), clusters.fill_clusters(cpu, rm)
+    same = ~off.any(-1)
+    assert torch.equal(lg.lights.cpu()[same], lc.lights[same])
+    assert int(lc.count.sum()) > 0
+    words = np.random.default_rng(0).integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.int64)
+    t = torch.as_tensor(words)
+    assert torch.equal(clusters.popcount32(t.to(cuda)).cpu(), clusters.popcount32(t))
+
+
+def test_bone_attachments_on_the_card(cuda):
+    """A crowd of 4 with a bone attachment: one frame on the card and on the
+    CPU from the same state, the attachment's transforms within 1e-5."""
+    from lumixengine_tpu_torch.models.demo_scenes import skinned_crowd_world
+
+    engine, world, _r, _a = skinned_crowd_world(4)
+    an = world.modules["animation"]
+    char = int(an.animables.entity[an.animables.entity >= 0][0])
+    sword = world.create_entity()
+    world.create_component(sword, "bone_attachment", parent_entity=char, bone=5,
+                           offset_pos=(0.0, 0.2, 0.0))
+    rm = world.modules["renderer"]
+    state = world.device_state(cuda)
+    g = engine.build_step(world, cuda, extra=rm.cull_pass)(state, 1.0 / 60.0)
+    c = engine.build_step(world, "cpu", extra=rm.cull_pass)(state.to("cpu"), 1.0 / 60.0)
+    slot = world.slot(sword)
+    for xf in ("local", "world"):
+        torch.testing.assert_close(getattr(g, xf).pos[:, slot].cpu(), getattr(c, xf).pos[:, slot],
+                                   rtol=0, atol=1e-5)
+    assert float((g.local.pos[:, slot].cpu() - state.local.pos[:, slot].cpu()).abs().max()) > 0

@@ -115,7 +115,7 @@ def test_unported_components_raise(worlds):
     _ref, (_pe, pw, _pr, _pp) = worlds
     for ctype, props in (("physics_controller", dict(radius=0.4)),
                          ("property_animator", dict(curves=[])),
-                         ("bone_attachment", dict(parent_entity=1))):
+                         ("decal", dict(half_extents=(1.0, 1.0, 1.0)))):
         with pytest.raises(NotImplementedError):
             pw.create_component(0, ctype, **props)
 
