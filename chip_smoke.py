@@ -77,22 +77,42 @@ Phases, each printed on its own line:
      package's count of worlds within the bounds), K2 launching once a
      step wherever there is a contact stream and held to its plain version
      on each world's last contact set; a world farm: hinge_pendulum and
-     capsule_stack each replicated to 4096 diverging worlds for 200 frames
+     capsule_stack each replicated to 4096 diverging worlds for FARM_FRAMES frames
      (ms/frame, body-steps/s of the dynamic bodies, torch ops per frame, K2
      on the farm's contact set against plain, timed and against its bound);
      the banded branch, which `auto` picks above 256 actor slots: a
      10,000-box block on the bench's grid at 10,240 slots (sweep window 40),
-     300 steps at W=1
+     BANDED_STEPS steps at W=1
      (ms/step, the window certificate summed on the card: 0, finite, the
      lowest box centre), then a 1,000-box block 90 steps in, 3 steps on the
      card against the CPU; and ballistic and d6_slider on the card and on
      the CPU side by side for their full arcs: each physics field's largest
      gap, the first step past GAP_LIMIT, and the first torch op whose
-     outputs differ (first_divergent_op);
+     outputs differ (first_divergent_op); then the game content of
+     models/physics_scenes.py: the props farm (hulls on boxes and hulls,
+     SDF mesh colliders, CCD spheres at a thin slab and head-on, instanced
+     cubes and hulls; W=4096), the drive farm (a four-wheel vehicle under
+     throttle and steer, a walking character controller, 64 rays and 64
+     sphere sweeps a world each frame; W=4096) and the terrain farm (a
+     seeded 64 x 64 heightfield, dropped bodies, a walking controller;
+     W=1024), each for its JAX tests' settle time with world 0 as built and
+     the others perturbed: ms/frame, body-steps/s, torch ops a frame, K2
+     launching once a frame and held to its plain version on the farm's
+     end contact set (timed, against its bound), the scene's physical checks
+     on every world (resting heights, no tunnelling through the thin mesh,
+     the vehicle moving forward and turning, the controller grounded), the
+     device time of the new layers (polytope SAT, SDF streams, CCD,
+     heightfield, vehicles, queries) and 3 frames card vs CPU; and the
+     banded props level, 1,024 random hulls in the JAX pile test's stacks
+     of five over an SDF slab and the ground at 1,024 actor slots (`auto`
+     picks the banded branch), BANDED_PROPS_STEPS steps at W=1 with every
+     step's window certificate printed, that test's settle bounds hull by
+     hull (at most BANDED_PROPS_UNSETTLED hulls outside them), and 3 steps
+     card vs CPU on 4 of its stacks;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
-     of the boxes, of the farms and of the banded block, each kernel beside
+     of the boxes, of the farms, the game farms and the banded blocks, each kernel beside
      its plain version (plain, kernel, kernel, plain; K2 on the settled and
      the piled problem) and against its bound: the bytes it must move over
      3.35 TB/s or its operations over 67 TFLOP/s (fp32), whichever is
@@ -113,7 +133,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES = 10240, 64, 64, 2048
-WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 100, 10, 240
+# the main paths' depth: 50 frames (100 before the game content joined the script)
+WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 50, 10, 240
 SLICE_WORLDS = 256       # the slice path (no characters, a 1-slot emitter), at a smaller depth
 CROWD_CHARACTERS, CROWD_WORLDS = 256, 1024
 STORM_CAPACITY = 1_000_000
@@ -133,8 +154,8 @@ BOX_SLEEP_Y_MIN = 0.41
 BOX_REFERENCE_END = {"ke_end": 0.0, "sleeping_end": 9887}
 # the PhysicsModule beyond the flagship: the goldens at W=1, two of them as a world farm,
 # and a block of boxes on the banded branch (bench.py's grid, 10240 actor slots)
-FARM_GOLDENS, FARM_WORLDS, FARM_FRAMES = ("hinge_pendulum", "capsule_stack"), 4096, 200
-BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 300
+FARM_GOLDENS, FARM_WORLDS, FARM_FRAMES = ("hinge_pendulum", "capsule_stack"), 4096, 100
+BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 120   # 300 before the game content
 # the sweep window (sap_neighbors) of the banded block: over 300 steps of the 10k block the
 # card's window certificate summed 1,602,273 at the module's default 16, 4,318 at 32 and 0 at
 # 40 and 48 (tools/banded_window.py; at 1,000 boxes the JAX package on the CPU summed 8,206 at
@@ -142,6 +163,19 @@ BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 300
 BANDED_WINDOW = 40
 BANDED_COMPARE_BOXES, BANDED_COMPARE_CAPACITY, BANDED_COMPARE_AT = 1000, 1024, 90
 SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds below it
+# the game-content farms (models/physics_scenes.py) and the banded props level
+GAME_WORLDS = {"props": 4096, "drive": 4096, "terrain": 1024}
+# the banded props level: its hulls, and how many may end unsettled (physics_scenes.
+# check_banded_props). The JAX pile test's bounds hold for its 5 hulls; on a pile of hundreds
+# both packages leave a few hulls outside them at random: on the level scaled to 256 hulls
+# (tools/banded_props_layouts.py on the CPU, seeds 7-12) the JAX package left 0-3 and the port
+# 0-6, so the level allows the JAX package's worst share, 3 of 256
+BANDED_PROPS_HULLS = 1024
+BANDED_PROPS_UNSETTLED = 3 * BANDED_PROPS_HULLS // 256
+# the card-vs-CPU compare: hulls (4 of the level's stacks, all on the slab), actor slots, steps
+# before its 3 steps, when the stacks are falling onto each other
+BANDED_PROPS_COMPARE = (20, 300, 60)
+LAYER_REPS = 20
 # the headless demo tick (bench.py --config demo at headless_demo_world's default, ~2k entities;
 # bench.py's CLI default would build 10,240) at bench.py's default world count
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
@@ -324,9 +358,11 @@ def main() -> int:
     problems = {}
     faults = {"one iteration short": 0.0, "one projection pass short": 0.0}
     wide = wide_problem(dev, W, replicate_state)
+    k2_shapes = {}
     for name, s in (("settled", settle), ("piled", piled), ("piled NB=256", wide)):
         prob = pm.solver_problem(s, DT) if name != "piled NB=256" else s
         problems[name] = prob
+        k2_shapes[f"phase 4 {name}"] = [prob.vel.shape[0], prob.vel.shape[-1], prob.act.shape[-1]]
         n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
         outk = S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS)
         outp = S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS)
@@ -379,6 +415,8 @@ def main() -> int:
     gaps = {name: golden_gap(name, dev) for name in GAP_GOLDENS}
     farms = {name: run_farm(name, dev, replicate_state) for name in FARM_GOLDENS}
     banded = run_banded(dev)
+    game = {kind: run_game(kind, dev, card) for kind in GAME_WORLDS}
+    banded_props = run_banded_props(dev, card)
 
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
@@ -432,6 +470,16 @@ def main() -> int:
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the full arcs: {gaps}")
+    log(f"[8 time] {card}: " + "; ".join(
+        f"{kind} {r['ms']:.3f} ms/frame at W={r['worlds']} = {r['rate']:.4g} body-steps/s "
+        f"({r['ops']} ops/frame), K2 {r['k2']['ms']:.4f} ms (plain {r['k2']['plain_ms']:.4f}, "
+        f"bound {r['k2']['bound_ms']:.4f})" for kind, r in game.items())
+        + f"; banded props {BANDED_PROPS_HULLS} hulls {banded_props['ms']:.3f} ms/step = "
+        f"{BANDED_PROPS_HULLS / (banded_props['ms'] / 1e3):.4g} body-steps/s "
+        f"({banded_props['ops']} ops/step)")
+    k2_shapes.update({f"farm {name}": [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]]
+                      for name, r in farms.items()})
+    k2_shapes.update({kind: [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]] for kind, r in game.items()})
     main_launches = runs["flagship"]["launches"]
     kernels = [
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
@@ -443,8 +491,9 @@ def main() -> int:
          "launches_render": runs["render"]["launches"]["K1"],
          "launches_prepare_view": runs["render"]["view_launches"] + runs["demo"]["view_launches"],
          "launches_attachments": attach["launches"]["K1"],
-         "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"] + sum(
-             r["launches"]["K1"] for r in farms.values()),
+         "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
+         + banded_props["launches"]["K1"] + sum(r["launches"]["K1"] for r in (*farms.values(),
+                                                                              *game.values())),
          "max_abs_err": k1_err, "mismatches": k1_bad,
          "checked_shapes": {"phase 3": [W, 3, N_ENTITIES], **{
              name: r["shape"] for name, r in k1_paths.items()}},
@@ -460,15 +509,20 @@ def main() -> int:
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
+         "launches_game": {**{kind: r["launches"]["K2"] for kind, r in game.items()},
+                           "banded_props": banded_props["launches"]["K2"]},
          "max_abs_err": max(k2_err, goldens["k2_err"], *(r["k2"]["max_abs_err"]
-                                                          for r in farms.values())),
+                                                          for r in (*farms.values(),
+                                                                    *game.values()))),
+         "checked_shapes": {"[W, NB, C]": k2_shapes},
          "ms": k2["settled"]["ms"], "plain_ms": k2["settled"]["plain_ms"],
          "bytes": k2["settled"]["bytes"], "bound_ms": k2["settled"]["bound_ms"],
          "bound_by": k2["settled"]["bound_by"], "bound_of": k2["settled"]["bound_by"],
          "share_of_bound": k2["settled"]["share_of_bound"], "ms_piled": k2["piled"]["ms"],
          "plain_ms_piled": k2["piled"]["plain_ms"], "bound_ms_piled": k2["piled"]["bound_ms"],
          "share_of_bound_piled": k2["piled"]["share_of_bound"],
-         "farm": {name: r["k2"] for name, r in farms.items()}, "library_ms": None,
+         "farm": {name: r["k2"] for name, r in farms.items()},
+         "game": {kind: r["k2"] for kind, r in game.items()}, "library_ms": None,
          "library_note": NO_LIBRARY},
     ]
     log(card)
@@ -1109,11 +1163,10 @@ def first_divergent_op(cpu_step, gpu_step, state, dev):
 def run_farm(name, dev, replicate_state):
     """Golden `name` replicated to FARM_WORLDS diverging worlds, FARM_FRAMES
     frames timed with CUDA events; K2 on the farm's contact set against its plain
-    version, timed beside it and against its bound."""
+    version, timed beside it and against its bound (k2_on_state)."""
     import torch
 
     from lumixengine_tpu_torch.models import physics_scenes as PS
-    from lumixengine_tpu_torch.ops import solver as S
 
     g = _golden(name)
     engine, world, state, _slots = PS.golden_world(g, dev)
@@ -1136,47 +1189,22 @@ def run_farm(name, dev, replicate_state):
     n_dyn = int(pm.statics().dyn_mask.sum())
     active = phys.counters["active_contacts"]
     _, n_ops = count_ops(lambda: step(state, DT))
-    prob = pm.solver_problem(state, DT)
+    if launches != {"K1": 0, "K2": FARM_FRAMES} or not finite:
+        raise AssertionError(f"farm {name}: launches {launches}, finite {finite}")
     # a capsule takes a sphere's inertia, as in the reference, and in a few
     # perturbed capsule worlds the top capsule spins up to hundreds of rad/s
-    # (the JAX package too, from the same states): a float32 ulp there exceeds
-    # K2's absolute limit, so K2 is held to plain on the worlds whose bodies
-    # move below SANE_SPEED before and after the solve
-    plain = S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS)
-    sane = torch.stack([t.abs().amax(dim=(1, 2)) for t in (prob.vel, prob.angvel, *plain[:2])]
-                       ).amax(dim=0) < SANE_SPEED
-    sub = S.ContactProblem(**{k: v if k == "inv_mass" else v[sane].contiguous()
-                              for k, v in prob.tensors().items()})
-    err = max_err(S.solve_cuda(sub, ITERATIONS, POSITION_ITERATIONS),
-                  S.solve_plain(sub, ITERATIONS, POSITION_ITERATIONS))
-    n_fast = FARM_WORLDS - int(sane.sum())
-    k_ms, plain_ms = alternate(lambda: S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS),
-                               lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
-    w_, _, nb = prob.vel.shape
-    c = prob.act.shape[-1]
-    n_act = int((prob.act != 0).sum())
-    n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
-    nbytes = S.k2_bytes(w_, nb, c, n_act)
-    bound_ms, by = bound(nbytes, S.k2_flops(w_, nb, c, n_act, n_pair, ITERATIONS,
-                                            POSITION_ITERATIONS))
-    k2 = {"W": w_, "NB": nb, "C": c, "active": n_act, "max_abs_err": err,
-          "worlds_compared": FARM_WORLDS - n_fast, "ms": k_ms,
-          "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": by,
-          "share_of_bound": bound_ms / k_ms}
+    # (the JAX package too, from the same states): k2_on_state leaves out
+    # the worlds where a body in contact moves above SANE_SPEED
+    k2 = k2_on_state(pm, state, f"the {name} farm")
     rate = FARM_WORLDS * n_dyn / (ms / 1e3)
     log(f"[7 farm] {name}: W={FARM_WORLDS}, {n_dyn} dynamic bodies a world, {FARM_FRAMES} frames: "
         f"{ms:.3f} ms/frame = {rate:.4g} body-steps/s, {n_ops} torch ops/frame, launches "
         f"{launches}, finite {finite}, active contacts {int(active.sum())} (worlds with "
-        f"contacts {int((active > 0).sum())}), worlds with a body above {SANE_SPEED:g} m/s or "
-        f"rad/s {n_fast}; K2 on its contact set W={w_} NB={nb} C={c} (active {n_act}): "
-        f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, {nbytes} bytes, bound {bound_ms:.4f} ms "
-        f"({by}), max abs err vs plain {err:.3e} (on the other worlds)")
-    if launches != {"K1": 0, "K2": FARM_FRAMES} or not finite:
-        raise AssertionError(f"farm {name}: launches {launches}, finite {finite}")
-    if n_fast > FARM_WORLDS // 100:
-        raise AssertionError(f"farm {name}: {n_fast} worlds spun up")
-    if not err <= S.K2_PLAIN_ATOL:
-        raise AssertionError(f"K2 on the {name} farm: {err} vs plain")
+        f"contacts {int((active > 0).sum())}); K2 on its contact set W={k2['W']} NB={k2['NB']} "
+        f"C={k2['C']} (active {k2['active']}): {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
+        f"{k2['bytes']} bytes, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}), max abs err vs "
+        f"plain {k2['max_abs_err']:.3e} on the {k2['worlds_compared']} worlds without a body in "
+        f"contact above {SANE_SPEED:g} m/s or rad/s")
     return {"ms": ms, "rate": rate, "ops": n_ops, "launches": launches, "k2": k2}
 
 
@@ -1256,6 +1284,394 @@ def run_banded(dev):
         f"vs the CPU: max abs err {({k: float(f'{v:.3g}') for k, v in errs.items()})}, counters "
         f"(card, CPU) {certs}, sweep ranks equal {same_rank:.4f}")
     return {"ms": ms, "ops": n_ops, "launches": launches, "miss": int(miss), "lowest": lowest}
+
+
+# -- game content: the props, drive and terrain farms and the banded props level --
+
+
+def layer_time(fn, reps: int = LAYER_REPS):
+    """(ms a call of fn() with CUDA events, ms a call of the card's kernels
+    by torch.profiler, or None where the profiler reports no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cuda_time(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    return ms, (total / 1e3 / reps if total > 0 else None)
+
+
+def _show_layers(layers):
+    return "; ".join(f"{name} {ms:.4f} ms a call (device {'not measured' if dev is None else f'{dev:.4f} ms'})"
+                     for name, (ms, dev) in layers.items())
+
+
+def k2_on_state(pm, state, label):
+    """K2 against its plain version on the contact set `state` gives, on
+    the worlds where no body with an active contact moves at SANE_SPEED or
+    above before or after the solve (a CCD body clamped short of a surface
+    keeps its speed and hovers without a contact, as in the JAX package);
+    then both timed (plain, kernel, kernel, plain) and K2's bound over the
+    active slots. Returns the record for the kernels line."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import solver as S
+
+    prob = pm.solver_problem(state, DT)
+    plain = S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS)
+    speed = torch.stack([t.abs().amax(dim=1) for t in (prob.vel, prob.angvel, *plain[:2])]
+                        ).amax(dim=0)                                       # [W, NB]
+    act = (prob.act != 0).to(torch.float32)
+    touch = torch.zeros_like(speed).scatter_add_(1, prob.body_a.long(), act).scatter_add_(
+        1, prob.body_b.long().clamp_min(0), act * (prob.body_b >= 0)) > 0
+    sane = ~((speed >= SANE_SPEED) & touch).any(dim=1)
+    sub = S.ContactProblem(**{k: v if k == "inv_mass" else v[sane].contiguous()
+                              for k, v in prob.tensors().items()})
+    err = max_err(S.solve_cuda(sub, ITERATIONS, POSITION_ITERATIONS),
+                  S.solve_plain(sub, ITERATIONS, POSITION_ITERATIONS))
+    k_ms, plain_ms = alternate(lambda: S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS),
+                               lambda: S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS), 5)
+    w_, _, nb = prob.vel.shape
+    c = prob.act.shape[-1]
+    n_act = int((prob.act != 0).sum())
+    n_pair = int(((prob.act != 0) & (prob.body_b >= 0)).sum())
+    nbytes = S.k2_bytes(w_, nb, c, n_act)
+    bound_ms, by = bound(nbytes, S.k2_flops(w_, nb, c, n_act, n_pair, ITERATIONS,
+                                            POSITION_ITERATIONS))
+    if not err <= S.K2_PLAIN_ATOL or int(sane.sum()) < 0.99 * w_:
+        raise AssertionError(f"K2 on {label}: {err} vs plain, {int(sane.sum())} of {w_} worlds "
+                             f"below {SANE_SPEED}")
+    return {"W": w_, "NB": nb, "C": c, "active": n_act, "max_abs_err": err,
+            "worlds_compared": int(sane.sum()), "ms": k_ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / k_ms}
+
+
+def game_checks(kind, sc, state, trace, hits):
+    """The scene's physical checks (models/physics_scenes.py: the JAX tests'
+    bounds) on every world, raising on the first broken one; world 0 starts
+    as built, the others perturbed (replicate_scene), where the props
+    world's resting heights do not apply. Returns world 0's readings."""
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    ms = state.modules["physics"]
+    pos, vel, ang = (getattr(ms, f).cpu().numpy() for f in ("pos", "vel", "angvel"))
+    cpos, cgr = ms.ctrl_pos.cpu().numpy(), ms.ctrl_grounded.cpu().numpy()
+    wpos = state.world.pos.cpu().numpy()
+    st = sc.world.modules["physics"].statics()
+    first = None
+    for w in range(pos.shape[0]):
+        if kind == "props":
+            out = PS.check_props(sc, pos[w], vel[w], trace[:, w], resting=(w == 0))
+        elif kind == "drive":
+            out = PS.check_drive(sc, pos[w], ang[w], trace[:, w], cpos[w], cgr[w],
+                                 float(wpos[w, 0, sc.world.slot(sc.ents["player"])]), int(hits[w]))
+        else:
+            out = PS.check_terrain(sc, pos[w], st.radius, cpos[w], cgr[w],
+                                   wpos[w, :, sc.world.slot(sc.ents["walker"])])
+        first = out if first is None else first
+    return first
+
+
+def game_layers(kind, sc, state):
+    """The device time of the new layers on the scene's end state."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import convex_ops as CV
+
+    pm = sc.world.modules["physics"]
+    st = pm.statics()
+    ms = state.modules["physics"]
+    d = st.on(ms.pos.device, pm.system)
+    pos, rot = ms.pos, ms.rot
+    layers = {}
+    if len(st.conv_pair_a):
+        layers["polytope SAT (convex pairs)"] = layer_time(lambda: CV.polytope_pair_contacts(
+            pos, rot, d.poly_verts, d.poly_axes, d.poly_rad, d.conv_pair_a, d.conv_pair_b))
+    if st.has_conv_gnd and len(st.conv_idx):
+        layers["polytope ground"] = layer_time(lambda: CV.polytope_ground_contacts(
+            pos, rot, d.conv_verts, d.conv_rad, d.conv_idx, pm.system.ground_y))
+    if st.sdf_colliders:
+        layers["SDF streams"] = layer_time(lambda: pm._sdf_streams(st, d, pos, rot))
+    if st.has_ccd:
+        moved = pos + ms.vel * DT
+        layers["CCD clamp"] = layer_time(lambda: pm._ccd_clamp(st, d, pos, moved))
+    if st.heightfield_terrain >= 0:
+        layers["heightfield stream"] = layer_time(lambda: pm._ground_stream(st, d, pos, rot))
+    if st.has_vehicles:
+        dt = torch.tensor(DT, device=pos.device)
+        layers["vehicles"] = layer_time(lambda: pm._update_vehicles(d, ms, pos, rot, ms.vel,
+                                                                    ms.angvel, dt))
+    if kind == "drive":
+        from lumixengine_tpu_torch.models import physics_scenes as PS
+
+        offs, dirs = (torch.as_tensor(a, device=pos.device) for a in PS.drive_rays())
+        layers["queries (64 rays + 64 sweeps a world)"] = layer_time(
+            lambda: PS.drive_queries(sc, state, offs, dirs))
+    return layers
+
+
+def compare_game(kind, sc, state, step):
+    """3 frames from the first 4 worlds of `state` with the scene's host
+    inputs, the card's step (K2) against the CPU's (plain), at
+    BODY_POS_ATOL / BODY_VEL_ATOL (physics_scenes.state_gap), a body's
+    sleep counter allowed to flip at the calm threshold. A frame that breaks
+    them is explained from the CPU's state before it
+    (physics_scenes.explain_break): the card's frame holds there (the
+    devices' drift flipped a decision), or the card's and the CPU's contact
+    sets differ only at ties or by rounding within CONTACT_TIE_ATOL (a hull
+    rocking on coplanar contacts amplifies it) and the card's frame holds on
+    the CPU's set. After a flip both go on from the CPU's state. Returns
+    (max abs errors, [(frame, cause and what broke, margin)])."""
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    pm = sc.world.modules["physics"]
+    gpu = map_tensors(lambda t: t[:4].clone(), state)
+    dev = gpu.local.pos.device
+    cpu, cpu_step = gpu.to("cpu"), sc.engine.build_step(sc.world, "cpu")
+    frame0 = int(state.frame.reshape(-1)[0])
+    errs, flips = {}, []
+
+    def gap(got, ref):
+        return PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)[:2]
+
+    for f in range(3):
+        gpu = PS.scene_inputs(kind, sc, gpu, frame0 + f)
+        cpu = PS.scene_inputs(kind, sc, cpu, frame0 + f)
+        gnext, cnext = step(gpu, DT), cpu_step(cpu, DT)
+        got, ref = bridge.state_to_numpy(gnext), bridge.state_to_numpy(cnext)
+        out, broke, woke = PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)
+        if broke is not None:
+            drift = max(gap(bridge.state_to_numpy(gpu), bridge.state_to_numpy(cpu))[0].values())
+            cause, margin, out = PS.explain_break(
+                step, cpu.to(dev), ref, gap, drift, pm,
+                lambda c=cpu: pm._contact_stage(c, DT).contacts)
+            flips.append((frame0 + f + 1, f"{cause} ({broke})", float(f"{margin:.3g}")))
+        if woke.any():
+            flips.append((frame0 + f + 1, "sleep counters", int(woke.sum())))
+        if broke is not None or woke.any():
+            gnext = cnext.to(dev)
+        for k, v in out.items():
+            k = k.replace(PS.PH, "")
+            errs[k] = max(errs.get(k, 0.0), v)
+        gpu, cpu = gnext, cnext
+    return {k: float(f"{v:.3g}") for k, v in errs.items() if v}, flips
+
+
+def run_game(kind, dev, card):
+    """One game-content farm (models/physics_scenes.py) at GAME_WORLDS[kind]
+    worlds, the scene's frame count with its host inputs (the drive farm's
+    64 rays and 64 sweeps a world a frame inside the timed frames), timed
+    with CUDA events; its physical checks on every world; K2 on its end
+    contact set against plain, timed and against its bound; torch ops a
+    frame; the device time of the new layers; 3 frames card vs CPU."""
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import solver as S
+
+    builder = {"props": PS.props_world, "drive": PS.drive_world, "terrain": PS.terrain_world}[kind]
+    frames = {"props": PS.PROPS_FRAMES, "drive": PS.DRIVE_FRAMES,
+              "terrain": PS.TERRAIN_FRAMES}[kind]
+    num_worlds = GAME_WORLDS[kind]
+    sc = builder()
+    pm = sc.world.modules["physics"]
+    st = pm.statics()
+    step = sc.engine.build_step(sc.world, dev)
+    state = PS.replicate_scene(PS.start_state(sc, dev), num_worlds, 12)
+    offs, dirs = (torch.as_tensor(a, device=dev) for a in PS.drive_rays())
+    trace_idx = torch.as_tensor(sc.trace, dtype=torch.int64, device=dev)
+    trace = []
+    hits = torch.zeros((2, num_worlds), dtype=torch.int64, device=dev)   # rays, sweeps
+
+    def frame(state, f):
+        state = step(PS.scene_inputs(kind, sc, state, f), DT)
+        if kind == "drive":
+            (hit, _t, _i), (shit, _st, _si) = PS.drive_queries(sc, state, offs, dirs)
+            return state, torch.stack([hit.sum(dim=-1), shit.sum(dim=-1)])
+        return state, None
+
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for f in range(frames):
+        if f == WARM_FRAMES:
+            ev0.record()
+        state, h = frame(state, f)
+        if len(sc.trace):
+            trace.append(state.modules["physics"].pos.index_select(-1, trace_idx))
+        if h is not None:
+            hits += h
+    ev1.record()
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _launches()
+    ms = ev0.elapsed_time(ev1) / (frames - WARM_FRAMES)
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
+    n_dyn = int(st.dyn_mask.sum())
+    rate = num_worlds * n_dyn / (ms / 1e3)
+    active = state.modules["physics"].counters["active_contacts"]
+    tr = torch.stack(trace).cpu().numpy() if trace else None
+    if launches != {"K1": 0, "K2": frames} or not finite:
+        raise AssertionError(f"{kind} farm: launches {launches}, finite {finite}")
+    first = game_checks(kind, sc, state, tr, hits[0].cpu().numpy())
+    _, n_ops = count_ops(lambda: frame(state, frames))
+    k2 = k2_on_state(pm, state, f"the {kind} farm")
+    layers = game_layers(kind, sc, state)
+    log(f"[7 {kind}] {card}: W={num_worlds}, {n_dyn} dynamic bodies a world (NB={st.nb}, "
+        f"C={st.n_contact_slots}), {frames} frames in {wall:.2f} s: {ms:.3f} ms/frame = "
+        f"{rate:.4g} body-steps/s, {n_ops} torch ops/frame, launches {launches}, finite "
+        f"{finite}, active contacts {int(active.sum())} (worlds with contacts "
+        f"{int((active > 0).sum())})" + (f", ray hits {int(hits[0].sum())}, sweep hits "
+                                         f"{int(hits[1].sum())}" if kind == "drive" else ""))
+    log(f"[7 {kind}] checks (the JAX tests' bounds) hold in all {num_worlds} worlds; world 0: "
+        f"{first}")
+    log(f"[7 {kind}] {card}: K2 on its contact set W={k2['W']} NB={k2['NB']} C={k2['C']} (active "
+        f"{k2['active']}): {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, {k2['bytes']} bytes, "
+        f"bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}), max abs err vs plain "
+        f"{k2['max_abs_err']:.3e} (limit {S.K2_PLAIN_ATOL:g}; {k2['worlds_compared']} worlds)")
+    log(f"[7 {kind}] {card}: new layers on the end state: {_show_layers(layers)}")
+    errs, flips = compare_game(kind, sc, state, step)
+    log(f"[7 {kind}] 3 frames at W=4, card vs plain on the CPU: max abs err {errs}; decisions "
+        f"flipped (frame, cause and what broke, margin; or frame, 'sleep counters', bodies): "
+        f"{flips}")
+    return {"ms": ms, "rate": rate, "ops": n_ops, "launches": launches, "k2": k2,
+            "layers": layers, "worlds": num_worlds}
+
+
+def _runs(xs):
+    """Run-length text of a sequence: '0x360' or '0x120, 3, 0x239'."""
+    out, i = [], 0
+    while i < len(xs):
+        j = i
+        while j < len(xs) and xs[j] == xs[i]:
+            j += 1
+        out.append(f"{xs[i]}x{j - i}" if j - i > 1 else f"{xs[i]}")
+        i = j
+    return ", ".join(out)
+
+
+def run_banded_props(dev, card):
+    """The banded props level: BANDED_PROPS_HULLS random hulls over the SDF
+    slab and the ground at as many actor slots (`auto` picks the banded
+    branch), BANDED_PROPS_STEPS steps at W=1 with the window certificate of
+    every step, then the JAX pile test's bounds hull by hull
+    (physics_scenes.check_banded_props: at most BANDED_PROPS_UNSETTLED
+    hulls with a velocity component of 0.8 m/s or a vertex 2 cm deep in the
+    ground or the slab), the device time of the banded polytope SAT and
+    the SDF streams, and 3 steps card vs CPU on 4 of the level's stacks."""
+    import torch
+
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import convex_ops as CV
+    from lumixengine_tpu_torch.ops import physics_banded as PBD
+
+    sc = PS.banded_props_level(hulls=BANDED_PROPS_HULLS, capacity=BANDED_PROPS_HULLS,
+                               neighbors=PS.BANDED_PROPS_WINDOW)
+    pm = sc.world.modules["physics"]
+    st = pm.statics()
+    if not st.sap:
+        raise AssertionError("the banded props level did not take the banded branch")
+    step = sc.engine.build_step(sc.world, dev)
+    state = PS.start_state(sc, dev)
+    misses = []
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for i in range(PS.BANDED_PROPS_STEPS):
+        if i == WARM_FRAMES:
+            ev0.record()
+        state = step(state, DT)
+        misses.append(state.modules["physics"].counters["sap_window_miss"])
+    ev1.record()
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _launches()
+    ms = ev0.elapsed_time(ev1) / (PS.BANDED_PROPS_STEPS - WARM_FRAMES)
+    misses = torch.stack(misses).cpu().tolist()
+    phys = state.modules["physics"]
+    d = st.on(dev, pm.system)
+    vw = CV.polytope_world_verts(phys.pos, phys.rot, d.poly_verts).cpu().numpy()
+    slots = list(sc.slots.values())
+    pen = PS.hull_penetration(vw[..., slots], st.poly_vert_valid[:, slots])
+    pos, vel = phys.pos.cpu().numpy(), phys.vel.cpu().numpy()
+    checks = PS.check_banded_props(sc, pos, vel, pen, unsettled_max=len(slots))   # the readings
+    _, n_ops = count_ops(lambda: step(state, DT))
+    # the banded SAT of one sweep order and the SDF streams, on the end state
+    order = torch.argsort(phys.pos[0])
+    K, k = pm.sap_neighbors, pm.points_per_pair
+
+    def rk(x):
+        return x.index_select(-1, order)
+
+    layers = {"banded polytope SAT (one sweep)": layer_time(lambda: PBD.banded_polytope_grids(
+        rk(phys.pos), rk(phys.rot), rk(d.poly_verts), rk(d.poly_axes), rk(d.poly_rad), K, k)),
+        "SDF streams": layer_time(lambda: pm._sdf_streams(st, d, phys.pos, phys.rot))}
+    log(f"[7 banded props] {card}: {BANDED_PROPS_HULLS} hulls at {st.nb} actor slots over the SDF "
+        f"slab, window {PS.BANDED_PROPS_WINDOW}, {PS.BANDED_PROPS_STEPS} steps at W=1 in {wall:.2f} s "
+        f"({ms:.3f} ms/step = {BANDED_PROPS_HULLS / (ms / 1e3):.4g} body-steps/s), {n_ops} torch "
+        f"ops/step, launches {launches}; the JAX test's bounds hull by hull: {checks} (at most "
+        f"{BANDED_PROPS_UNSETTLED} unsettled)")
+    log(f"[7 banded props] window certificate (sap_window_miss) of each step: {_runs(misses)}; "
+        f"summed {sum(misses)}")
+    log(f"[7 banded props] {card}: {_show_layers(layers)}")
+    PS.check_banded_props(sc, pos, vel, pen, unsettled_max=BANDED_PROPS_UNSETTLED)
+    if launches != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"the banded branch launched {launches}")
+
+    # the banded polytope SAT of the level's end state, one sweep order, on
+    # the card against the CPU: equal but at ties (physics_scenes.contact_ties)
+    grids = [PBD.banded_polytope_grids(*(rk(x).to(where) for x in (
+        phys.pos, phys.rot, d.poly_verts, d.poly_axes, d.poly_rad)), K, k) for where in (dev, "cpu")]
+    ties = PS.contact_ties(PS.grid_rows(grids[0]), PS.grid_rows(grids[1]))
+    log(f"[7 banded props] the banded polytope SAT of the end state (one sweep, "
+        f"{int(grids[1][3].sum())} active slots) on the card vs the CPU: equal but at "
+        f"{len(ties)} ties (largest depth margin {max([m for *_x, m in ties] or [0.0]):.3g})")
+
+    hulls, capacity, at = BANDED_PROPS_COMPARE
+    sc = PS.banded_props_level(hulls=hulls, capacity=capacity, neighbors=PS.BANDED_PROPS_WINDOW)
+    step, cpu_step = sc.engine.build_step(sc.world, dev), sc.engine.build_step(sc.world, "cpu")
+    gpu = PS.start_state(sc, dev)
+    for _ in range(at):
+        gpu = step(gpu, DT)
+    cpu, errs, flips = gpu.to("cpu"), {}, []
+    own_sat = PBD.banded_polytope_grids
+
+    def gap(got, ref):
+        return PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL)[:2]
+
+    def cpu_sat(*args):
+        """The banded polytope SAT on the CPU, its grids on the card."""
+        return tuple(x.to(dev) for x in own_sat(*(a.cpu() for a in args[:5]), *args[5:]))
+
+    for i in range(3):
+        gnext, cnext = step(gpu, DT), cpu_step(cpu, DT)
+        got, ref = bridge.state_to_numpy(gnext), bridge.state_to_numpy(cnext)
+        out, broke = gap(got, ref)
+        if broke is not None:
+            # from the CPU's own state: the devices' drift flipped a decision,
+            # or the card's banded SAT differs from the CPU's only at ties
+            drift = max(gap(bridge.state_to_numpy(gpu), bridge.state_to_numpy(cpu))[0].values())
+            cause, margin, out = PS.explain_break(step, cpu.to(dev), ref, gap, drift,
+                                                  ref_sat=cpu_sat)
+            flips.append((at + i + 1, f"{cause} ({broke})", float(f"{margin:.3g}")))
+            gnext = cnext.to(dev)
+        for k, v in out.items():
+            k = k.replace(PS.PH, "")
+            errs[k] = max(errs.get(k, 0.0), v)
+        gpu, cpu = gnext, cnext
+    log(f"[7 banded props] {hulls} hulls in stacks at {capacity} slots, 3 steps from step {at}, "
+        f"card vs the CPU: max abs err {({k: float(f'{v:.3g}') for k, v in errs.items() if v})}; "
+        f"decisions flipped (step, cause and what broke, margin): {flips}")
+    return {"ms": ms, "ops": n_ops, "launches": launches, "miss": sum(misses), "checks": checks,
+            "layers": layers}
 
 
 def _to_cpu(tree):

@@ -7,9 +7,11 @@ A WorldState is flattened to dotted names — ``alive``, ``local.pos``,
 ``frame``, ``time`` — the names the reference's fields have. Arrays may be
 single worlds or batches ``[W, ...]``.
 
-The reference carries fields that the ported slice does not have. They are
-listed in ``SKIPPED`` and nowhere else; ``state_from_numpy`` drops exactly
-those and raises on any other name it does not know.
+Every field of the reference's state has its counterpart here, the
+character controllers' ``ctrl_*`` and the vehicles' ``veh_*`` included, so
+``SKIPPED`` (reference fields outside the port, each with its reason) is
+empty; ``state_from_numpy`` drops exactly those it lists and raises on any
+other name it does not know.
 """
 from __future__ import annotations
 
@@ -28,10 +30,7 @@ from lumixengine_tpu_torch.renderer.particle_system import EmitterState
 from lumixengine_tpu_torch.renderer.render_module import RenderState
 
 # reference fields outside the port: (name prefix, why)
-SKIPPED = (
-    ("modules.physics.ctrl_", "character controllers are not ported"),
-    ("modules.physics.veh_", "vehicles are not ported"),
-)
+SKIPPED: tuple = ()
 
 
 def is_skipped(name: str) -> bool:

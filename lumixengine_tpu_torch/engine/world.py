@@ -92,7 +92,9 @@ class World:
     # -- entities -------------------------------------------------------------
 
     def create_entity(self, position=(0.0, 0.0, 0.0), rotation=hm.QUAT_IDENTITY,
-                      scale=(1.0, 1.0, 1.0), name: Optional[str] = None) -> int:
+                      scale=(1.0, 1.0, 1.0), parent: int = INVALID_ENTITY,
+                      name: Optional[str] = None) -> int:
+        """A new entity; with a `parent`, the transform given is its local one."""
         if not self._free:
             raise RuntimeError(f"world capacity {self.capacity} exhausted")
         e = self._free.pop()
@@ -103,9 +105,13 @@ class World:
         self.local_rot[e] = hm.quat_normalize(np.asarray(rotation, np.float32))
         self.local_scale[e] = np.asarray(scale, np.float32)
         self._count += 1
-        self._level[e] = 0
         if name is not None:
             self.names[e] = name
+        if parent != INVALID_ENTITY:
+            self.parent[e] = parent
+            self._levels_dirty = True
+        else:
+            self._level[e] = 0
         return e
 
     @property

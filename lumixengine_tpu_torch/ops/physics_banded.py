@@ -2,7 +2,8 @@
 ``lumixengine_tpu/ops/physics_banded.py``): the shift views, the banded
 partner views, the leading-component-axis contact frame helpers, the
 multi-offset column sweeps with their coverage certificates, and what the
-PhysicsModule's banded branch runs on them: the banded narrowphase grids,
+PhysicsModule's banded branch runs on them: the banded narrowphase grids
+(analytic, and the polytope SAT for pairs with a convex hull),
 the multi-sweep Jacobi solve and position projection, the warm-start match
 across frames and the cross-sweep dedup. The slot-compacted pipeline
 (``physics_slots.py``) stands on the first four.
@@ -12,7 +13,8 @@ so a pair's data is a shifted view and an impulse's scatter a shifted sum:
 the solve runs on [k, K, NB] slot grids with one rank gather and one
 scatter per sweep and pass. The reference's single-sweep
 ``solve_contacts_banded`` / ``project_positions_banded``, its
-``make_banded_world_step`` and ``exact_window_miss`` are not ported.
+``make_banded_world_step`` (the bench's stand-alone banded world step,
+outside the PhysicsModule) and ``exact_window_miss`` are not ported.
 
 Layout: body axis last; where a component axis exists it LEADS (``[3, ...,
 NB]``), as in the reference's banded grids. Sweep orders, ranks and column
@@ -201,6 +203,34 @@ def banded_pair_grids(sp, sr, s_rad, s_he, s_shape, s_mn, s_mx, K: int, k: int,
         return x.reshape(x.shape[:-1] + (k, K, nb))
 
     return grid(point), grid(normal), grid(depth), grid(active), ok
+
+
+def banded_polytope_grids(sp, sr, s_pv, s_pax, s_prad, K: int, k: int):
+    """The padded-polytope SAT (convex_ops.polytope_pair_contacts_from_data,
+    the narrowphase of the all-pairs branch's convex pairs) over the banded
+    partner views. Inputs rank-ordered: s_pv [3, V, NB] local vertices,
+    s_pax [3, F, NB] local unit face axes, s_prad [NB] support radii.
+    Returns [(3,) k, K, NB] grids (point, normal, depth, active), the
+    contract of banded_pair_grids without its ok mask."""
+    from lumixengine_tpu_torch.ops import convex_ops as CV
+
+    nb = sp.shape[-1]
+
+    def bcast(x):
+        return x.unsqueeze(-2).expand(x.shape[:-1] + (K, nb)).reshape(x.shape[:-1] + (K * nb,))
+
+    def partner(x):
+        return banded_pair_data(x, K).reshape(x.shape[:-1] + (K * nb,))
+
+    point, normal, depth, active = CV.polytope_pair_contacts_from_data(
+        bcast(sp), bcast(sr), bcast(s_pv), bcast(s_pax), bcast(s_prad),
+        partner(sp), partner(sr), partner(s_pv), partner(s_pax), partner(s_prad),
+        points_per_pair=k)
+
+    def grid(x):
+        return x.reshape(x.shape[:-1] + (k, K, nb))
+
+    return grid(point), grid(normal), grid(depth), grid(active)
 
 
 def _degree(sw, K: int):

@@ -2,8 +2,9 @@
 ``lumixengine_tpu/ops/physics_ops.py``), the subset the PhysicsModule's
 broadphase branches run: velocity/position integration, world AABBs, ground
 and pair contacts for spheres, boxes and capsules, tangent frames, the world
-inverse inertia and sleeping. Convex hulls, heightfields, raycasts and
-sweeps are not ported.
+inverse inertia, sleeping, heightfield contacts, and the raycast and sphere
+sweep queries. Convex hulls and SDF mesh colliders are in
+``ops/convex_ops.py``.
 
 SoA layout, body axis last: pos ``[..., 3, NB]``, rot ``[..., 4, NB]``.
 Contact slots are ``[..., C]`` / ``[..., 3, C]``; normals point from body a
@@ -402,3 +403,88 @@ def update_sleep(vel, angvel, sleep_counter, dyn_mask, lin_thresh: float = 0.03,
     v = torch.where(asleep[..., None, :], 0.0, vel)
     w = torch.where(asleep[..., None, :], 0.0, angvel)
     return v, w, counter, asleep
+
+
+# -- queries ----------------------------------------------------------------------
+
+
+def raycast_spheres(origin, direction, pos, radius, mask):
+    """Rays against every sphere → (hit, t, body index). origin/direction
+    [.., 3] (direction unit), pos [.., 3, NB], radius and mask [.., NB]."""
+    oc = origin.unsqueeze(-1) - pos
+    b = torch.sum(oc * direction.unsqueeze(-1), dim=AX)
+    c = torch.sum(oc * oc, dim=AX) - radius * radius
+    disc = b * b - c
+    t = -b - torch.sqrt(torch.clamp_min(disc, 0.0))
+    valid = (disc >= 0.0) & (t >= 0.0) & mask
+    t = torch.where(valid, t, torch.inf)
+    tmin, idx = torch.min(t, dim=-1)
+    return torch.isfinite(tmin), tmin, idx.to(torch.int32)
+
+
+def raycast_boxes(origin, direction, pos, rot, half_extents, mask):
+    """Rays against every oriented box (slab test in the box's frame) →
+    (hit, t, body index). origin/direction [.., 3], pos [.., 3, NB], rot
+    [.., 4, NB], half_extents [.., 3, NB]."""
+    qinv = lm.quat_conjugate(rot, axis=AX)
+    o_l = lm.quat_rotate(qinv, origin.unsqueeze(-1) - pos, axis=AX)
+    d_l = lm.quat_rotate(qinv, direction.unsqueeze(-1).expand(o_l.shape), axis=AX)
+    safe_d = torch.where(torch.abs(d_l) < 1e-9, torch.where(d_l >= 0, 1e-9, -1e-9), d_l)
+    t1 = (-half_extents - o_l) / safe_d
+    t2 = (half_extents - o_l) / safe_d
+    tmin = torch.amax(torch.minimum(t1, t2), dim=AX)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=AX)
+    valid = (tmax >= torch.clamp_min(tmin, 0.0)) & mask
+    t = torch.where(valid, torch.clamp_min(tmin, 0.0), torch.inf)
+    tm, idx = torch.min(t, dim=-1)
+    return torch.isfinite(tm), tm, idx.to(torch.int32)
+
+
+def raycast_all(origin, direction, pos, rot, shape, radius, half_extents, mask):
+    """Rays against every actor, a capsule as its sphere → (hit, t, body)."""
+    is_box = shape == SHAPE_BOX
+    hs, ts, is_ = raycast_spheres(origin, direction, pos, radius, mask & ~is_box)
+    hb, tb, ib = raycast_boxes(origin, direction, pos, rot, half_extents, mask & is_box)
+    return hs | hb, torch.minimum(ts, tb), torch.where(tb < ts, ib, is_)
+
+
+def sweep(origin, direction, sweep_radius, pos, rot, shape, radius, half_extents, mask):
+    """A sphere of `sweep_radius` moved along the rays against every actor:
+    exact for spheres (radii added), boxes with their extents inflated."""
+    return raycast_all(origin, direction, pos, rot, shape, radius + sweep_radius,
+                       half_extents + sweep_radius, mask)
+
+
+# -- heightfields -----------------------------------------------------------------
+
+
+def candidate_slot_mask(shape_np: np.ndarray, slots_per_body: int) -> np.ndarray:
+    """Which ground-contact slots hold a real candidate point, per body
+    (host data): all of a box's, a capsule's 2 end points, a sphere's 1."""
+    nb = shape_np.shape[0]
+    n_cand = np.where(shape_np == SHAPE_BOX, slots_per_body,
+                      np.where(shape_np == SHAPE_CAPSULE, 2, 1))
+    slot_idx = np.repeat(np.arange(slots_per_body), nb)
+    return slot_idx < np.tile(n_cand, slots_per_body)
+
+
+def heightfield_contacts(pos, rot, shape, radius, half_extents, dyn_mask, bank, terrain_id: int,
+                         terrain_origin, slot_mask, slots_per_body: int = 4,
+                         any_caps: bool = True) -> Contacts:
+    """Contacts of the dynamic bodies with a heightfield terrain: at each
+    candidate point of ground_contacts (box corners, a sphere's lowest point,
+    a capsule's end points) the terrain's height and normal.
+    slot_mask [k · NB] is candidate_slot_mask on the device."""
+    from lumixengine_tpu_torch.renderer import terrain as terr
+
+    gc = ground_contacts(pos, rot, shape, radius, half_extents, dyn_mask, ground_y=0.0,
+                         slots_per_body=slots_per_body, any_caps=any_caps)
+    ox, oy, oz = (float(v) for v in terrain_origin)
+    px = gc.point[..., 0, :] - ox
+    pz = gc.point[..., 2, :] - oz
+    hy = terr.sample_height(bank, terrain_id, px, pz) + oy
+    n = terr.sample_normal(bank, terrain_id, px, pz)
+    depth = hy - gc.point[..., 1, :]
+    active = (depth > 0.0) & dyn_mask[..., gc.body_a] & slot_mask
+    return Contacts(body_a=gc.body_a, body_b=gc.body_b, point=gc.point, normal=-n, depth=depth,
+                    active=active)

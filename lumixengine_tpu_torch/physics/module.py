@@ -1,26 +1,33 @@
 """PhysicsModule + PhysicsSystem (counterpart of
-``lumixengine_tpu/physics/module.py``): rigid actors with sphere, box and
-capsule shapes, dynamic, static or kinematic, the collision layer matrix,
-the ground plane, the four joint types and sleeping, under the three
-broadphase branches the reference's ``broadphase="auto"`` picks:
+``lumixengine_tpu/physics/module.py``): rigid actors with sphere, box,
+capsule and convex-hull shapes, dynamic, static or kinematic, the collision
+layer matrix, the ground plane or a heightfield terrain, static triangle
+meshes baked to SDF grids (``mesh_collider``), instanced static cubes and
+hulls (``instanced_cube``, ``instanced_mesh``), the four joint types,
+sleeping, CCD, raycast-suspension vehicles with their wheels, capsule
+character controllers and the raycast and sphere-sweep queries, under the
+three broadphase branches the reference's ``broadphase="auto"`` picks:
 
 * all-pairs (at most ``pruned_threshold`` candidate pairs): the static pair
-  list, every pair in the contact stream each frame;
-* pruned (more candidate pairs): the AABB-overlapping pairs compacted into a
-  fixed budget each frame, their warm-start impulses gated by pair identity;
+  lists, every pair in the contact stream each frame;
+* pruned (more candidate pairs): the AABB-overlapping simple pairs compacted
+  into a fixed budget each frame, their warm-start impulses gated by pair
+  identity (pairs with a hull stay in the static stream);
 * banded (above ``sap_threshold`` actor slots): the multi-sweep rank-space
   pipeline of ``ops/physics_banded.py``, with its warm-start carry and its
-  per-frame window certificate.
+  per-frame window certificate; pairs with a hull take the polytope SAT, and
+  the hulls' ground contacts and the SDF streams join the per-body stream.
 
 One frame of ``update_parallel``: clamp dt to 1/20 s, static and kinematic
-bodies take their entity's world pose, integrate velocities, build the
-ground and pair streams, solve them (kernel K2 in the first two branches,
-the banded Jacobi solve in the third), the joints, integrate positions, add
-the projection's dpos, update sleep. ``update`` writes the dynamic bodies'
-poses back to their entities' local transforms. ``broadphase="sap"``,
-convex hulls, SDF mesh colliders, heightfields, instanced statics, CCD,
-vehicles, character controllers and the raycast/sweep queries raise
-NotImplementedError.
+bodies take their entity's world pose, integrate velocities, the vehicles'
+suspension, drive and grip impulses, build the contact streams [ground or
+heightfield | simple pairs | convex pairs | convex ground | SDF] (the
+pruned branch appends its compacted pairs), solve them (kernel K2 in the
+first two branches, the banded Jacobi solve in the third), the joints,
+integrate positions, clamp the CCD bodies' motion, add the projection's
+dpos, update sleep. ``update`` steps the character controllers and writes
+them and the dynamic bodies back to their entities' local transforms.
+``broadphase="sap"`` raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,10 +43,12 @@ from lumixengine_tpu_torch.core import host_math as hm
 from lumixengine_tpu_torch.core import math as lm
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
+from lumixengine_tpu_torch.ops import convex_ops as CV
 from lumixengine_tpu_torch.ops import physics_banded as PBD
 from lumixengine_tpu_torch.ops import physics_ops as P
 from lumixengine_tpu_torch.ops import solver as S
 from lumixengine_tpu_torch.ops.physics_big import compact_pairs
+from lumixengine_tpu_torch.physics.cooking import cook_convex_cached, cook_mesh_sdf_cached
 from lumixengine_tpu_torch.utils.store import DenseStore
 
 MOTION_STATIC = 0
@@ -49,9 +58,7 @@ MOTION_KINEMATIC = 2
 MAX_LAYERS = 32
 AX = -2
 JOINT_TYPES = {"distance_joint": 0, "spherical_joint": 1, "hinge_joint": 2, "d6_joint": 3}
-
-_NOT_PORTED = ("physics_controller", "heightfield", "vehicle", "wheel", "mesh_collider",
-               "instanced_cube", "instanced_mesh")
+CCD_SAMPLES = 4   # points sampled along a CCD body's step
 
 
 @dataclass
@@ -61,6 +68,11 @@ class PhysicsState:
     vel: torch.Tensor       # f32 [3, NB]
     angvel: torch.Tensor    # f32 [3, NB]
     sleep: torch.Tensor     # int32 [NB] calm-frame counter
+    # character controllers [NC]
+    ctrl_pos: torch.Tensor       # f32 [3, NC] capsule foot positions
+    ctrl_vel_y: torch.Tensor     # f32 [NC] vertical speed under their own gravity
+    ctrl_disp: torch.Tensor      # f32 [3, NC] displacement queued by move_controller
+    ctrl_grounded: torch.Tensor  # bool [NC]
     lam_n: torch.Tensor     # f32 [n_contact_slots] warm-start impulses; [0] banded
     lam_t1: torch.Tensor
     lam_t2: torch.Tensor
@@ -71,6 +83,8 @@ class PhysicsState:
     sap_lam: torch.Tensor   # f32 [S, 3, k, K, NB]
     sap_glam: torch.Tensor  # f32 [3, G, NB]
     sap_rank: torch.Tensor  # int32 [S, NB], -1 = cold
+    veh_throttle: torch.Tensor  # f32 [NV] driver inputs: throttle in [-1, 1]
+    veh_steer: torch.Tensor     # f32 [NV] steering angle, radians
     counters: Dict[str, torch.Tensor]
 
     def replace(self, **kw) -> "PhysicsState":
@@ -78,9 +92,11 @@ class PhysicsState:
 
 
 class PhysStatics:
-    """Host constants: mass properties, the branch and its pair list, the
-    static contact-slot layout [ground | pairs] with its materials, and the
-    joints."""
+    """Host constants: mass properties, the instanced static slots, the
+    polytope and SDF collider data, the branch and its pair lists, the static
+    contact-slot layout [ground | pairs | convex pairs | convex ground | SDF]
+    with its materials, the joints, the controllers, the vehicles and the
+    heightfield."""
 
     def __init__(self, module: "PhysicsModule"):
         w = module.world
@@ -88,67 +104,198 @@ class PhysStatics:
         nb = st.capacity
         occupied = st.entity >= 0
         motion = np.asarray(st.data["motion"], np.int32)
-        self.shape = np.asarray(st.data["shape"], np.int32)
-        if np.any(occupied & np.asarray(st.data["ccd"], bool)):
-            raise NotImplementedError("CCD (PhysicsModule._ccd_clamp) is not ported")
         if module.broadphase == "sap":
             raise NotImplementedError(
                 "broadphase='sap' (PhysicsModule._sap_solve on physics_big.sap_pairs, "
                 "solve_contacts_dynamic, project_positions_dynamic) is not ported")
         self.entity_slots = w.to_slots(st.entity)
+        self.shape = np.asarray(st.data["shape"], np.int32)
         self.radius = np.asarray(st.data["radius"], np.float32)
         self.half_extents = np.asarray(st.data["half_extents"], np.float32).T.copy()  # [3,NB]
         self.layer = np.asarray(st.data["layer"], np.int32)
         friction = np.asarray(st.data["friction"], np.float32)
         restitution = np.asarray(st.data["restitution"], np.float32)
         mass = np.asarray(st.data["mass"], np.float32)
+        ccd_flags = np.asarray(st.data["ccd"], bool)
+        hull_ids = np.asarray(st.data["hull"], np.int32)
+
+        # instanced statics: frozen static slots past the store's capacity,
+        # posed once here, never synced from an entity
+        inst = module._expand_instanced()
+        self.n_instanced = 0 if inst is None else inst["shape"].shape[0]
+        if inst is not None:
+            n_i = self.n_instanced
+            occupied = np.concatenate([occupied, np.ones(n_i, bool)])
+            motion = np.concatenate([motion, np.full(n_i, MOTION_STATIC, np.int32)])
+            self.entity_slots = np.concatenate(
+                [self.entity_slots, w.to_slots(inst["owner"])]).astype(np.int32)
+            self.shape = np.concatenate([self.shape, inst["shape"]])
+            self.radius = np.concatenate([self.radius, inst["radius"]])
+            self.half_extents = np.concatenate([self.half_extents, inst["half_extents"]], axis=1)
+            self.layer = np.concatenate([self.layer, inst["layer"]])
+            friction = np.concatenate([friction, np.full(n_i, 0.5, np.float32)])
+            restitution = np.concatenate([restitution, np.zeros(n_i, np.float32)])
+            mass = np.concatenate([mass, np.ones(n_i, np.float32)])
+            ccd_flags = np.concatenate([ccd_flags, np.zeros(n_i, bool)])
+            hull_ids = np.concatenate([hull_ids, inst["hull"]])
+            self.inst_pos, self.inst_rot = inst["pos"], inst["rot"]   # [3, E], [4, E]
+            nb += n_i
 
         self.nb = nb
         self.occupied = occupied
         self.dyn_mask = occupied & (motion == MOTION_DYNAMIC)
+        self.ccd_mask = self.dyn_mask & ccd_flags
+        self.has_ccd = bool(self.ccd_mask.any())
+        # conservative CCD thickness: a sphere's or capsule's radius, else the least extent
+        self.ccd_r = np.where(
+            self.shape == P.SHAPE_SPHERE, self.radius,
+            np.where(self.shape == P.SHAPE_CAPSULE, self.radius,
+                     np.abs(self.half_extents).min(axis=0))).astype(np.float32)
         self.kin_mask = occupied & (motion != MOTION_DYNAMIC)
+        if self.n_instanced:
+            self.kin_mask[-self.n_instanced:] = False
         self.inv_mass = np.where(self.dyn_mask, 1.0 / np.maximum(mass, 1e-6), 0.0).astype(np.float32)
         self.friction_body = friction.copy()
         self.restitution_body = restitution.copy()
+
+        # body-space inverse inertia (diagonal): sphere and capsule 2/5·m·r²,
+        # box m/12·(e² + e²), a hull its cooked inertia scaled to its mass
         he = self.half_extents
+        self.hull_ids = hull_ids
+        is_convex = self.shape == P.SHAPE_CONVEX
+        conv_inertia = np.ones((3, nb), np.float32)
+        for slot in np.nonzero(occupied & is_convex)[0]:
+            h = module.hulls[int(hull_ids[slot])]
+            conv_inertia[:, slot] = h.inertia_diag * (mass[slot] / max(h.volume, 1e-9))
         ib = np.zeros((3, nb), np.float32)
         for a in range(3):
             b_, c_ = (a + 1) % 3, (a + 2) % 3
             box_i = mass / 12.0 * ((2 * he[b_]) ** 2 + (2 * he[c_]) ** 2)
             sph_i = 0.4 * mass * self.radius**2
-            ii = np.where(self.shape == P.SHAPE_BOX, box_i, sph_i)
+            ii = np.where(self.shape == P.SHAPE_BOX, box_i, np.where(is_convex, conv_inertia[a], sph_i))
             ib[a] = np.where(self.dyn_mask, 1.0 / np.maximum(ii, 1e-9), 0.0)
         self.inv_inertia_body = ib
         self.ground_plane = bool(module.system.ground_plane)
+        self.ground_slots = module.ground_slots_per_body
         self.sap = module.sap_active()
         self.any_caps = bool(np.any(occupied & (self.shape == P.SHAPE_CAPSULE)))
+
+        # polytope data (the convex narrowphase, and the SDF candidate points):
+        # every shape as padded local vertices and a support radius
+        self.is_convex = is_convex
+        self.conv_idx = np.nonzero(occupied & is_convex & self.dyn_mask)[0].astype(np.int32)
+        self.has_convex = bool(np.any(occupied & is_convex))
+        # SDF mesh colliders (grid, origin, cell, pos, rot), posed once here
+        self.sdf_colliders = []
+        mc = module.mesh_colliders
+        for slot in range(mc.capacity):
+            e = int(mc.entity[slot])
+            if e >= 0:
+                sdf = module.sdfs[int(mc.data["sdf"][slot])]
+                mpos, mrot, _ = w.get_global_transform(e)
+                self.sdf_colliders.append((sdf.grid, sdf.origin, float(sdf.cell),
+                                           np.asarray(mpos, np.float32),
+                                           np.asarray(mrot, np.float32)))
+        self.need_polytopes = self.has_convex or bool(self.sdf_colliders)
+        if self.need_polytopes:
+            vmax, fmax = 8, 3
+            for slot in np.nonzero(occupied & is_convex)[0]:
+                h = module.hulls[int(hull_ids[slot])]
+                vmax, fmax = max(vmax, h.verts.shape[0]), max(fmax, h.axes.shape[0])
+            pv = np.zeros((3, vmax, nb), np.float32)
+            pvv = np.zeros((vmax, nb), bool)
+            pax = np.zeros((3, fmax, nb), np.float32)
+            pax[1, :, :] = 1.0  # padding axis: +y
+            prad = np.zeros(nb, np.float32)
+            eye3 = np.eye(3, dtype=np.float32)
+            for slot in np.nonzero(occupied)[0]:
+                sh = int(self.shape[slot])
+                if sh == P.SHAPE_BOX:
+                    pv[:, :8, slot] = P._CORNER_SIGNS * he[:, slot][:, None]
+                    pvv[:8, slot] = True
+                    pax[:, :3, slot] = eye3
+                elif sh == P.SHAPE_SPHERE:
+                    pvv[0, slot] = True
+                    prad[slot] = self.radius[slot]
+                elif sh == P.SHAPE_CAPSULE:
+                    pv[1, 0, slot], pv[1, 1, slot] = he[1, slot], -he[1, slot]
+                    pvv[:2, slot] = True
+                    prad[slot] = self.radius[slot]
+                else:
+                    h = module.hulls[int(hull_ids[slot])]
+                    kv, kf = h.verts.shape[0], h.axes.shape[0]
+                    pv[:, :kv, slot] = h.verts.T
+                    pv[:, kv:, slot] = h.verts.T[:, :1]   # padded by vertex 0: support-exact
+                    pvv[:h.n_verts, slot] = True
+                    pax[:, :kf, slot] = h.axes.T
+                    pax[:, kf:, slot] = h.axes.T[:, :1]
+            self.poly_verts, self.poly_vert_valid, self.poly_axes, self.poly_rad = pv, pvv, pax, prad
+            # support intervals along each face axis (exact convex raycasts)
+            dots = np.einsum("cfn,cvn->fvn", pax, pv)
+            lo = np.where(pvv[None, :, :], dots, 1e9).min(axis=1) - prad[None, :]
+            hi = np.where(pvv[None, :, :], dots, -1e9).max(axis=1) + prad[None, :]
+            self.poly_axis_lo, self.poly_axis_hi = lo.astype(np.float32), hi.astype(np.float32)
+            self.dyn_idx = np.nonzero(self.dyn_mask)[0].astype(np.int32)
+        else:
+            self.dyn_idx = np.zeros(0, np.int32)
+
+        # heightfield: the first one wins; its heights come from the renderer's terrains
+        self.heightfield_terrain = -1
+        self.heightfield_origin = (0.0, 0.0, 0.0)
+        hf = module.heightfields
+        for slot in range(hf.capacity):
+            e = int(hf.entity[slot])
+            if e >= 0:
+                self.heightfield_terrain = int(hf.data["terrain"][slot])
+                self.heightfield_origin = tuple(float(x) for x in w.get_global_transform(e)[0])
+                break
+        # hulls take the polytope ground stream against the plane (and leave
+        # the generic ground or heightfield stream)
+        self.has_conv_gnd = self.has_convex and self.ground_plane
 
         ppp = module.points_per_pair
         self.pruned = False
         if self.sap:
             self.pair_a = self.pair_b = np.zeros(0, np.int32)
+            self.conv_pair_a = self.conv_pair_b = np.zeros(0, np.int32)
         else:
-            # static candidate pairs: occupied, one dynamic, layer matrix allows
+            # static candidate pairs: occupied, one dynamic, layer matrix
+            # allows; pairs with a hull take the polytope narrowphase
             lm_ = module.system.layer_matrix
             ii, jj = np.triu_indices(nb, k=1)
             keep = occupied[ii] & occupied[jj]
             keep &= (motion[ii] == MOTION_DYNAMIC) | (motion[jj] == MOTION_DYNAMIC)
             keep &= lm_[self.layer[ii], self.layer[jj]]
-            self.pair_a = ii[keep].astype(np.int32)
-            self.pair_b = jj[keep].astype(np.int32)
+            cvx = is_convex[ii] | is_convex[jj]
+            self.pair_a = ii[keep & ~cvx].astype(np.int32)
+            self.pair_b = jj[keep & ~cvx].astype(np.int32)
+            self.conv_pair_a = ii[keep & cvx].astype(np.int32)
+            self.conv_pair_b = jj[keep & cvx].astype(np.int32)
             self.pruned = module.broadphase == "pruned" or (
                 module.broadphase == "auto" and len(self.pair_a) > module.pruned_threshold)
             if self.pruned:
                 budget = module.pair_budget or max(128, 6 * int(np.sum(self.dyn_mask)))
                 self.pair_budget = int(min(budget, len(self.pair_a)))
-            # static contact slots [ground | pairs]; in the pruned branch the
-            # compacted pair stream is appended at run time instead
-            gnd = module.ground_slots_per_body if self.ground_plane else 0
+            # static contact slots [ground | simple pairs | convex pairs |
+            # convex ground | SDF]; in the pruned branch the simple pairs are
+            # compacted at run time and appended last instead
+            gnd = (module.ground_slots_per_body
+                   if (self.ground_plane or self.heightfield_terrain >= 0) else 0)
             parts_a = [np.tile(np.arange(nb, dtype=np.int32), gnd)]
             parts_b = [np.full(gnd * nb, -1, np.int32)]
             if not self.pruned:
                 parts_a.append(np.tile(self.pair_a, ppp))
                 parts_b.append(np.tile(self.pair_b, ppp))
+            parts_a.append(np.tile(self.conv_pair_a, ppp))
+            parts_b.append(np.tile(self.conv_pair_b, ppp))
+            if self.has_conv_gnd:
+                kg = module.ground_slots_per_body
+                parts_a.append(np.tile(self.conv_idx, kg))
+                parts_b.append(np.full(len(self.conv_idx) * kg, -1, np.int32))
+            for _ in self.sdf_colliders:
+                v_slots = self.poly_verts.shape[1]
+                parts_a.append(np.tile(self.dyn_idx, v_slots))
+                parts_b.append(np.full(len(self.dyn_idx) * v_slots, -1, np.int32))
             self.contact_body_a = np.concatenate(parts_a)
             self.contact_body_b = np.concatenate(parts_b)
             valid_b = self.contact_body_b >= 0
@@ -192,6 +339,32 @@ class PhysStatics:
         self.joint_ang_mask = np.where(is_d6[None, :], ang, 0).astype(np.float32)
         self.has_d6_config = bool(is_d6.any() and (
             (lin[:, is_d6] == 0).any() or (ang[:, is_d6] == 1).any()))
+
+        # character controllers
+        c = module.controllers
+        self.ctrl_mask = c.entity >= 0
+        self.ctrl_entity_slots = w.to_slots(c.entity)
+        self.ctrl_gravity = np.asarray(c.data["gravity"], np.float32)
+
+        # vehicles and wheels: the raycast-suspension parameters per wheel
+        v = module.vehicles
+        self.veh_torque = np.asarray(v.data["peak_torque"], np.float32)
+        veh_body = np.asarray(v.data["body"], np.int32)
+        wh = module.wheels
+        wveh = np.full(wh.capacity, -1, np.int32)
+        for i in np.nonzero(wh.entity >= 0)[0]:
+            wveh[i] = module.vehicles.slot_of(int(wh.data["vehicle_ent"][i]))
+        self.wheel_mask = (wh.entity >= 0) & (wveh >= 0)
+        self.wheel_vehicle = np.maximum(wveh, 0)
+        self.wheel_body = np.where(self.wheel_mask, veh_body[self.wheel_vehicle], 0).astype(np.int32)
+        self.wheel_radius = np.asarray(wh.data["radius"], np.float32)
+        self.wheel_droop = np.asarray(wh.data["max_droop"], np.float32)
+        self.wheel_comp = np.asarray(wh.data["max_compression"], np.float32)
+        self.wheel_spring = np.asarray(wh.data["spring_strength"], np.float32)
+        self.wheel_damper = np.asarray(wh.data["spring_damper_rate"], np.float32)
+        self.wheel_slot = np.asarray(wh.data["slot"], np.int32)
+        self.wheel_anchor = np.asarray(wh.data["anchor"], np.float32).T.copy()  # [3,NW]
+        self.has_vehicles = bool(self.wheel_mask.any())
         self._dev: Dict[str, SimpleNamespace] = {}
 
     def on(self, device, system: "PhysicsSystem") -> SimpleNamespace:
@@ -227,7 +400,52 @@ class PhysStatics:
                 joint_drive_force=t(self.joint_drive_force), joint_rest_rel=t(self.joint_rest_rel),
                 joint_lin_mask=t(self.joint_lin_mask), joint_ang_mask=t(self.joint_ang_mask),
                 eye=torch.eye(3, dtype=torch.float32, device=device),
+                is_convex=t(self.is_convex),
+                gc_dyn=t(self.dyn_mask & ~self.is_convex if self.has_conv_gnd else self.dyn_mask),
+                layer_masks={},
             )
+            if self.heightfield_terrain >= 0:
+                d.slot_mask = t(P.candidate_slot_mask(self.shape, self.ground_slots))
+            if self.need_polytopes:
+                d.poly_verts, d.poly_axes = t(self.poly_verts), t(self.poly_axes)
+                d.poly_rad = t(self.poly_rad)
+                d.poly_axis_lo, d.poly_axis_hi = t(self.poly_axis_lo), t(self.poly_axis_hi)
+                d.conv_idx = t(self.conv_idx, i64)
+                d.conv_verts = t(self.poly_verts[:, :, self.conv_idx])
+                d.conv_rad = t(self.poly_rad[self.conv_idx])
+                d.conv_pair_a, d.conv_pair_b = t(self.conv_pair_a, i64), t(self.conv_pair_b, i64)
+                d.conv_dyn = t(self.dyn_mask & self.is_convex)
+                # SDF candidate points: the dynamic bodies' polytope vertices
+                # (every slot in the banded branch, whose streams are per body)
+                sel = np.arange(self.nb, dtype=np.int32) if self.sap else self.dyn_idx
+                v_slots = self.poly_verts.shape[1]
+                d.sdf_sel = t(sel, i64)
+                d.sdf_verts = t(self.poly_verts[:, :, sel])
+                d.sdf_eff_r = t(np.tile(self.poly_rad[sel], v_slots))
+                d.sdf_body = t(np.tile(sel, v_slots), i64)
+                d.sdf_valid = t((self.poly_vert_valid[:, sel] & self.dyn_mask[None, sel]).reshape(-1))
+                d.sdf_colliders = [(t(g), t(o), cell, t(mp), t(mr))
+                                   for g, o, cell, mp, mr in self.sdf_colliders]
+            if self.has_ccd:
+                ci = np.nonzero(self.ccd_mask)[0]
+                d.ccd_mask, d.ccd_r, d.ccd_idx = t(self.ccd_mask), t(self.ccd_r), t(ci, i64)
+                d.ccd_ts = t((np.arange(1, CCD_SAMPLES + 1, dtype=np.float32)
+                              / CCD_SAMPLES)[:, None])
+                d.ccd_pair_ok = t(self.occupied[None, :] & (ci[:, None] != np.arange(self.nb)[None, :]))
+            if self.ctrl_mask.any():
+                act = np.nonzero(self.ctrl_mask)[0]
+                d.ctrl_mask, d.ctrl_gravity = t(self.ctrl_mask), t(self.ctrl_gravity)
+                d.ctrl_cols, d.ctrl_slots = t(act, i64), t(self.ctrl_entity_slots[act], i64)
+            if self.has_vehicles:
+                d.wheel_mask = t(self.wheel_mask.astype(np.float32))
+                d.wheel_body, d.wheel_vehicle = t(self.wheel_body, i64), t(self.wheel_vehicle, i64)
+                d.wheel_radius, d.wheel_droop = t(self.wheel_radius), t(self.wheel_droop)
+                d.wheel_comp, d.wheel_anchor = t(self.wheel_comp), t(self.wheel_anchor)
+                d.wheel_spring, d.wheel_damper = t(self.wheel_spring), t(self.wheel_damper)
+                d.wheel_front = t((self.wheel_slot < 2).astype(np.float32))
+                d.veh_torque = t(self.veh_torque)
+                d.e_y = t(np.array([[0.0], [1.0], [0.0]], np.float32))
+                d.e_z = t(np.array([[0.0], [0.0], [1.0]], np.float32))
             if not self.sap:
                 d.contact_body_a = t(self.contact_body_a, i64)
                 d.contact_body_b = t(self.contact_body_b, i64)
@@ -270,7 +488,8 @@ class PhysicsModule(IModule):
             "friction": ((), np.float32, 0.5),
             "restitution": ((), np.float32, 0.0),
             "layer": ((), np.int32, 0),
-            "ccd": ((), np.bool_, False),
+            "hull": ((), np.int32, -1),     # index into self.hulls (convex)
+            "ccd": ((), np.bool_, False),   # swept clamp of fast movers (_ccd_clamp)
         })
         self.joints = DenseStore(max_joints, {
             "body_a": ((), np.int32, -1), "body_b": ((), np.int32, -1),
@@ -292,6 +511,44 @@ class PhysicsModule(IModule):
             "d6_linear": ((3,), np.int32, 1),      # 1 locked, 0 free, frame-A axes
             "d6_angular": ((3,), np.int32, 0),
         })
+        # capsule character controllers with their own gravity
+        self.controllers = DenseStore(32, {"radius": ((), np.float32, 0.4),
+                                           "height": ((), np.float32, 1.8),
+                                           "gravity": ((), np.float32, -9.81)})
+        # heightfield terrain collision (a terrain id of the renderer's terrains)
+        self.heightfields = DenseStore(4, {"terrain": ((), np.int32, -1)})
+        # cooked convex hulls (physics/cooking.py); actors name theirs by index
+        self.hulls: list = []
+        # static triangle meshes as baked SDF grids
+        self.mesh_colliders = DenseStore(4, {"sdf": ((), np.int32, -1)})
+        self.sdfs: list = []
+        # raycast-suspension vehicles: a dynamic box chassis, wheels as children
+        self.vehicles = DenseStore(8, {
+            "mass": ((), np.float32, 1500.0),
+            "center_of_mass": ((3,), np.float32, 0.0),
+            "moi_multiplier": ((), np.float32, 1.0),
+            "chassis_layer": ((), np.int32, 0),
+            "wheels_layer": ((), np.int32, 0),
+            "peak_torque": ((), np.float32, 500.0),
+            "max_rpm": ((), np.float32, 6000.0),
+            "body": ((), np.int32, -1)})     # the chassis's actor slot
+        self.wheels = DenseStore(32, {
+            "vehicle_ent": ((), np.int32, -1),
+            "radius": ((), np.float32, 0.35),
+            "width": ((), np.float32, 0.2),
+            "mass": ((), np.float32, 20.0),
+            "moi": ((), np.float32, 1.0),
+            "max_droop": ((), np.float32, 0.15),
+            "max_compression": ((), np.float32, 0.15),
+            "spring_strength": ((), np.float32, 30000.0),
+            "spring_damper_rate": ((), np.float32, 4000.0),
+            "slot": ((), np.int32, 0),       # 0 front left, 1 front right, 2 rear left, 3 rear right
+            "anchor": ((3,), np.float32, 0.0)})  # chassis-local attach point
+        # instanced static collision: one frozen static actor per instance of
+        # the entity's render instanced_model, made when the statics are built
+        self.instanced_cubes: Dict[int, dict] = {}
+        self.instanced_meshes: Dict[int, dict] = {}
+        self._inst_hull_cache: Dict[tuple, int] = {}
         self.points_per_pair = points_per_pair
         self.ground_slots_per_body = ground_slots_per_body
         self.solver_iterations = solver_iterations
@@ -300,32 +557,117 @@ class PhysicsModule(IModule):
         self._statics_version = -1
 
     def component_types(self):
-        return ["rigid_actor", *JOINT_TYPES, *_NOT_PORTED]
+        return ["rigid_actor", *JOINT_TYPES, "physics_controller", "heightfield", "vehicle",
+                "wheel", "mesh_collider", "instanced_cube", "instanced_mesh"]
+
+    def register_hull(self, cooked) -> int:
+        """Register a CookedHull (physics/cooking.py) → hull id."""
+        self.hulls.append(cooked)
+        return len(self.hulls) - 1
+
+    def register_mesh_sdf(self, cooked) -> int:
+        """Register a CookedMeshSDF → sdf id."""
+        self.sdfs.append(cooked)
+        return len(self.sdfs) - 1
 
     def create_component(self, entity: int, ctype: str, **props):
         if ctype in JOINT_TYPES:
             return self._create_joint(entity, JOINT_TYPES[ctype], props)
-        if ctype != "rigid_actor":
-            raise NotImplementedError(f"physics component {ctype!r} is not ported")
         self.invalidate_statics()
+        if ctype == "rigid_actor":
+            self._create_actor(entity, props)
+        elif ctype == "physics_controller":
+            self.controllers.add(entity, radius=np.float32(props.get("radius", 0.4)),
+                                 height=np.float32(props.get("height", 1.8)),
+                                 gravity=np.float32(props.get("gravity", -9.81)))
+        elif ctype == "heightfield":
+            self.heightfields.add(entity, terrain=np.int32(props.get("terrain", 0)))
+        elif ctype == "mesh_collider":
+            # a static triangle mesh posed by its entity: a cooked SDF, a
+            # registered id, or vertices and triangles to cook
+            sdf = props.get("sdf")
+            if sdf is None:
+                sdf = cook_mesh_sdf_cached(props["vertices"], props["triangles"],
+                                           resolution=int(props.get("resolution", 32)))
+            sdf_id = sdf if isinstance(sdf, int) else self.register_mesh_sdf(sdf)
+            self.mesh_colliders.add(entity, sdf=np.int32(sdf_id))
+        elif ctype == "vehicle":
+            # the chassis is a dynamic box actor on the same entity, made here if absent
+            if self.actors.slot_of(entity) < 0:
+                self._create_actor(entity, dict(
+                    motion="dynamic", shape="box",
+                    half_extents=props.get("chassis_half_extents", (1.0, 0.5, 2.0)),
+                    mass=props.get("mass", 1500.0), layer=props.get("chassis_layer", 0)))
+            self.vehicles.add(
+                entity, mass=np.float32(props.get("mass", 1500.0)),
+                center_of_mass=np.asarray(props.get("center_of_mass", (0.0,) * 3), np.float32),
+                moi_multiplier=np.float32(props.get("moi_multiplier", 1.0)),
+                chassis_layer=np.int32(props.get("chassis_layer", 0)),
+                wheels_layer=np.int32(props.get("wheels_layer", 0)),
+                peak_torque=np.float32(props.get("peak_torque", 500.0)),
+                max_rpm=np.float32(props.get("max_rpm", 6000.0)),
+                body=np.int32(self.actors.slot_of(entity)))
+        elif ctype == "wheel":
+            # a child of its vehicle's entity; the anchor is its local position
+            veh = int(props.get("vehicle", self.world.get_parent(entity)))
+            self.wheels.add(
+                entity, vehicle_ent=np.int32(veh),
+                radius=np.float32(props.get("radius", 0.35)),
+                width=np.float32(props.get("width", 0.2)),
+                mass=np.float32(props.get("mass", 20.0)),
+                moi=np.float32(props.get("moi", 1.0)),
+                max_droop=np.float32(props.get("max_droop", 0.15)),
+                max_compression=np.float32(props.get("max_compression", 0.15)),
+                spring_strength=np.float32(props.get("spring_strength", 30000.0)),
+                spring_damper_rate=np.float32(props.get("spring_damper_rate", 4000.0)),
+                slot=np.int32(props.get("slot", 0)),
+                anchor=np.asarray(self.world.local_pos[entity], np.float32))
+        elif ctype == "instanced_cube":
+            # one static box per instance, its half-extents times the instance's scale
+            self.instanced_cubes[entity] = {
+                "half_extents": np.asarray(props.get("half_extents", (0.5, 0.5, 0.5)), np.float32),
+                "layer": int(props.get("layer", 0))}
+        elif ctype == "instanced_mesh":
+            # one static hull per instance, cooked from the vertices of the
+            # model `mesh` names (empty: the instanced model's own)
+            self.instanced_meshes[entity] = {"mesh": props.get("mesh", ""),
+                                             "layer": int(props.get("layer", 0))}
+        else:
+            raise KeyError(ctype)
+
+    def _create_actor(self, entity: int, props):
         motion = props.get("motion", "static")
         motion = {"static": MOTION_STATIC, "dynamic": MOTION_DYNAMIC,
                   "kinematic": MOTION_KINEMATIC}.get(motion, motion)
         shape = props.get("shape", "sphere")
         shape = {"sphere": P.SHAPE_SPHERE, "box": P.SHAPE_BOX, "capsule": P.SHAPE_CAPSULE,
                  "convex": P.SHAPE_CONVEX}.get(shape, shape)
+        radius = float(props.get("radius", 0.5))
+        he = np.asarray(props.get("half_extents", (0.5, 0.5, 0.5)), np.float32)
+        hull_id = -1
         if shape == P.SHAPE_CONVEX:
-            raise NotImplementedError("convex actors (hull cooking, convex_ops) are not ported")
+            # a cooked hull, a registered hull id, or raw points to cook
+            hull = props.get("hull")
+            if hull is None:
+                hull = cook_convex_cached(props["points"])
+            if isinstance(hull, int):
+                hull_id, hull = hull, self.hulls[hull]
+            else:
+                hull_id = self.register_hull(hull)
+            # bounds for the broadphase AABBs
+            radius = hull.bound_radius
+            he = np.abs(hull.verts).max(axis=0).astype(np.float32)
         self.actors.add(
             entity,
             motion=np.int32(motion),
             shape=np.int32(shape),
-            radius=np.float32(float(props.get("radius", 0.5))),
-            half_extents=np.asarray(props.get("half_extents", (0.5, 0.5, 0.5)), np.float32),
+            radius=np.float32(radius),
+            half_extents=he,
             mass=np.float32(props.get("mass", 1.0)),
             friction=np.float32(props.get("friction", 0.5)),
             restitution=np.float32(props.get("restitution", 0.0)),
             layer=np.int32(props.get("layer", 0)),
+            hull=np.int32(hull_id),
             ccd=np.bool_(props.get("ccd", False)),
         )
 
@@ -354,11 +696,87 @@ class PhysicsModule(IModule):
             d6_linear=np.asarray(props.get("linear_motion", (1, 1, 1)), np.int32),
             d6_angular=np.asarray(props.get("angular_motion", (0, 0, 0)), np.int32))
 
+    def _expand_instanced(self):
+        """The instanced statics: for each instanced_cube or instanced_mesh
+        whose entity carries a render instanced_model, one frozen static
+        actor per instance, at the owner's translation plus the instance
+        offset, rotated by owner·instance, sized by the instance's scale.
+        Returns None or the column-stacked arrays PhysStatics appends."""
+        rmod = self.world.modules.get("renderer")
+        if rmod is None or not (self.instanced_cubes or self.instanced_meshes):
+            return None
+        rows = []   # (pos3, rot4, shape, radius, he3, layer, hull id, owner)
+
+        def instances_of(e):
+            im = rmod.instanced_models.get(e)
+            if im is None or not len(im["pos"]):
+                return None
+            opos, orot, _ = self.world.get_global_transform(e)
+            return im, np.asarray(opos, np.float32), np.asarray(orot, np.float32)
+
+        for e, rec in self.instanced_cubes.items():
+            got = instances_of(e)
+            if got is None:
+                continue
+            im, opos, orot = got
+            for i in range(len(im["pos"])):
+                he = rec["half_extents"] * im["scale"][i]
+                rows.append((opos + im["pos"][i], hm.quat_mul(orot, im["rot"][i]), P.SHAPE_BOX,
+                             float(np.linalg.norm(he)), he, rec["layer"], -1, e))
+        for e, rec in self.instanced_meshes.items():
+            got = instances_of(e)
+            if got is None:
+                continue
+            im, opos, orot = got
+            # `mesh` names a registered model; a name that is none falls back
+            # to the instanced model's own geometry
+            mid = int(im["model"])
+            if rec["mesh"]:
+                try:
+                    mid = rmod.system.models.get_id(rec["mesh"])
+                except KeyError:
+                    pass
+            pts = rmod.system.models.get(mid).vertex_positions
+            if pts is None or not len(pts):
+                continue
+            for i in range(len(im["pos"])):
+                s = np.asarray(im["scale"][i], np.float32)
+                key = (mid, tuple(np.round(s, 6).tolist()))
+                hid = self._inst_hull_cache.get(key)
+                if hid is None:
+                    hid = self.register_hull(cook_convex_cached(np.asarray(pts, np.float32) * s))
+                    self._inst_hull_cache[key] = hid
+                hull = self.hulls[hid]
+                rows.append((opos + im["pos"][i], hm.quat_mul(orot, im["rot"][i]), P.SHAPE_CONVEX,
+                             float(hull.bound_radius),
+                             np.abs(hull.verts).max(axis=0).astype(np.float32), rec["layer"],
+                             hid, e))
+        if not rows:
+            return None
+        return {
+            "pos": np.stack([r[0] for r in rows], axis=1).astype(np.float32),
+            "rot": np.stack([r[1] for r in rows], axis=1).astype(np.float32),
+            "shape": np.asarray([r[2] for r in rows], np.int32),
+            "radius": np.asarray([r[3] for r in rows], np.float32),
+            "half_extents": np.stack([r[4] for r in rows], axis=1).astype(np.float32),
+            "layer": np.asarray([r[5] for r in rows], np.int32),
+            "hull": np.asarray([r[6] for r in rows], np.int32),
+            "owner": np.asarray([r[7] for r in rows], np.int32),
+        }
+
     def sap_active(self) -> bool:
         """True for the large-world branch (no static pair list)."""
         if self.broadphase == "auto":
             return self.actors.capacity > self.sap_threshold
         return self.broadphase in ("sap", "banded")
+
+    def _banded_ground_slots(self, st: PhysStatics) -> int:
+        """Slots per body of the banded branch's per-body stream: the ground
+        or heightfield stream, the hulls' ground grids and one vertex stream
+        per SDF collider (the warm-start carry's G)."""
+        g = self.ground_slots_per_body if (st.heightfield_terrain >= 0 or st.ground_plane) else 0
+        v = st.poly_verts.shape[1] if st.need_polytopes else 0
+        return g + (v if st.has_conv_gnd else 0) + len(st.sdf_colliders) * v
 
     def invalidate_statics(self):
         self._statics = None
@@ -372,7 +790,13 @@ class PhysicsModule(IModule):
         return self._statics
 
     def prepare_statics(self, device) -> None:
-        self.statics().on(device, self.system)
+        st = self.statics()
+        st.on(device, self.system)
+        if st.heightfield_terrain >= 0:
+            self._terrain_bank(device)
+
+    def _terrain_bank(self, device):
+        return self.world.modules["renderer"].system.terrains.bank(device)
 
     def _sweep_count(self) -> int:
         ns = self.sap_sweeps
@@ -389,27 +813,40 @@ class PhysicsModule(IModule):
                 p, r, _ = self.world.get_global_transform(e)
                 pos[:, slot] = p
                 rot[:, slot] = r
+        if st.n_instanced:
+            pos[:, -st.n_instanced:] = st.inst_pos
+            rot[:, -st.n_instanced:] = st.inst_rot
+        nc = self.controllers.capacity
+        cpos = np.zeros((3, nc), np.float32)
+        for slot in range(nc):
+            e = int(self.controllers.entity[slot])
+            if e >= 0:
+                cpos[:, slot] = self.world.get_global_transform(e)[0]
         f32 = dict(dtype=torch.float32, device=device)
         i32 = dict(dtype=torch.int32, device=device)
         n_lam = 0 if st.sap else st.n_contact_slots
         if st.sap:
             n_s, k, K = self._sweep_count(), self.points_per_pair, self.sap_neighbors
             sap_lam = torch.zeros((n_s, 3, k, K, nb), **f32)
-            g = self.ground_slots_per_body if st.ground_plane else 0
-            sap_glam = torch.zeros((3, g, nb), **f32)
+            sap_glam = torch.zeros((3, self._banded_ground_slots(st), nb), **f32)
             sap_rank = torch.full((n_s, nb), -1, **i32)
         else:
             sap_lam, sap_glam, sap_rank = torch.zeros(0, **f32), torch.zeros(0, **f32), \
                 torch.zeros(0, **i32)
         zero = torch.zeros((), **i32)
+        nv = self.vehicles.capacity
         return PhysicsState(
             pos=torch.as_tensor(pos, device=device), rot=torch.as_tensor(rot, device=device),
             vel=torch.zeros((3, nb), **f32), angvel=torch.zeros((3, nb), **f32),
             sleep=torch.zeros(nb, **i32),
+            ctrl_pos=torch.as_tensor(cpos, device=device), ctrl_vel_y=torch.zeros(nc, **f32),
+            ctrl_disp=torch.zeros((3, nc), **f32),
+            ctrl_grounded=torch.zeros(nc, dtype=torch.bool, device=device),
             lam_n=torch.zeros(n_lam, **f32), lam_t1=torch.zeros(n_lam, **f32),
             lam_t2=torch.zeros(n_lam, **f32),
             pair_key=torch.full((st.pair_budget if st.pruned else 0,), -1, **i32),
             sap_lam=sap_lam, sap_glam=sap_glam, sap_rank=sap_rank,
+            veh_throttle=torch.zeros(nv, **f32), veh_steer=torch.zeros(nv, **f32),
             counters={"active_contacts": zero, "sap_window_miss": zero.clone(),
                       "pruned_pair_miss": zero.clone()},
         )
@@ -447,11 +884,44 @@ class PhysicsModule(IModule):
         rot = torch.where(d.kin, state.world.rot.index_select(-1, d.eidx), ms.rot)
         return pos, rot
 
+    def _ground_stream(self, st: PhysStatics, d, pos, rot):
+        """The per-body ground stream: the heightfield's where there is one,
+        else the plane's, else None. Hulls leave it when they have their
+        polytope ground stream."""
+        sys = self.system
+        if st.heightfield_terrain >= 0:
+            return P.heightfield_contacts(
+                pos, rot, d.shape, d.radius, d.he, d.gc_dyn, self._terrain_bank(pos.device),
+                st.heightfield_terrain, st.heightfield_origin, d.slot_mask,
+                slots_per_body=self.ground_slots_per_body, any_caps=st.any_caps)
+        if st.ground_plane:
+            return P.ground_contacts(pos, rot, d.shape, d.radius, d.he, d.gc_dyn,
+                                     ground_y=sys.ground_y,
+                                     slots_per_body=self.ground_slots_per_body,
+                                     any_caps=st.any_caps)
+        return None
+
+    def _sdf_streams(self, st: PhysStatics, d, pos, rot):
+        """One stream per SDF mesh collider: every polytope vertex of the
+        dynamic bodies (of every slot in the banded branch) as a candidate
+        point with its support radius."""
+        if not st.sdf_colliders:
+            return []
+        vw = CV.polytope_world_verts(pos.index_select(-1, d.sdf_sel), rot.index_select(-1, d.sdf_sel),
+                                     d.sdf_verts)                    # [..,3,V,Nd]
+        pts = vw.reshape(vw.shape[:-2] + (-1,))
+        out = []
+        for grid, origin, cell, mpos, mrot in d.sdf_colliders:
+            sc = CV.sdf_contacts(pts, d.sdf_eff_r, d.sdf_body, grid, origin, cell, mpos, mrot)
+            out.append(sc._replace(active=sc.active & d.sdf_valid))
+        return out
+
     def _contact_stage(self, state: WorldState, dt):
-        """Everything before the contact solve of the all-pairs and pruned
-        branches: the clamped dt, the poses, integrated velocities, the
-        contact set (None when there is no stream) with its materials, the
-        world inverse inertia and the warm-start impulses."""
+        """Everything before the contact solve: the clamped dt, the poses,
+        integrated velocities with the vehicles' impulses, and the contact
+        set (None when there is no stream) with its materials, the world
+        inverse inertia and the warm-start impulses; in the banded branch
+        the per-body stream `gc` instead."""
         st = self.statics()
         sys = self.system
         ms: PhysicsState = state.modules[self.name]
@@ -461,21 +931,46 @@ class PhysicsModule(IModule):
         pos, rot = self._poses(state, d)
         vel, angvel = P.integrate_velocities(ms.vel, ms.angvel, dt_c, d.gravity,
                                              sys.linear_damping, sys.angular_damping, d.dyn)
-        gc = None
-        if st.ground_plane:
-            gc = P.ground_contacts(pos, rot, d.shape, d.radius, d.he, d.dyn,
-                                   ground_y=sys.ground_y, slots_per_body=self.ground_slots_per_body,
-                                   any_caps=st.any_caps)
+        if st.has_vehicles:
+            vel, angvel = self._update_vehicles(d, ms, pos, rot, vel, angvel, dt_c)
+        gc = self._ground_stream(st, d, pos, rot)
+        sdf_streams = self._sdf_streams(st, d, pos, rot)
         c = SimpleNamespace(dt_c=dt_c, pos=pos, rot=rot, vel=vel, angvel=angvel, gc=gc, d=d,
                             contacts=None, miss=None, pair_key=ms.pair_key)
         if st.sap:
+            # every per-body stream joins gc, which the sweeps re-rank whole
+            if st.has_conv_gnd:
+                cg = CV.polytope_ground_grids(pos, rot, d.poly_verts, d.poly_rad, d.conv_dyn,
+                                              sys.ground_y)
+                gc = cg if gc is None else P.concat_contacts(gc, cg)
+            for sc in sdf_streams:
+                gc = sc if gc is None else P.concat_contacts(gc, sc)
+            c.gc = gc
             return c
+        # streams in the order of the static slot layout
+        streams = [] if gc is None else [gc]
+        if len(st.pair_a) and not st.pruned:
+            streams.append(P.pair_contacts(pos, rot, d.shape, d.radius, d.he, d.pair_a, d.pair_b,
+                                           points_per_pair=self.points_per_pair,
+                                           any_caps=st.any_caps))
+        if len(st.conv_pair_a):
+            streams.append(CV.polytope_pair_contacts(pos, rot, d.poly_verts, d.poly_axes, d.poly_rad,
+                                                     d.conv_pair_a, d.conv_pair_b,
+                                                     points_per_pair=self.points_per_pair))
+        if st.has_conv_gnd and len(st.conv_idx):
+            streams.append(CV.polytope_ground_contacts(pos, rot, d.conv_verts, d.conv_rad,
+                                                       d.conv_idx, sys.ground_y,
+                                                       points_per_body=self.ground_slots_per_body))
+        streams.extend(sdf_streams)
+        contacts = None
+        for s in streams:
+            contacts = s if contacts is None else P.concat_contacts(contacts, s)
         batch = pos.shape[:-2]
         warm = (ms.lam_n, ms.lam_t1, ms.lam_t2)
         if st.pruned:
             cc, cfric, crest, c.miss, c.pair_key = self._compacted_pair_stream(st, d, pos, rot)
-            if gc is not None:
-                contacts = P.concat_contacts(gc, cc)
+            if contacts is not None:
+                contacts = P.concat_contacts(contacts, cc)
                 fric = torch.cat([d.friction.expand(batch + d.friction.shape), cfric], dim=-1)
                 rest = torch.cat([d.restitution.expand(batch + d.restitution.shape), crest], dim=-1)
             else:
@@ -489,14 +984,8 @@ class PhysicsModule(IModule):
                                          device=same.device), same], dim=-1)
             warm = tuple(torch.where(keep, w, 0.0) for w in warm)
         else:
-            streams = [] if gc is None else [gc]
-            if len(st.pair_a):
-                streams.append(P.pair_contacts(pos, rot, d.shape, d.radius, d.he, d.pair_a,
-                                               d.pair_b, points_per_pair=self.points_per_pair,
-                                               any_caps=st.any_caps))
-            if not streams:
+            if contacts is None:
                 return c
-            contacts = streams[0] if len(streams) == 1 else P.concat_contacts(*streams)
             fric, rest = d.friction, d.restitution
         c.contacts, c.fric, c.rest, c.warm = contacts, fric, rest, warm
         c.iiw = P.inv_inertia_world_diag(rot, d.inv_inertia_body)
@@ -542,7 +1031,10 @@ class PhysicsModule(IModule):
             counters["pruned_pair_miss"] = miss
         if len(st.joint_a):
             vel, angvel = self._solve_joints(st, d, pos, rot, vel, angvel, c.dt_c)
+        pre_pos = pos
         pos, rot = P.integrate_positions(pos, rot, vel, angvel, c.dt_c, d.dyn)
+        if st.has_ccd:
+            pos = self._ccd_clamp(st, d, pre_pos, pos)
         if self.position_iterations > 0:
             if dpos is not None:
                 pos = pos + dpos  # dpos depends only on the contact set
@@ -552,6 +1044,48 @@ class PhysicsModule(IModule):
         counters.update(active_contacts=n_active, sap_window_miss=miss)
         ms = ms.replace(pos=pos, rot=rot, vel=vel, angvel=angvel, sleep=sleep, counters=counters)
         return state.replace(modules={**state.modules, self.name: ms})
+
+    def _ccd_clamp(self, st: PhysStatics, d, pre_pos, new_pos):
+        """Continuous collision for the CCD bodies: CCD_SAMPLES points along
+        this step's motion; a fast mover stops at the last sample before the
+        first one that penetrates the ground plane, an SDF collider or any
+        other body's path sampled at the same times (two fast bodies meeting
+        head-on stop before they cross). The discrete solve takes the
+        contact the next frame."""
+        K = CCD_SAMPLES
+        sys = self.system
+        nb = new_pos.shape[-1]
+        delta = new_pos - pre_pos
+        path = pre_pos.unsqueeze(-2) + delta.unsqueeze(-2) * d.ccd_ts    # [..,3,K,NB]
+        r_eff = d.ccd_r
+        dist = torch.full(path.shape[:-3] + path.shape[-2:], 1e9, device=path.device)  # [..,K,NB]
+        if st.ground_plane:
+            dist = torch.minimum(dist, path[..., 1, :, :] - sys.ground_y - r_eff)
+        if st.sdf_colliders:
+            flat = path.reshape(path.shape[:-2] + (K * nb,))
+            for grid, origin, cell, mpos, mrot in d.sdf_colliders:
+                inv = lm.quat_conjugate(mrot, axis=-1).unsqueeze(-1)
+                local = lm.quat_rotate(inv, flat - mpos.unsqueeze(-1), axis=-2)
+                dd = CV.sdf_sample(grid, origin, cell, local)
+                dist = torch.minimum(dist, dd.reshape(dd.shape[:-1] + (K, nb)) - r_eff)
+        # the CCD bodies against every occupied body's sampled path: the
+        # relative motion within the step
+        ci = d.ccd_idx
+        path_i = path.index_select(-1, ci)                                  # [..,3,K,C]
+        d_ij = path_i.unsqueeze(-1) - path.unsqueeze(-2)                    # [..,3,K,C,NB]
+        dist_ij = torch.sqrt(torch.clamp_min(torch.sum(d_ij * d_ij, dim=-4), 1e-12))
+        rad_ij = r_eff[ci][:, None] + r_eff[None, :]                        # [C,NB]
+        pair_d = torch.where(d.ccd_pair_ok, dist_ij - rad_ij, 1e9)
+        dist = dist.index_copy(-1, ci, torch.minimum(dist.index_select(-1, ci),
+                                                     torch.amin(pair_d, dim=-1)))
+        hit = dist < 0.0                                                    # [..,K,NB]
+        any_hit = torch.any(hit, dim=-2)
+        first = torch.argmax(hit.to(torch.int32), dim=-2)                   # first hit sample
+        # only fast movers (a step beyond half their thickness): resting CCD
+        # bodies sit in contact and must not freeze
+        fast = torch.sum(delta * delta, dim=-2) > (0.5 * r_eff) ** 2
+        t_safe = torch.where(any_hit & fast & d.ccd_mask, first.to(torch.float32) / K, 1.0)
+        return pre_pos + delta * t_safe.unsqueeze(-2)
 
     # -- the banded branch ------------------------------------------------------
 
@@ -622,6 +1156,16 @@ class PhysicsModule(IModule):
             p_point, p_normal, p_depth, p_raw, ok = PBD.banded_pair_grids(
                 sp, sr, rk(d.radius), rk(d.he), rk(d.shape), s_mn, s_mx, K, k,
                 any_caps=st.any_caps)
+            if st.has_convex:
+                # pairs with a hull take the polytope SAT instead
+                c_pt, c_n, c_d, c_act = PBD.banded_polytope_grids(
+                    sp, sr, rk(d.poly_verts), rk(d.poly_axes), rk(d.poly_rad), K, k)
+                s_cvx = rk(d.is_convex)
+                cvx_pair = s_cvx[None, :] | PBD.banded_pair_data(s_cvx, K)   # [K, NB]
+                p_point = torch.where(cvx_pair, c_pt, p_point)
+                p_normal = torch.where(cvx_pair, c_n, p_normal)
+                p_depth = torch.where(cvx_pair, c_d, p_depth)
+                p_raw = torch.where(cvx_pair, c_act, p_raw)
             layer_ok = d.layer_matrix[s_layer[None, :] * MAX_LAYERS
                                       + PBD.banded_pair_data(s_layer, K)]
             ok = (ok & layer_ok & (s_dyn[None, :] | PBD.banded_pair_data(s_dyn, K))
@@ -779,11 +1323,111 @@ class PhysicsModule(IModule):
                 angvel = angvel + (_scatter(tau6, db, nb) - _scatter(tau6, da, nb)) * iiw
         return vel, angvel
 
-    def update(self, state: WorldState, dt) -> WorldState:
-        """Write the dynamic bodies' poses back into their entities' local
-        transforms (propagation follows)."""
+    # -- vehicles and character controllers -------------------------------------
+
+    def set_vehicle_input(self, state: WorldState, entity: int, throttle=0.0,
+                          steer=0.0) -> WorldState:
+        """Driver inputs of a vehicle: throttle in [-1, 1] and the steering
+        angle in radians, each a number or a tensor over the world batch."""
+        slot = self.vehicles.slot_of(entity)
         ms: PhysicsState = state.modules[self.name]
-        d = self.statics().on(ms.pos.device, self.system)
+        th, sr = ms.veh_throttle.clone(), ms.veh_steer.clone()
+        th[..., slot] = torch.as_tensor(throttle, dtype=torch.float32, device=th.device)
+        sr[..., slot] = torch.as_tensor(steer, dtype=torch.float32, device=sr.device)
+        return state.replace(modules={**state.modules,
+                                      self.name: ms.replace(veh_throttle=th, veh_steer=sr)})
+
+    def _update_vehicles(self, d, ms: PhysicsState, pos, rot, vel, angvel, dt):
+        """Raycast-suspension vehicle impulses, all wheels at once:
+        suspension, a ray from each wheel's anchor along the chassis's down
+        axis to the ground plane, spring·compression − damper·(up speed at
+        the contact); drive, throttle·peak_torque / wheel radius along the
+        chassis's forward axis (steered on the front slots), on grounded
+        wheels; lateral grip cancelling the sideways speed, bounded by the
+        friction cone of the spring force. The impulses sum into the
+        chassis bodies."""
+        nb = pos.shape[-1]
+        wm, bidx, vidx = d.wheel_mask, d.wheel_body, d.wheel_vehicle
+        q = rot.index_select(-1, bidx)                    # [..,4,NW]
+        p = pos.index_select(-1, bidx)
+        r = lm.quat_rotate(q, d.wheel_anchor, axis=AX)    # lever arm from the chassis's centre
+        wpos = p + r
+        axes_shape = q[..., :3, :].shape
+        up = lm.quat_rotate(q, d.e_y.expand(axes_shape), axis=AX)
+        fwd = lm.quat_rotate(q, d.e_z.expand(axes_shape), axis=AX)
+        # the ray o + t·(−up) meets y = ground_y at t = (o_y − ground_y) / up_y
+        t = (wpos[..., 1, :] - self.system.ground_y) / torch.clamp_min(up[..., 1, :], 1e-3)
+        radius = d.wheel_radius
+        rest = radius + d.wheel_droop
+        compression = torch.minimum(torch.clamp_min(rest - t, 0.0), d.wheel_droop + d.wheel_comp)
+        # a buried wheel (t < 0) is fully compressed, not airborne
+        grounded = (t <= rest).to(torch.float32) * wm
+        cvel = vel.index_select(-1, bidx) + lm.cross(angvel.index_select(-1, bidx), r, axis=AX)
+        v_up = torch.sum(cvel * up, dim=AX)
+        f_spring = torch.clamp_min(d.wheel_spring * compression - d.wheel_damper * v_up,
+                                   0.0) * grounded
+        steer = ms.veh_steer.index_select(-1, vidx) * d.wheel_front
+        cs, sn = torch.cos(steer), torch.sin(steer)
+        side = lm.cross(up, fwd, axis=AX)
+        dirv = fwd * cs.unsqueeze(AX) + side * sn.unsqueeze(AX)
+        side_s = lm.cross(up, dirv, axis=AX)
+        throttle = ms.veh_throttle.index_select(-1, vidx)
+        f_drive = throttle * d.veh_torque[vidx] / torch.clamp_min(radius, 1e-3) * grounded
+        v_side = torch.sum(cvel * side_s, dim=AX)
+        f_lat = torch.minimum(torch.maximum(-v_side / torch.clamp_min(dt, 1e-4) * 80.0,
+                                            -1.2 * f_spring), 1.2 * f_spring)
+        imp = (up * f_spring.unsqueeze(AX) + dirv * f_drive.unsqueeze(AX)
+               + side_s * f_lat.unsqueeze(AX)) * dt * wm
+        acc = _scatter(torch.cat([imp, lm.cross(r, imp, axis=AX)], dim=AX), bidx, nb)  # [..,6,NB]
+        iiw = P.inv_inertia_world_diag(rot, d.inv_inertia_body)
+        return vel + acc[..., 0:3, :] * d.inv_mass[None, :], angvel + acc[..., 3:6, :] * iiw
+
+    def move_controller(self, state: WorldState, entity: int, disp) -> WorldState:
+        """Queue a displacement [3] (or [..., 3] over the world batch) for a
+        character controller; the next `update` applies it."""
+        slot = self.controllers.slot_of(entity)
+        ms: PhysicsState = state.modules[self.name]
+        cd = ms.ctrl_disp.clone()
+        cd[..., :, slot] += torch.as_tensor(disp, dtype=torch.float32, device=cd.device)
+        return state.replace(modules={**state.modules, self.name: ms.replace(ctrl_disp=cd)})
+
+    def _update_controllers(self, state: WorldState, st: PhysStatics, d, ms: PhysicsState, dt):
+        """The character controllers: their own gravity, the queued move, the
+        clamp to the heightfield (or the ground plane's height), and their
+        entities' local positions."""
+        vy = ms.ctrl_vel_y + d.ctrl_gravity * dt
+        pos = ms.ctrl_pos + ms.ctrl_disp
+        py = pos[..., 1, :] + vy * dt
+        if st.heightfield_terrain >= 0:
+            from lumixengine_tpu_torch.renderer import terrain as terr
+
+            ox, oy, oz = st.heightfield_origin
+            gy = terr.sample_height(self._terrain_bank(pos.device), st.heightfield_terrain,
+                                    pos[..., 0, :] - ox, pos[..., 2, :] - oz) + oy
+        else:
+            gy = torch.full_like(py, self.system.ground_y)
+        below = py <= gy
+        grounded = below & d.ctrl_mask
+        pos = torch.stack([pos[..., 0, :], torch.where(below, gy, py), pos[..., 2, :]], dim=AX)
+        ms = ms.replace(ctrl_pos=torch.where(d.ctrl_mask[None, :], pos, ms.ctrl_pos),
+                        ctrl_vel_y=torch.where(d.ctrl_mask, torch.where(grounded, 0.0, vy),
+                                               ms.ctrl_vel_y),
+                        ctrl_disp=torch.zeros_like(ms.ctrl_disp), ctrl_grounded=grounded)
+        local = state.local.replace(pos=state.local.pos.index_copy(
+            -1, d.ctrl_slots, ms.ctrl_pos.index_select(-1, d.ctrl_cols)))
+        return state.replace(local=local), ms
+
+    def update(self, state: WorldState, dt) -> WorldState:
+        """Step the character controllers, then write them and the dynamic
+        bodies' poses into their entities' local transforms (propagation
+        follows)."""
+        st = self.statics()
+        ms: PhysicsState = state.modules[self.name]
+        d = st.on(ms.pos.device, self.system)
+        if st.ctrl_mask.any():
+            dt = torch.as_tensor(dt, dtype=torch.float32, device=ms.pos.device)
+            state, ms = self._update_controllers(state, st, d, ms, dt)
+            state = state.replace(modules={**state.modules, self.name: ms})
         if d.dyn_cols.numel() == 0:
             return state
         local = state.local.replace(
@@ -792,12 +1436,50 @@ class PhysicsModule(IModule):
         )
         return state.replace(local=local)
 
+    # -- queries ------------------------------------------------------------------
+
+    def _query_setup(self, ms: PhysicsState, origin, layer_mask: int):
+        """(statics, device statics, origin tensor, pos, rot, actor mask):
+        rays [..., R, 3] beyond the state's batch axes see the state once."""
+        st = self.statics()
+        d = st.on(ms.pos.device, self.system)
+        o = torch.as_tensor(origin, dtype=torch.float32, device=ms.pos.device)
+        batch = ms.pos.shape[:-2]
+        extra = max(o.dim() - 1 - len(batch), 0)
+        pos = ms.pos.reshape(batch + (1,) * extra + ms.pos.shape[-2:])
+        rot = ms.rot.reshape(batch + (1,) * extra + ms.rot.shape[-2:])
+        if layer_mask == -1:
+            mask = d.occ
+        else:
+            if layer_mask not in d.layer_masks:
+                d.layer_masks[layer_mask] = d.occ & torch.as_tensor(
+                    ((1 << st.layer) & layer_mask) != 0, device=ms.pos.device)
+            mask = d.layer_masks[layer_mask]
+        return st, d, o, pos, rot, mask
+
     def raycast(self, ms: PhysicsState, origin, direction, layer_mask: int = -1):
-        raise NotImplementedError("PhysicsModule.raycast (physics_ops.raycast_all) is not ported")
+        """Rays against every actor: spheres and capsules as spheres exactly,
+        boxes by slab tests, hulls exactly by slab clipping over their face
+        axes. origin/direction [..., 3] or [..., R, 3] over the state's
+        batch; → (hit, t, body slot)."""
+        st, d, o, pos, rot, mask = self._query_setup(ms, origin, layer_mask)
+        dvec = torch.as_tensor(direction, dtype=torch.float32, device=o.device)
+        hit, t, idx = P.raycast_all(o, dvec, pos, rot, d.shape, d.radius, d.he, mask & ~d.is_convex)
+        if st.has_convex:
+            hc, tc, ic = CV.raycast_convex(o, dvec, pos, rot, d.poly_axes, d.poly_axis_lo,
+                                           d.poly_axis_hi, mask & d.is_convex)
+            pick_c = tc < t
+            hit, t = hit | hc, torch.minimum(t, tc)
+            idx = torch.where(pick_c, ic, idx)
+        return hit, t, idx
 
     def sweep(self, ms: PhysicsState, origin, direction, sweep_radius: float,
               layer_mask: int = -1):
-        raise NotImplementedError("PhysicsModule.sweep (physics_ops.sweep) is not ported")
+        """A sphere of `sweep_radius` swept along the rays against every
+        actor (shapes as in physics_ops.sweep); → (hit, t, body slot)."""
+        _st, d, o, pos, rot, mask = self._query_setup(ms, origin, layer_mask)
+        dvec = torch.as_tensor(direction, dtype=torch.float32, device=o.device)
+        return P.sweep(o, dvec, float(sweep_radius), pos, rot, d.shape, d.radius, d.he, mask)
 
 
 class PhysicsSystem(ISystem):

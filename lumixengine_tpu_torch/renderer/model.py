@@ -1,6 +1,8 @@
 """Model resources (counterpart of ``lumixengine_tpu/renderer/model.py``), as
-far as the cull pass and the animation need them: a bounding radius, up to 4
-LOD switch distances, a material id and an optional skeleton per model.
+far as the cull pass, the animation and physics need them: a bounding
+radius, up to 4 LOD switch distances, a material id, an optional skeleton
+and optional vertex positions (the point cloud an instanced_mesh cooks its
+hull from) per model.
 ``ModelRegistry.bake`` fills the host mirrors the view statics read and the
 bank's bone count."""
 from __future__ import annotations
@@ -64,6 +66,7 @@ class Model:
     bounding_radius: float = 1.0
     lod_distances: Optional[np.ndarray] = None  # f32 [4], inf = unused
     skeleton: Optional[Skeleton] = None
+    vertex_positions: Optional[np.ndarray] = None  # f32 [V,3]
     material_id: int = 0
 
     def __post_init__(self):

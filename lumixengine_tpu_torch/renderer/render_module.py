@@ -24,6 +24,7 @@ from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.renderer.culling_system import CullingState, CullingSystem
 from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
+from lumixengine_tpu_torch.renderer.terrain import TerrainRegistry
 from lumixengine_tpu_torch.utils.store import DenseStore
 
 _NOT_PORTED = ("terrain", "decal", "curve_decal", "procedural_geometry", "reflection_probe",
@@ -293,6 +294,9 @@ class RendererSystem(ISystem):
     def __init__(self, engine):
         super().__init__(engine)
         self.models = ModelRegistry()
+        # heightmaps, read by the physics heightfields (the render terrain
+        # component is not ported)
+        self.terrains = TerrainRegistry()
         self._baked = False
         # particle script sources: name -> (src, imports dict)
         self.particle_scripts: Dict[str, tuple] = {}

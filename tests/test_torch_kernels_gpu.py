@@ -466,3 +466,61 @@ def test_bone_attachments_on_the_card(cuda):
         torch.testing.assert_close(getattr(g, xf).pos[:, slot].cpu(), getattr(c, xf).pos[:, slot],
                                    rtol=0, atol=1e-5)
     assert float((g.local.pos[:, slot].cpu() - state.local.pos[:, slot].cpu()).abs().max()) > 0
+
+
+def _game_scene(kind, cuda, worlds, frames):
+    """Game-content world `kind` (models/physics_scenes.py) replicated to
+    `worlds` diverging worlds on the card, `frames` frames in with its host
+    inputs."""
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    sc = {"props": PS.props_world, "drive": PS.drive_world, "terrain": PS.terrain_world}[kind]()
+    step = sc.engine.build_step(sc.world, cuda)
+    s = replicate_state(PS.start_state(sc, cuda), worlds, torch.Generator(device=cuda).manual_seed(7))
+    for f in range(frames):
+        s = step(PS.scene_inputs(kind, sc, s, f), PS.DT)
+    return sc, s
+
+
+@pytest.mark.parametrize("kind,frames", [("props", 60), ("drive", 60), ("terrain", 70)])
+@pytest.mark.parametrize("worlds", [1, 1024])
+def test_k2_on_the_game_worlds(cuda, kind, frames, worlds):
+    """K2 against its plain version on the contact sets of the props, drive
+    and terrain worlds (hull pairs, hull ground, SDF and heightfield
+    streams, instanced statics, the vehicle's chassis), a world and 1024
+    diverging ones, after their bodies have landed."""
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    sc, s = _game_scene(kind, cuda, worlds, frames)
+    prob = sc.world.modules["physics"].solver_problem(s, PS.DT)
+    assert prob.act.shape[0] == worlds and int(prob.act.sum()) > 0
+    _check_k2(prob)
+
+
+def test_game_queries_on_the_card(cuda):
+    """The drive world's raycasts and sweeps (64 a world, layer-filtered)
+    and a raycast against every actor of the props world (hulls included),
+    on the card against the CPU from the same state: hit flags and bodies
+    equal, distances within 1e-4."""
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    sc, s = _game_scene("drive", cuda, 64, 40)
+    offs, dirs = (torch.as_tensor(a) for a in PS.drive_rays())
+    gpu = PS.drive_queries(sc, s, offs.to(cuda), dirs.to(cuda))
+    cpu = PS.drive_queries(sc, s.to("cpu"), offs, dirs)
+    props, ps = _game_scene("props", cuda, 8, 30)
+    pm = props.world.modules["physics"]
+    g = torch.Generator().manual_seed(9)
+    origin = torch.rand((8, 32, 3), generator=g) * torch.tensor([80.0, 4.0, 6.0]) - torch.tensor(
+        [4.0, -0.5, 3.0])
+    d = torch.nn.functional.normalize(torch.randn((8, 32, 3), generator=g), dim=-1)
+    gpu += (pm.raycast(ps.modules["physics"], origin.to(cuda), d.to(cuda)),)
+    cpu += (pm.raycast(ps.to("cpu").modules["physics"], origin, d),)
+    hits = 0
+    for (hg, tg, ig), (hc, tc, ic) in zip(gpu, cpu):
+        assert torch.equal(hg.cpu(), hc)
+        assert torch.equal(ig.cpu()[hc], ic[hc])
+        assert torch.allclose(tg.cpu()[hc], tc[hc], rtol=0, atol=1e-4)
+        hits += int(hc.sum())
+    assert hits > 0

@@ -113,7 +113,7 @@ def test_unported_arms_raise(kw):
 
 def test_unported_components_raise(worlds):
     _ref, (_pe, pw, _pr, _pp) = worlds
-    for ctype, props in (("physics_controller", dict(radius=0.4)),
+    for ctype, props in (("terrain", dict(terrain=0)),
                          ("property_animator", dict(curves=[])),
                          ("decal", dict(half_extents=(1.0, 1.0, 1.0)))):
         with pytest.raises(NotImplementedError):
