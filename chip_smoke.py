@@ -109,6 +109,23 @@ Phases, each printed on its own line:
      step's window certificate printed, that test's settle bounds hull by
      hull (at most BANDED_PROPS_UNSETTLED hulls outside them), and 3 steps
      card vs CPU on 4 of its stacks;
+  9. the full engine (each path with the launch counts set to 0 just
+     before it and read just after): the scripts config, bench.py --config
+     scripts, script_stress_world(64) at W=4096 (every mover's Lua update()
+     compiled to the device fast path, all 64 or the script fails; the rows
+     on the card; 60 frames with the cull pass, K1 held to plain on its
+     operands, 3 frames card vs CPU); the game world of
+     models/game_scenes.py through Runner.tick at W=1 for 520 frames (the
+     head-on agent streams, a compiled and a host script, nested GUI
+     anchors and a button whose click runs a script through a core signal,
+     a 3D sound in an echo zone, a spline) held to the JAX tests' gates
+     (closest agents above 0.5 m, everyone arrives, the ping-pong inside
+     +-0.55, the host script ran, one click fires the signal once); and the
+     same world's device modules with 2 x 512 crossing agents (the window
+     regime) at W=256, 60 frames timed, 3 frames card vs CPU; for the
+     scripts config and the width path, one frame's and one module's time
+     on CUDA events beside their kernels' device time (torch.profiler): the
+     frame's device-busy share;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -193,6 +210,10 @@ POSE_ATOL = 1e-5         # poses and palettes: rsqrt and compose chains differ b
 PARTICLE_ATOL = 1e-4     # particle channels, |values| <= ~60 (1 ulp at 32..64 is 3.8e-6)
 KILL_MARGIN = 1e-4       # kills this close to a threshold (pos.y = 0, t = 6) may flip
 STORM_G = 9.8
+SCRIPT_MOVERS, SCRIPT_WORLDS = 64, 4096   # bench.py --config scripts (bench.py:306-307,442)
+NAV_CROSSING, NAV_WORLDS = 512, 256        # phase 9c: two crossing streams of 512 agents
+SCRIPT_ATOL = 1e-5       # fast-path rows card vs CPU: the same float32 formulas, sin/cos ulps
+NAV_ATOL = 1e-4          # agents card vs CPU over 3 frames: sqrt/rsqrt ulps at |x| <= 60 m
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
@@ -418,6 +439,11 @@ def main() -> int:
     game = {kind: run_game(kind, dev, card) for kind in GAME_WORLDS}
     banded_props = run_banded_props(dev, card)
 
+    # 9. the full engine: the scripts config, the game world, navigation at width
+    scripts = run_scripts_config(dev, replicate_state, map_tensors)
+    game_world = run_game_world(dev)
+    nav_width = run_nav_width(dev, replicate_state, map_tensors)
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -467,6 +493,7 @@ def main() -> int:
             f"{cl['bound_ms_padded'] / cl['ms']:.6f}")
     k1_paths = {name: r["k1"] for name, r in runs.items()}
     k1_paths["attachments"] = attach["k1"]
+    k1_paths["scripts"] = scripts["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the full arcs: {gaps}")
@@ -477,9 +504,15 @@ def main() -> int:
         + f"; banded props {BANDED_PROPS_HULLS} hulls {banded_props['ms']:.3f} ms/step = "
         f"{BANDED_PROPS_HULLS / (banded_props['ms'] / 1e3):.4g} body-steps/s "
         f"({banded_props['ops']} ops/step)")
+    log(f"[8 time] {card}: scripts config {scripts['ms']:.3f} ms/frame at W={SCRIPT_WORLDS} = "
+        f"{scripts['rate']:.4g} entity-steps/s ({scripts['ops']} ops/frame); game world "
+        f"{game_world['ms_tick']:.3f} ms a Runner tick at W=1 (host clock); navigation width "
+        f"{nav_width['ms']:.3f} ms/frame at W={NAV_WORLDS} = {nav_width['rate']:.4g} agent-steps/s "
+        f"({nav_width['ops']} ops/frame)")
     k2_shapes.update({f"farm {name}": [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]]
                       for name, r in farms.items()})
     k2_shapes.update({kind: [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]] for kind, r in game.items()})
+    k2_shapes["scripts (empty)"] = [scripts["k2"][k] for k in ("W", "NB", "C")]
     main_launches = runs["flagship"]["launches"]
     kernels = [
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
@@ -491,6 +524,9 @@ def main() -> int:
          "launches_render": runs["render"]["launches"]["K1"],
          "launches_prepare_view": runs["render"]["view_launches"] + runs["demo"]["view_launches"],
          "launches_attachments": attach["launches"]["K1"],
+         "launches_scripts": scripts["launches"]["K1"],
+         "launches_game_world": game_world["launches"]["K1"],
+         "launches_nav_width": nav_width["launches"]["K1"],
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
          + banded_props["launches"]["K1"] + sum(r["launches"]["K1"] for r in (*farms.values(),
                                                                               *game.values())),
@@ -506,14 +542,17 @@ def main() -> int:
          "replaces": "lumixengine_tpu/ops/solver_pallas.py:165", "launches": main_launches["K2"],
          "launches_slice": runs["slice"]["launches"]["K2"],
          "launches_render": runs["render"]["launches"]["K2"],
+         "launches_scripts": scripts["launches"]["K2"],
+         "launches_game_world": game_world["launches"]["K2"],
+         "launches_nav_width": nav_width["launches"]["K2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
          "launches_game": {**{kind: r["launches"]["K2"] for kind, r in game.items()},
                            "banded_props": banded_props["launches"]["K2"]},
-         "max_abs_err": max(k2_err, goldens["k2_err"], *(r["k2"]["max_abs_err"]
-                                                          for r in (*farms.values(),
-                                                                    *game.values()))),
+         "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
+                            *(r["k2"]["max_abs_err"] for r in (*farms.values(),
+                                                               *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
          "ms": k2["settled"]["ms"], "plain_ms": k2["settled"]["plain_ms"],
          "bytes": k2["settled"]["bytes"], "bound_ms": k2["settled"]["bound_ms"],
@@ -530,6 +569,196 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _timed_frames(step, state, frames, warm):
+    """`frames` frames of `step` from `state`, the launch counts set to 0
+    just before and read just after; CUDA events around the frames after
+    `warm`. Returns (state, ms a frame, wall seconds, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _zero_launches()
+    t0 = time.perf_counter()
+    for f in range(frames):
+        if f == warm:
+            ev0.record()
+        state = step(state, DT)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, ev0.elapsed_time(ev1) / (frames - warm), wall, _launches()
+
+
+def device_busy(step, state, layers):
+    """One frame of `step` on `state` and each of `layers` (name -> fn(dt)):
+    ms on CUDA events beside the device time of their kernels
+    (torch.profiler, layer_time); the frame's busy share is the second over
+    the first. Printed; returns {name: (ms, device ms)}."""
+    import torch
+
+    dt = torch.tensor(DT, dtype=torch.float32, device=state.local.pos.device)
+    out = {"frame": layer_time(lambda: step(state, DT), 10)}
+    out.update({name: layer_time(lambda f=fn: f(dt)) for name, fn in layers.items()})
+    frame_ms, frame_dev = out["frame"]
+    share = f"{frame_dev / frame_ms:.4f}" if frame_dev else "not measured"
+    log("[9 device] " + "; ".join(f"{k} {ms:.4f} ms on events, {dv if dv is None else round(dv, 4)}"
+                                  f" ms of kernels" for k, (ms, dv) in out.items())
+        + f"; the frame's device-busy share {share}")
+    return out
+
+
+def run_scripts_config(dev, replicate_state, map_tensors):
+    """Phase 9a, bench.py --config scripts: script_stress_world(64) started,
+    every mover compiled to the device fast path (7 groups, one a speed),
+    build_step with the cull pass at SCRIPT_WORLDS worlds (72 entity slots a
+    world), WARM_FRAMES + FRAMES frames timed, K1 held bit for bit to its
+    plain version on the path's cull operands, 3 frames card vs CPU at W=4
+    (the fast path's rows within SCRIPT_ATOL)."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.models.demo_scenes import script_stress_world
+
+    engine, world, rm = script_stress_world(SCRIPT_MOVERS, device=dev)
+    engine.start_game(world)
+    sm = world.modules["script"]
+    sm.prepare_statics(dev)
+    n_fast = sum(len(g.entities) for g in sm._fast_groups)
+    log(f"[9 scripts] {n_fast} of {SCRIPT_MOVERS} movers compiled to the device fast path in "
+        f"{len(sm._fast_groups)} groups")
+    if n_fast != SCRIPT_MOVERS:
+        raise AssertionError(f"scripts config: {n_fast} of {SCRIPT_MOVERS} movers compiled")
+    step = engine.build_step(world, dev, extra=rm.cull_pass)
+    state = replicate_state(world.device_state(dev), SCRIPT_WORLDS,
+                            torch.Generator(device=dev).manual_seed(0))
+    rows = state.modules["script"]["fast"]
+    where = sorted({t.device.type for t in rows.values()})
+    log(f"[9 scripts] fast-path rows on {where}: {[tuple(t.shape) for t in rows.values()]}")
+    if where != [torch.device(dev).type]:      # "cuda" when run as the script runs
+        raise AssertionError(f"the fast path's rows are on {where}, not on {dev}")
+    start = state.local.pos.clone()
+    state, ms, wall, launches = _timed_frames(step, state, WARM_FRAMES + FRAMES, WARM_FRAMES)
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
+    slots = torch.as_tensor(world.to_slots(np.concatenate([g.entities for g in sm._fast_groups])),
+                            device=dev).long()
+    moved = (state.local.pos - start).index_select(-1, slots).norm(dim=-2)
+    visible = state.modules["renderer"].counters["visible_count"]
+    rate = SCRIPT_WORLDS * SCRIPT_MOVERS / (ms / 1e3)
+    log(f"[9 scripts] W={SCRIPT_WORLDS}: {WARM_FRAMES + FRAMES} frames in {wall:.2f} s, launches "
+        f"{launches}, finite {finite}, movers moved min/max {float(moved.min()):.3f}/"
+        f"{float(moved.max()):.3f} m, visible min/max {int(visible.min())}/{int(visible.max())}")
+    # the physics module runs its phases at zero bodies too: K2 once a
+    # frame on an empty contact set, as the full engine's step does everywhere
+    if launches != {"K1": WARM_FRAMES + FRAMES, "K2": WARM_FRAMES + FRAMES} or not finite:
+        raise AssertionError(f"scripts config: launches {launches}, finite {finite}")
+    if not float(moved.min()) > 0.0:
+        raise AssertionError("a scripted mover did not move")
+    k1 = k1_on_path("scripts", world, state)
+    pm = world.modules["physics"]
+    busy = device_busy(step, state, {"script.update": lambda d: sm.update(state, d),
+                                     "physics.update_parallel (no bodies)":
+                                     lambda d: pm.update_parallel(state, d)})
+    k2 = k2_on_state(pm, state, "the scripts config")
+    log(f"[9 scripts] K2 on the path's own (empty) contact set W={k2['W']} NB={k2['NB']} "
+        f"C={k2['C']} active {k2['active']}: max abs err vs plain {k2['max_abs_err']:.3e}, "
+        f"{k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f} ms)")
+    ops = op_counts(world, state, dev)
+    log(f"[9 scripts] {ms:.3f} ms/frame at W={SCRIPT_WORLDS} = {rate:.4g} entity-steps/s "
+        f"(bench.py's count: worlds x {SCRIPT_MOVERS} movers); torch ops in one frame "
+        f"{sum(ops.values())} = {ops}")
+    cmp = compare_with_plain(engine, world, map_tensors(lambda t: t[:4].clone(), state), step,
+                             extra=(("modules.script.", SCRIPT_ATOL),))
+    log(f"[9 scripts] 3 frames at W=4, card vs plain on the CPU: max abs err {cmp['errs']}, "
+        f"boundary flips {cmp['flips']}")
+    return {"ms": ms, "rate": rate, "ops": sum(ops.values()), "launches": launches, "k1": k1,
+            "k2": k2, "cmp": cmp["errs"], "busy": busy}
+
+
+def run_game_world(dev):
+    """Phase 9b: the game world (models/game_scenes.py, built by
+    create_full_engine) through Runner.tick at W=1 for the head-on streams'
+    520 frames, a button press at frame 100: the JAX tests' gates
+    (game_scenes.check_game)."""
+    from lumixengine_tpu_torch import app
+    from lumixengine_tpu_torch.models import game_scenes as G
+
+    engine, world, h = G.game_world(dev)
+    runner = app.Runner([], engine=engine)
+    runner.use_world(world)
+    _zero_launches()
+    t0 = time.perf_counter()
+    gaps, xs, clicks = G.run_game(runner, h)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    sm = world.modules["script"]
+    groups = [len(g.entities) for g in sm._fast_groups]
+    out = G.check_game(runner, h, gaps, xs, clicks)
+    log(f"[9 game] Runner.tick at W=1 on {runner.device}: {G.STREAM_FRAMES} frames in {wall:.2f} s"
+        f" ({wall / G.STREAM_FRAMES * 1e3:.3f} ms a tick on the host's clock, logging reads "
+        f"included), launches {launches}, compiled script groups {groups}; gates: {out}")
+    if launches != {"K1": G.STREAM_FRAMES, "K2": G.STREAM_FRAMES} or groups != [1]:
+        raise AssertionError(f"game world: launches {launches}, compiled groups {groups}")
+    return {"ms_tick": wall / G.STREAM_FRAMES * 1e3, "launches": launches, "gates": out}
+
+
+def run_nav_width(dev, replicate_state, map_tensors):
+    """Phase 9c: the game world's device modules with the agent store at
+    2 x NAV_CROSSING agents in two crossing streams (above the dense
+    threshold: the x-sorted window regime), each world's agents nudged by
+    N(0, 0.01^2) so that the worlds diverge, build_step with the cull pass
+    at NAV_WORLDS worlds, WARM_FRAMES + FRAMES frames timed, then 3 frames
+    card vs CPU at W=4 (navigation fields within NAV_ATOL, GUI and audio
+    fields within TRANSFORM_ATOL, the rest equal)."""
+    import torch
+
+    from lumixengine_tpu_torch.models import game_scenes as G
+
+    engine, world, h = G.game_world(dev, crossing=NAV_CROSSING)
+    nav = world.modules["navigation"]
+    engine.start_game(world)
+    step = engine.build_step(world, dev, extra=world.modules["renderer"].cull_pass)
+    t0 = time.perf_counter()
+    single = G.start_navigation(world.device_state(dev), world, h)
+    paths = time.perf_counter() - t0
+    state = replicate_state(single, NAV_WORLDS, torch.Generator(device=dev).manual_seed(0))
+    ns = state.modules["navigation"]
+    g = torch.Generator(device=dev).manual_seed(1)
+    nudge = torch.randn(ns.agent_pos.shape, generator=g, device=dev) * 0.01
+    nudge[:, 1] = 0.0
+    state = state.replace(modules={**state.modules, "navigation": ns.replace(
+        agent_pos=ns.agent_pos + nudge)})
+    gap0 = G.min_gap(state, world, h)
+    state, ms, wall, launches = _timed_frames(step, state, WARM_FRAMES + FRAMES, WARM_FRAMES)
+    ns = state.modules["navigation"]
+    finite = bool(torch.isfinite(ns.agent_pos).all())
+    navigating = ns.counters["navigating"]
+    gap = G.min_gap(state, world, h)
+    rate = NAV_WORLDS * 2 * NAV_CROSSING / (ms / 1e3)
+    ops = op_counts(world, state, dev)
+    pm = world.modules["physics"]
+    busy = device_busy(step, state, {"navigation.update": lambda d: nav.update(state, d),
+                                     "physics.update_parallel (no bodies)":
+                                     lambda d: pm.update_parallel(state, d)})
+    log(f"[9 width] {2 * NAV_CROSSING} agents (window {nav.separation_window}, dense up to "
+        f"{nav.separation_window_threshold}) at W={NAV_WORLDS}: paths {paths:.2f} s, "
+        f"{WARM_FRAMES + FRAMES} frames in {wall:.2f} s, launches {launches}, finite {finite}, "
+        f"navigating min {int(navigating.min())}, closest agents {gap0:.4f} -> {gap:.4f} m")
+    log(f"[9 width] {ms:.3f} ms/frame at W={NAV_WORLDS} = {rate:.4g} agent-steps/s; torch ops in "
+        f"one frame {sum(ops.values())} = {ops}")
+    if launches != {"K1": WARM_FRAMES + FRAMES, "K2": WARM_FRAMES + FRAMES} or not finite:
+        raise AssertionError(f"width path: launches {launches}, finite {finite}")
+    if int(navigating.min()) != 2 * NAV_CROSSING or not gap > G.MIN_GAP:
+        raise AssertionError(f"width path: navigating {int(navigating.min())}, closest {gap}")
+    cmp = compare_with_plain(engine, world, map_tensors(lambda t: t[:4].clone(), state), step,
+                             extra=(("modules.navigation.", NAV_ATOL),
+                                    ("modules.gui.", TRANSFORM_ATOL),
+                                    ("modules.audio.", TRANSFORM_ATOL),
+                                    ("modules.script.", SCRIPT_ATOL)))
+    log(f"[9 width] 3 frames at W=4, card vs plain on the CPU: max abs err {cmp['errs']}")
+    return {"ms": ms, "rate": rate, "ops": sum(ops.values()), "launches": launches,
+            "cmp": cmp["errs"], "busy": busy}
 
 
 def ptxas_report(log: str):
@@ -1763,11 +1992,13 @@ def _storm_kill_margin(channels, dt):
     return np.minimum(np.abs(y), np.abs(t - 6.0))
 
 
-def compare_with_plain(engine, world, state, step, views=False):
+def compare_with_plain(engine, world, state, step, views=False, extra=()):
     """3 frames from the same W=4 state: the card's step (kernels) against the
     CPU step (plain versions), at the CPU parity tests' tolerances; with
     `views`, each frame's prepare_view (both sort modes), shadow and cluster
-    passes too. Returns the errors, the flips and the card's end state."""
+    passes too; `extra` is (field name prefix, atol) pairs: those fields'
+    floats within atol, the rest of them equal. Returns the errors, the
+    flips and the card's end state."""
     import numpy as np
 
     from lumixengine_tpu_torch import bridge
@@ -1820,6 +2051,12 @@ def compare_with_plain(engine, world, state, step, views=False):
                   "modules.animation.counters.animated", "modules.renderer.prng"):
             if k in ref and not np.array_equal(got[k], ref[k]):
                 raise AssertionError(f"{k}: card and plain differ")
+        for prefix, atol in extra:
+            for k in (n for n in ref if n.startswith(prefix)):
+                if ref[k].dtype.kind == "f":
+                    close(k.replace("modules.", ""), got[k], ref[k], atol)
+                elif not np.array_equal(got[k], ref[k]):
+                    raise AssertionError(f"{k}: card and plain differ")
         kills.append(_compare_particles(prev, got, ref, close, diverged))
         margins = [m.numpy() for m in pipeline.cull_margins(cpu, rm)]
         frame_flips = 0

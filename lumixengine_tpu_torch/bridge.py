@@ -4,8 +4,13 @@ A WorldState is flattened to dotted names — ``alive``, ``local.pos``,
 ``modules.renderer.mi_visible``, ``modules.physics.pair_key``,
 ``modules.renderer.counters.visible_count``,
 ``modules.renderer.particles.pe2.storm.channels``, ``modules.animation.palette``,
-``frame``, ``time`` — the names the reference's fields have. Arrays may be
-single worlds or batches ``[W, ...]``.
+``modules.script.fast.0`` (a compiled script group's rows; ``fast0`` for
+groups without state), ``modules.navigation.agent_pos``,
+``modules.gui.resolved``, ``modules.audio.gain``, ``frame``, ``time`` — the
+names the reference's fields have. Arrays may be single worlds or batches
+``[W, ...]``. A module without device state (``core``, and ``script``
+without compiled groups) has no field. The spline bank, which the core
+module keeps beside the state, is carried by ``spline_bank_from_numpy``.
 
 Every field of the reference's state has its counterpart here, the
 character controllers' ``ctrl_*`` and the vehicles' ``veh_*`` included, so
@@ -22,8 +27,12 @@ import numpy as np
 import torch
 
 from lumixengine_tpu_torch.animation.module import AnimState
+from lumixengine_tpu_torch.audio.module import AudioState
 from lumixengine_tpu_torch.core.transform import Transform
+from lumixengine_tpu_torch.engine.core_module import SplineBank
 from lumixengine_tpu_torch.engine.world import WorldState
+from lumixengine_tpu_torch.gui.module import GuiState
+from lumixengine_tpu_torch.navigation.module import NavState
 from lumixengine_tpu_torch.physics.module import PhysicsState
 from lumixengine_tpu_torch.renderer.culling_system import CullingState
 from lumixengine_tpu_torch.renderer.particle_system import EmitterState
@@ -40,6 +49,8 @@ def is_skipped(name: str) -> bool:
 def _flatten(prefix: str, x, out: Dict[str, np.ndarray]) -> None:
     if isinstance(x, torch.Tensor):
         out[prefix] = x.detach().cpu().numpy()
+    elif x is None or x == ():
+        pass                        # a module without device state
     elif isinstance(x, dict):
         for k, v in x.items():
             _flatten(f"{prefix}.{k}", v, out)
@@ -104,6 +115,16 @@ def state_from_numpy(tree: Dict[str, np.ndarray], device) -> WorldState:
         modules["physics"] = PhysicsState(
             counters=counters(p, ("active_contacts", "sap_window_miss", "pruned_pair_miss")),
             **fields_of(PhysicsState, p, ("counters",)))
+    for name, cls, names in (("navigation", NavState, ("navigating",)),
+                             ("gui", GuiState, ("clicks",)),
+                             ("audio", AudioState, ("audible",))):
+        p = "modules." + name
+        if any(k.startswith(p + ".") for k in tree):
+            modules[name] = cls(counters=counters(p, names), **fields_of(cls, p, ("counters",)))
+    if any(k.startswith("modules.script.") for k in tree):
+        modules["script"] = {part: {k.split(".")[3]: get(k) for k in tree
+                                    if k.startswith(f"modules.script.{part}.")}
+                             for part in ("fast", "fast0")}
     state = WorldState(alive=get("alive"), parent=get("parent"), level=get("level"),
                        local=xf("local"), world=xf("world"), modules=modules,
                        frame=get("frame"), time=get("time"))
@@ -111,3 +132,9 @@ def state_from_numpy(tree: Dict[str, np.ndarray], device) -> WorldState:
     if unknown:
         raise KeyError(f"fields the port does not know: {unknown}")
     return state
+
+
+def spline_bank_from_numpy(tree: Dict[str, np.ndarray], device) -> SplineBank:
+    """A SplineBank on `device` from {points, count, seg_len, total_len}."""
+    return SplineBank(**{f.name: torch.tensor(np.asarray(tree[f.name]), device=device)
+                         for f in dataclasses.fields(SplineBank)})

@@ -40,23 +40,69 @@ class TimeSmoother:
 
 
 class Engine:
-    def __init__(self, time_multiplier: float = 1.0):
+    """Owns the systems and the host services (file system, input), creates
+    Worlds and composes the frame step."""
+
+    def __init__(self, time_multiplier: float = 1.0, base_path: str = "."):
+        from lumixengine_tpu_torch.engine.file_system import FileSystem
+        from lumixengine_tpu_torch.engine.input import InputSystem
+
         self.system_manager = SystemManager(self)
         self.time_multiplier = float(time_multiplier)
         self.module_capacities: dict = {}
+        self.paused = False
+        self._next_frame_paused = False
         self._smoother = TimeSmoother()
+        self.game_running = False
+        self.fs = FileSystem(base_path)
+        self.input = InputSystem()
 
     def add_system(self, system):
         return self.system_manager.add_system(system)
+
+    def init_systems(self) -> None:
+        for s in self.system_manager.systems:
+            s.init()
 
     def create_world(self, capacity: int = 4096) -> World:
         w = World(capacity=capacity)
         self.system_manager.create_all_modules(w)
         return w
 
+    def start_game(self, world: World) -> None:
+        self.game_running = True
+        for m in world.modules.values():
+            m.start_game()
+        for s in self.system_manager.systems:
+            s.start_game()
+
+    def stop_game(self, world: World) -> None:
+        self.game_running = False
+        for m in world.modules.values():
+            m.stop_game()
+        for s in self.system_manager.systems:
+            s.stop_game()
+
+    def pause(self, paused: bool) -> None:
+        self.paused = paused
+
+    def next_frame(self) -> None:
+        """Single-step while paused."""
+        self._next_frame_paused = True
+
     def update_host(self, dt_raw: float) -> float:
-        """Host side of the frame: the smoothed dt to feed the step."""
-        return self._smoother.push(dt_raw * self.time_multiplier)
+        """Host side of the frame: dt smoothing (0 while paused, unless one
+        frame was asked for), the systems' host updates, the input drain and
+        the file system's callbacks. Returns the dt to feed the step."""
+        if self.paused and not self._next_frame_paused:
+            dt = 0.0
+        else:
+            dt = self._smoother.push(dt_raw * self.time_multiplier)
+        self._next_frame_paused = False
+        self.system_manager.update(dt)
+        self.input.update()
+        self.fs.process_callbacks()
+        return dt
 
     def build_step(
         self,

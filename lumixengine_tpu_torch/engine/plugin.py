@@ -22,6 +22,9 @@ class IModule:
     def create_component(self, entity: int, ctype: str, **props) -> Any:
         raise NotImplementedError
 
+    def destroy_component(self, entity: int, ctype: str) -> None:
+        raise NotImplementedError
+
     def device_state(self, device) -> Any:
         """Module's slice of WorldState.modules on `device`."""
         return ()
@@ -29,6 +32,9 @@ class IModule:
     def prepare_statics(self, device) -> None:
         """Host hook called by Engine.build_step: build the module's static
         index tensors on `device` once, before the first frame."""
+
+    def load_state(self, module_state: Any) -> None:
+        """Optional: copy a device snapshot back into host stores."""
 
     def end_frame(self, state: WorldState, dt) -> WorldState:
         return state
@@ -42,6 +48,13 @@ class IModule:
     def late_update(self, state: WorldState, dt) -> WorldState:
         return state
 
+    # game lifecycle (host side)
+    def start_game(self) -> None:
+        pass
+
+    def stop_game(self) -> None:
+        pass
+
 
 class ISystem:
     name: str = "system"
@@ -49,8 +62,20 @@ class ISystem:
     def __init__(self, engine):
         self.engine = engine
 
+    def init(self) -> None:
+        """Called once by Engine.init_systems."""
+
     def create_modules(self, world: World) -> Optional[IModule]:
         return None
+
+    def update(self, dt: float) -> None:
+        """Host-side per-frame system update."""
+
+    def start_game(self) -> None:
+        pass
+
+    def stop_game(self) -> None:
+        pass
 
 
 class SystemManager:
@@ -75,3 +100,7 @@ class SystemManager:
                 world.modules[module.name] = module
                 for ctype in module.component_types():
                     world.register_component_type(ctype, module)
+
+    def update(self, dt: float) -> None:
+        for s in self.systems:
+            s.update(dt)

@@ -31,9 +31,12 @@ MAX_COMPONENT_TYPES = 64
 
 
 def map_tensors(fn, x: Any) -> Any:
-    """Apply `fn` to every tensor of a state (nested dataclasses and dicts)."""
+    """Apply `fn` to every tensor of a state (nested dataclasses and dicts;
+    None and the empty tuple, a module without device state, pass through)."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if x is None or x == ():
+        return x
     if isinstance(x, dict):
         return {k: map_tensors(fn, v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
@@ -70,7 +73,11 @@ class World:
         n = self.capacity
         self.alive = np.zeros(n, bool)
         self.parent = np.full(n, INVALID_ENTITY, np.int32)
+        self.generation = np.zeros(n, np.int32)
         self.archetype = np.zeros(n, np.uint64)
+        self.partition_of = np.zeros(n, np.int16)
+        self.partitions = ["main"]
+        self.active_partition = 0
         self.local_pos = np.zeros((n, 3), np.float32)
         self.local_rot = np.tile(hm.QUAT_IDENTITY, (n, 1))
         self.local_scale = np.ones((n, 3), np.float32)
@@ -101,6 +108,7 @@ class World:
         self.alive[e] = True
         self.parent[e] = INVALID_ENTITY
         self.archetype[e] = 0
+        self.partition_of[e] = self.active_partition
         self.local_pos[e] = np.asarray(position, np.float32)
         self.local_rot[e] = hm.quat_normalize(np.asarray(rotation, np.float32))
         self.local_scale[e] = np.asarray(scale, np.float32)
@@ -113,6 +121,25 @@ class World:
         else:
             self._level[e] = 0
         return e
+
+    def destroy_entity(self, e: int) -> None:
+        """Free `e`: its children become roots keeping their global
+        transform, its components are destroyed, its slot is recycled."""
+        if not self.alive[e]:
+            return
+        for c in np.nonzero(self.parent == e)[0]:
+            self.set_parent(int(c), INVALID_ENTITY)
+        for name, (bit, module) in list(self.component_types.items()):
+            if self.archetype[e] & np.uint64(1 << bit):
+                module.destroy_component(e, name)
+        self.alive[e] = False
+        self.parent[e] = INVALID_ENTITY
+        self.archetype[e] = 0
+        self.generation[e] += 1
+        self.names.pop(e, None)
+        self._free.append(e)
+        self._count -= 1
+        self._levels_dirty = True
 
     @property
     def entity_count(self) -> int:
@@ -216,6 +243,58 @@ class World:
                                          self.local_rot[c], self.local_scale[c])
         return pos, rot, scale
 
+    def set_global_transform(self, e: int, position=None, rotation=None, scale=None) -> None:
+        """Set the global transform; stores the equivalent local one."""
+        g_pos, g_rot, g_scale = self.get_global_transform(e)
+        if position is not None:
+            g_pos = np.asarray(position, np.float32)
+        if rotation is not None:
+            g_rot = hm.quat_normalize(np.asarray(rotation, np.float32))
+        if scale is not None:
+            g_scale = np.asarray(scale, np.float32)
+        p = int(self.parent[e])
+        if p == INVALID_ENTITY:
+            self.local_pos[e], self.local_rot[e], self.local_scale[e] = g_pos, g_rot, g_scale
+        else:
+            pp, pr, ps = self.get_global_transform(p)
+            self.local_pos[e], self.local_rot[e], self.local_scale[e] = hm.compute_local(
+                pp, pr, ps, g_pos, g_rot, g_scale)
+
+    def set_position(self, e: int, p) -> None:
+        self.set_global_transform(e, position=p)
+
+    # -- names / partitions -------------------------------------------------------
+
+    def set_entity_name(self, e: int, name: str) -> None:
+        self.names[e] = name
+
+    def get_entity_name(self, e: int) -> str:
+        return self.names.get(e, "")
+
+    def find_by_name(self, name: str) -> int:
+        for e, n in self.names.items():
+            if n == name and self.alive[e]:
+                return e
+        return INVALID_ENTITY
+
+    def create_partition(self, name: str) -> int:
+        """New entities are tagged with the active partition."""
+        self.partitions.append(name)
+        return len(self.partitions) - 1
+
+    def set_active_partition(self, p: int) -> None:
+        self.active_partition = int(p)
+
+    def destroy_partition(self, p: int) -> int:
+        """Destroy every entity tagged with partition `p`; returns how many."""
+        doomed = [e for e in range(self.capacity)
+                  if self.alive[e] and int(self.partition_of[e]) == int(p)]
+        for e in doomed:
+            self.destroy_entity(e)
+        if self.active_partition == int(p):
+            self.active_partition = 0
+        return len(doomed)
+
     # -- components ---------------------------------------------------------------
 
     def register_component_type(self, name: str, module) -> int:
@@ -234,6 +313,20 @@ class World:
         out = module.create_component(e, ctype, **props)
         self.archetype[e] |= np.uint64(1 << bit)
         return out
+
+    def destroy_component(self, e: int, ctype: str) -> None:
+        bit, module = self.component_types[ctype]
+        if not (self.archetype[e] & np.uint64(1 << bit)):
+            return
+        module.destroy_component(e, ctype)
+        self.archetype[e] &= ~np.uint64(1 << bit)
+
+    def has_component(self, e: int, ctype: str) -> bool:
+        bit, _ = self.component_types[ctype]
+        return bool(self.archetype[e] & np.uint64(1 << bit))
+
+    def get_module(self, name: str):
+        return self.modules[name]
 
     # -- device state ---------------------------------------------------------------
 
@@ -258,3 +351,35 @@ class World:
             frame=torch.zeros((), dtype=torch.int32, device=device),
             time=torch.zeros((), dtype=torch.float32, device=device),
         )
+
+    def load_state(self, state: WorldState, slot_of=None, skip=None) -> None:
+        """Copy a device snapshot's local transforms back to the host arrays,
+        then each module's part (``IModule.load_state``).
+
+        slot_of: the entity->slot permutation `state` was taken with (pass
+        the one captured at snapshot time when the topology has changed
+        since); defaults to the current one. skip: entity ids whose host
+        values are newer than the snapshot, left untouched. Of a world
+        batch, world 0 is read.
+        """
+        if slot_of is None:
+            self._refresh_levels()
+            slot_of = self._slot_of
+        inv = np.asarray(slot_of)
+
+        def host(t):
+            a = t.detach().cpu().numpy()
+            return a[0] if a.ndim == (3 if t.dtype.is_floating_point else 2) else a
+
+        pos = host(state.local.pos).T[inv]
+        rot = host(state.local.rot).T[inv]
+        scale = host(state.local.scale).T[inv]
+        keep = host(state.alive)[inv].copy()   # entities that existed in the snapshot
+        if skip:
+            keep[list(skip)] = False
+        self.local_pos[keep] = pos[keep]
+        self.local_rot[keep] = rot[keep]
+        self.local_scale[keep] = scale[keep]
+        for name, m in self.modules.items():
+            if name in state.modules:
+                m.load_state(state.modules[name])

@@ -7,9 +7,11 @@ the headless demo tick (~2k props in a hierarchy of depth <= 4, a camera and
 32 point lights). ``skinned_crowd_world`` and ``particle_stress_world`` are
 the crowd and the 1M-particle stress; ``box_drop_pile`` is the 10k-box drop
 on the slot pipeline (the scene the reference's ``bench.py --config boxes``
-builds). Each makes the same numpy RNG draws in the same order as the
-reference, and keeps its capacities, so one seed gives one scene and one
-state layout in both packages. ``script_stress_world`` is not ported.
+builds). ``script_stress_world`` is the scripts config: every entity runs a
+Lua update() compiled to the device fast path, built through
+``app.create_full_engine``. Each makes the same numpy RNG draws in the same
+order as the reference, and keeps its capacities, so one seed gives one
+scene and one state layout in both packages.
 """
 from __future__ import annotations
 
@@ -338,3 +340,46 @@ def headless_demo_world(num_entities: int = 2048, seed: int = 0, engine: Engine 
             world.create_component(e, "model_instance", model=model_names[int(rng.integers(3))])
         props.append(e)
     return engine, world, renderer
+
+
+SCRIPT_MOVER_LUA = """
+local pos = {}
+local t = 0
+local speed = %(speed)f
+
+function start()
+    pos = this.position
+end
+
+function update(time_delta)
+    t = t + time_delta * speed
+    this.position = {
+        pos[1] + math.cos(t) * 3,
+        pos[2] + math.abs(math.sin(t * 0.7)),
+        pos[3] + math.sin(t) * 3
+    }
+end
+"""
+
+
+def script_stress_world(num_scripts: int = 64, device="cuda"):
+    """The scripts config (bench.py --config scripts): every entity runs a
+    real Lua update() (the demo's move.lua kinematics pattern), compiled to
+    the device fast path (script/lua_fastpath.py) once the game starts.
+    Seven speeds (i % 7) make seven groups. Returns (engine, world, renderer)."""
+    from lumixengine_tpu_torch import app as app_mod
+
+    engine = app_mod.create_full_engine(device=device, model_instances=num_scripts + 2)
+    rsys = engine.system_manager.get_system("renderer_system")
+    mid = rsys.add_model(Model(name="mover_ball", bounding_radius=0.5))
+    world = engine.create_world(capacity=num_scripts + 8)
+    cam = world.create_entity(position=(0.0, 10.0, 60.0), name="camera")
+    world.create_component(cam, "camera")
+    sm = world.modules["script"]
+    rng = np.random.default_rng(3)
+    for i in range(num_scripts):
+        e = world.create_entity(position=tuple(rng.uniform(-30, 30, 3).astype(float)),
+                                name=f"mover{i}")
+        world.create_component(e, "model_instance", model=mid)
+        sm.attach_lua_script(e, source=SCRIPT_MOVER_LUA % {"speed": 0.5 + 0.1 * (i % 7)})
+    return engine, world, world.modules["renderer"]

@@ -59,11 +59,24 @@ class DenseStore:
         self._slot_of[entity] = slot
         return slot
 
+    def remove(self, entity: int) -> None:
+        slot = self._slot_of.pop(entity, None)
+        if slot is None:
+            return
+        self.entity[slot] = -1
+        for name, arr in self.data.items():
+            d = self._defaults[name]
+            arr[slot] = d if d is not None else 0
+        self._free.append(slot)
+
     def slot_of(self, entity: int) -> int:
         return self._slot_of.get(entity, -1)
 
     def get(self, entity: int, field: str):
         return self.data[field][self._slot_of[entity]]
+
+    def set(self, entity: int, field: str, value) -> None:
+        self.data[field][self._slot_of[entity]] = value
 
     def device(self, device, world=None) -> Dict[str, torch.Tensor]:
         """Snapshot to tensors on `device`. When `world` is given, the entity

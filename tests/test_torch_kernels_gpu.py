@@ -524,3 +524,71 @@ def test_game_queries_on_the_card(cuda):
         assert torch.allclose(tg.cpu()[hc], tc[hc], rtol=0, atol=1e-4)
         hits += int(hc.sum())
     assert hits > 0
+
+
+# -- the full engine's paths (scripts config, game world) ---------------------------------------
+
+def _scripts_config(device, worlds):
+    """bench.py --config scripts: script_stress_world(64) started, its step
+    with the cull pass, replicated to `worlds` worlds."""
+    from lumixengine_tpu_torch.models.demo_scenes import script_stress_world
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, rm = script_stress_world(64, device=device)
+    engine.start_game(world)
+    world.modules["script"].prepare_statics()
+    step = engine.build_step(world, device, extra=rm.cull_pass)
+    state = replicate_state(world.device_state(device), worlds)
+    return world, step, state
+
+
+def test_k1_on_the_scripts_config_cull_operands(cuda):
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.renderer import pipeline
+
+    world, step, state = _scripts_config(cuda, 4096)
+    sm = world.modules["script"]
+    assert sum(len(g.entities) for g in sm._fast_groups) == 64
+    before = cull.frustum_cull_cuda.launches
+    for _ in range(3):
+        state = step(state, 1 / 60)
+    assert cull.frustum_cull_cuda.launches == before + 3
+    rm = world.modules["renderer"]
+    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"], rm.statics())
+    planes = frustum.planes.contiguous()
+    got = cull.frustum_cull_cuda(centers.contiguous(), radii.contiguous(), planes)
+    assert torch.equal(got, cull.frustum_cull_plain(centers, radii, planes))
+    assert 0 < int(got.sum()) < got.numel()
+
+
+def test_scripts_fast_path_card_matches_cpu_at_w4096(cuda):
+    from lumixengine_tpu_torch.engine.world import map_tensors
+
+    world, step, state = _scripts_config(cuda, 4096)
+    _w, cpu_step, _s = _scripts_config("cpu", 1)
+    cpu = map_tensors(lambda t: t.cpu(), state)
+    for _ in range(5):
+        state, cpu = step(state, 1 / 60), cpu_step(cpu, 1 / 60)
+    ss, cs = state.modules["script"], cpu.modules["script"]
+    assert all(r.is_cuda for r in ss["fast"].values())
+    for k in ss["fast"]:
+        torch.testing.assert_close(ss["fast"][k].cpu(), cs["fast"][k], atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(state.local.pos.cpu(), cpu.local.pos, atol=1e-5, rtol=1e-6)
+
+
+def test_windowed_separation_card_matches_cpu(cuda):
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models import game_scenes as G
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, h = G.game_world(cuda, crossing=512)
+    engine.start_game(world)
+    step = engine.build_step(world, cuda)
+    cpu_step = engine.build_step(world, "cpu")
+    state = replicate_state(G.start_navigation(world.device_state(cuda), world, h), 4,
+                            torch.Generator(device=cuda).manual_seed(0))
+    cpu = map_tensors(lambda t: t.cpu(), state)
+    for _ in range(3):
+        state, cpu = step(state, 1 / 60), cpu_step(cpu, 1 / 60)
+    torch.testing.assert_close(state.modules["navigation"].agent_pos.cpu(),
+                               cpu.modules["navigation"].agent_pos, atol=1e-4, rtol=0)
