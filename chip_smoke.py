@@ -86,8 +86,9 @@ Phases, each printed on its own line:
      (ms/step, the window certificate summed on the card: 0, finite, the
      lowest box centre), then a 1,000-box block 90 steps in, 3 steps on the
      card against the CPU; and ballistic and d6_slider on the card and on
-     the CPU side by side for their full arcs: each physics field's largest
-     gap, the first step past GAP_LIMIT, and the first torch op whose
+     the CPU side by side for the first GAP_STEPS steps of their arcs: each
+     physics field's largest gap, the first step past GAP_LIMIT, and the
+     first torch op whose
      outputs differ (first_divergent_op); then the game content of
      models/physics_scenes.py: the props farm (hulls on boxes and hulls,
      SDF mesh colliders, CCD spheres at a thin slab and head-on, instanced
@@ -126,6 +127,26 @@ Phases, each printed on its own line:
      scripts config and the width path, one frame's and one module's time
      on CUDA events beside their kernels' device time (torch.profiler): the
      frame's device-busy share;
+  10. the simulation tier (each path with the launch counts set to 0 just
+     before it and read just after; tools/sim_tier.py runs it alone): the
+     sap pile, physics_scenes.mixed_pile(2048) under broadphase="sap" at
+     W=16 for 120 steps (ms/step, body-steps/s, ops/step, sap_window_miss
+     summed: 0, the JAX test's settle gates on every world, the step's
+     device-busy share, 3 frames card vs CPU at W=4); make_big_world_step and make_banded_world_step (4
+     sweeps, warm start) on the elongated 4,096-box pile of
+     tests/test_parity.py::test_box_drop_statistics at its settings for
+     320 steps (its gates, certificates summed: 0, exact_window_miss of
+     the banded end state: 0, 3 steps card vs CPU at W=2 on a 512-box
+     pile), make_banded_world_step on box_drop_pile(10_000) at window 40
+     for 120 steps (certificate and exact_window_miss: 0); the banded farm,
+     mixed_pile(512) under `auto` at W=1 and W=64 for 60 steps (ops/step
+     equal within 2% across the widths, certificate 0, the blow-up gates,
+     3 frames card vs CPU); the layered crowd, demo_scenes.layered_crowd_world(128) at
+     W=1024 for 30 frames with the cull pass (K1 once a frame and bit for
+     bit to plain on its operands, every reachable IK effector within 0.05
+     m of its target, every animated light and platform row np.interp of
+     its curve within 1e-6, 3 frames card vs CPU). None of these paths
+     launches K2 (the large-world branches bypass it, as in the reference);
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -150,7 +171,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES = 10240, 64, 64, 2048
-# the main paths' depth: 50 frames (100 before the game content joined the script)
+# the main paths' depth: 50 frames (100 before the game content joined the script); the
+# flagship's bodies land after about 40
 WORLDS, FRAMES, WARM_FRAMES, SETTLE_FRAMES = 1024, 50, 10, 240
 SLICE_WORLDS = 256       # the slice path (no characters, a 1-slot emitter), at a smaller depth
 CROWD_CHARACTERS, CROWD_WORLDS = 256, 1024
@@ -172,7 +194,7 @@ BOX_REFERENCE_END = {"ke_end": 0.0, "sleeping_end": 9887}
 # the PhysicsModule beyond the flagship: the goldens at W=1, two of them as a world farm,
 # and a block of boxes on the banded branch (bench.py's grid, 10240 actor slots)
 FARM_GOLDENS, FARM_WORLDS, FARM_FRAMES = ("hinge_pendulum", "capsule_stack"), 4096, 100
-BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 120   # 300 before the game content
+BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 60   # 120 before, 300 before that
 # the sweep window (sap_neighbors) of the banded block: over 300 steps of the 10k block the
 # card's window certificate summed 1,602,273 at the module's default 16, 4,318 at 32 and 0 at
 # 40 and 48 (tools/banded_window.py; at 1,000 boxes the JAX package on the CPU summed 8,206 at
@@ -180,6 +202,14 @@ BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 120   # 300 before
 BANDED_WINDOW = 40
 BANDED_COMPARE_BOXES, BANDED_COMPARE_CAPACITY, BANDED_COMPARE_AT = 1000, 1024, 90
 SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds below it
+# phase 10, the simulation tier: the sap pile's worlds and steps; the stand-alone steps on
+# the elongated pile and on the 10k boxes; the banded farm's widths and steps; the layered
+# crowd
+SAP_WORLDS, SAP_STEPS = 16, 120
+PILE_BOXES, BANDED10K_BOXES, BANDED10K_STEPS = 4096, 10_000, 120
+PILE_COMPARE_BOXES, PILE_COMPARE_AT = 512, 40   # the stand-alone steps' card-vs-CPU pile
+FARM_WIDTHS, BANDED_FARM_STEPS = (1, 64), 60
+LAYERED_CHARACTERS, LAYERED_WORLDS, LAYERED_FRAMES = 128, 1024, 30
 # the game-content farms (models/physics_scenes.py) and the banded props level
 GAME_WORLDS = {"props": 4096, "drive": 4096, "terrain": 1024}
 # the banded props level: its hulls, and how many may end unsettled (physics_scenes.
@@ -197,7 +227,9 @@ LAYER_REPS = 20
 # bench.py's CLI default would build 10,240) at bench.py's default world count
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
 LIGHT_DIR = (0.3, -1.0, 0.2)   # bench.py --config render's shadow light
-GAP_GOLDENS, GAP_LIMIT = ("ballistic", "d6_slider"), 1e-5   # the card-vs-CPU golden gap
+# the card-vs-CPU golden gap, over the first GAP_STEPS steps of each arc (the full arcs before
+# the simulation tier joined the script; the gaps pass GAP_LIMIT by step 132)
+GAP_GOLDENS, GAP_LIMIT, GAP_STEPS = ("ballistic", "d6_slider"), 1e-5, 300
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 DT = 1.0 / 60.0
 ITERATIONS, POSITION_ITERATIONS = 10, 3
@@ -333,6 +365,11 @@ def main() -> int:
     from lumixengine_tpu_torch.renderer import pipeline
 
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s of the host's clock")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -407,6 +444,7 @@ def main() -> int:
     if not min(faults.values()) > S.K2_PLAIN_ATOL:
         raise AssertionError(f"the K2 limit {S.K2_PLAIN_ATOL} does not catch a planted fault: {faults}")
     del settle, piled, wide, problems["piled NB=256"]
+    mark("phases 1-4")
 
     # 5. the main paths
     stream = check_threefry(dev)
@@ -427,22 +465,34 @@ def main() -> int:
     runs["render"] = run_path("render", flag, W, dev, replicate_state, map_tensors, views=True,
                               passes=True)
     attach = run_attachments(dev, replicate_state)
+    mark("phase 5")
 
     # 6. the 10k-box drop
     boxes = run_boxes(dev)
+    mark("phase 6")
 
     # 7. the PhysicsModule: the goldens, the farm, the banded branch
     goldens = run_goldens(dev)
     gaps = {name: golden_gap(name, dev) for name in GAP_GOLDENS}
+    mark("phase 7 goldens and gaps")
     farms = {name: run_farm(name, dev, replicate_state) for name in FARM_GOLDENS}
     banded = run_banded(dev)
+    mark("phase 7 farms and the banded block")
     game = {kind: run_game(kind, dev, card) for kind in GAME_WORLDS}
+    mark("phase 7 game farms")
     banded_props = run_banded_props(dev, card)
+    mark("phase 7 banded props")
 
     # 9. the full engine: the scripts config, the game world, navigation at width
     scripts = run_scripts_config(dev, replicate_state, map_tensors)
     game_world = run_game_world(dev)
     nav_width = run_nav_width(dev, replicate_state, map_tensors)
+    mark("phase 9")
+
+    # 10. the simulation tier: sap, the stand-alone steps, the batched banded farm, the
+    # layered crowd
+    sim = run_sim_tier(dev, card, replicate_state, map_tensors)
+    mark("phase 10")
 
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
@@ -494,9 +544,10 @@ def main() -> int:
     k1_paths = {name: r["k1"] for name, r in runs.items()}
     k1_paths["attachments"] = attach["k1"]
     k1_paths["scripts"] = scripts["k1"]
+    k1_paths["layered"] = sim["layered"]["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
-    log(f"[8 goldens] card vs CPU over the full arcs: {gaps}")
+    log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
     log(f"[8 time] {card}: " + "; ".join(
         f"{kind} {r['ms']:.3f} ms/frame at W={r['worlds']} = {r['rate']:.4g} body-steps/s "
         f"({r['ops']} ops/frame), K2 {r['k2']['ms']:.4f} ms (plain {r['k2']['plain_ms']:.4f}, "
@@ -513,6 +564,20 @@ def main() -> int:
                       for name, r in farms.items()})
     k2_shapes.update({kind: [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]] for kind, r in game.items()})
     k2_shapes["scripts (empty)"] = [scripts["k2"][k] for k in ("W", "NB", "C")]
+    piles = sim["piles"]
+    log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
+        f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
+        + "; ".join(f"{name} {r['ms']:.3f} ms/step = {r['rate']:.4g} body-steps/s ({r['ops']} "
+                    f"ops/step)" for name, r in (("big-world step, 4096 boxes", piles["dynamic"]),
+                                                 ("banded step, 4096 boxes", piles["banded"]),
+                                                 ("banded step, 10k boxes", piles["banded_10k"])))
+        + "; " + "; ".join(f"banded farm W={w} {r['ms']:.3f} ms/step = {r['rate']:.4g} "
+                           f"body-steps/s ({r['ops']} ops/step)" for w, r in sim["farm"].items())
+        + f"; layered crowd {sim['layered']['ms']:.3f} ms/frame at W={LAYERED_WORLDS} = "
+        f"{sim['layered']['rate']:.4g} entity-steps/s ({sim['layered']['ops']} ops/frame)")
+    sim_launches = {"sap": sim["sap"]["launches"], "layered": sim["layered"]["launches"],
+                    **{f"pile {k}": r["launches"] for k, r in piles.items()},
+                    **{f"farm W={w}": r["launches"] for w, r in sim["farm"].items()}}
     main_launches = runs["flagship"]["launches"]
     kernels = [
         {"name": "K1 frustum_cull", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/cull.cu",
@@ -527,6 +592,9 @@ def main() -> int:
          "launches_scripts": scripts["launches"]["K1"],
          "launches_game_world": game_world["launches"]["K1"],
          "launches_nav_width": nav_width["launches"]["K1"],
+         "launches_layered": sim["layered"]["launches"]["K1"],
+         "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
+                                       if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
          + banded_props["launches"]["K1"] + sum(r["launches"]["K1"] for r in (*farms.values(),
                                                                               *game.values())),
@@ -545,6 +613,7 @@ def main() -> int:
          "launches_scripts": scripts["launches"]["K2"],
          "launches_game_world": game_world["launches"]["K2"],
          "launches_nav_width": nav_width["launches"]["K2"],
+         "launches_sim_tier": {k: v["K2"] for k, v in sim_launches.items()},
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -1190,9 +1259,10 @@ def run_goldens(dev):
     card for their full step counts, each held to the bounds of the JAX
     package's tests/test_golden_trajectories.py, capsule_stack as the
     ensemble of physics_scenes.golden_ensemble (its outcome is decided by
-    rounding, in the JAX package too). K2 launches once a step in every
-    world that has a contact stream. Then K2 against its plain version on
-    each such world's contact set at its last step."""
+    rounding, in the JAX package too; its world 0 starts as the golden). K2
+    launches once a step in every world that has a contact stream. Then K2
+    against its plain version on each such world's contact set at its last
+    step (the ensemble's for capsule_stack)."""
     import numpy as np
     import torch
 
@@ -1204,6 +1274,8 @@ def run_goldens(dev):
     _zero_launches()
     finals = []
     for name in PS.GOLDEN_NAMES:
+        if name == "capsule_stack":
+            continue          # the ensemble below, world 0 as the golden starts
         g = _golden(name)
         engine, world, state, slots = PS.golden_world(g, dev)
         pm = world.modules["physics"]
@@ -1226,10 +1298,6 @@ def run_goldens(dev):
         ms = state.modules["physics"]
         if name == "tumbling":
             got = PS.check_tumbling(g, ms.rot.cpu().numpy(), slots[0])
-        elif name == "capsule_stack":
-            pos = ms.pos.cpu().numpy()
-            holds = PS.golden_passes(name, g, pos[None], ms.vel.cpu().numpy()[None], slots)
-            got = {"holds": bool(holds[0]), "top": pos[:, slots[2]].round(4).tolist()}
         else:
             got = PS.check_golden(name, g, traj.cpu().numpy(), ms.pos.cpu().numpy(),
                                   ms.vel.cpu().numpy(), slots)
@@ -1242,11 +1310,16 @@ def run_goldens(dev):
                 raise AssertionError(f"K2 on golden {name}: {err} vs plain")
             k2_err = max(k2_err, err)
         shown = {k: (float(f"{v:.4g}") if isinstance(v, float) else v) for k, v in got.items()}
-        how = ("held to the bounds as an ensemble below" if name == "capsule_stack" else
-               "within the bounds of tests/test_golden_trajectories.py")
-        log(f"[7 golden] {name}: {int(g['steps'])} steps at W=1, NB={ms.pos.shape[-1]}, {how}: "
-            f"{shown}; K2 vs plain "
+        log(f"[7 golden] {name}: {int(g['steps'])} steps at W=1, NB={ms.pos.shape[-1]}, within "
+            f"the bounds of tests/test_golden_trajectories.py: {shown}; K2 vs plain "
             f"{'no contact stream' if err is None else f'{err:.3e}'}")
+    ens_pm = world.modules["physics"]
+    prob = ens_pm.solver_problem(ens, DT)
+    cap_err = max_err(S.solve_cuda(prob, ITERATIONS, POSITION_ITERATIONS),
+                      S.solve_plain(prob, ITERATIONS, POSITION_ITERATIONS))
+    if not cap_err <= S.K2_PLAIN_ATOL:
+        raise AssertionError(f"K2 on the capsule_stack ensemble: {cap_err} vs plain")
+    k2_err = max(k2_err, cap_err)
     ms = ens.modules["physics"]
     pos = ms.pos.cpu().numpy()
     holds = PS.golden_passes("capsule_stack", cap, pos, ms.vel.cpu().numpy(), cap_slots)
@@ -1258,7 +1331,8 @@ def run_goldens(dev):
         f"{PS.CAPSULE_EPS:g}^2) m/s on the top capsule's start velocity (world 0 none): "
         f"{int(holds.sum())} within the bounds (world 0 {bool(holds[0])}; the JAX package "
         f"{PS.CAPSULE_REFERENCE_PASSES} on the CPU, at least {need} required), worlds with a "
-        f"static moved {moved}, finite {finite}")
+        f"static moved {moved}, finite {finite}; K2 vs plain on its end contact set "
+        f"{cap_err:.3e}")
     log(f"[7 golden] nine goldens and the ensemble in {wall:.2f} s, launches {launches} "
         f"(K2 expected {expected})")
     if launches != {"K1": 0, "K2": expected}:
@@ -1271,7 +1345,8 @@ def run_goldens(dev):
 
 def golden_gap(name, dev):
     """Golden `name` at W=1 stepped on the card and on the CPU side by side
-    for its full arc: each physics field's largest gap, the first step where
+    for the first GAP_STEPS steps of its arc: each physics field's largest
+    gap, the first step where
     it passes GAP_LIMIT and the first step where the two differ at all; then
     that step again from the CPU's state before it on both devices, op by op
     (first_divergent_op), and K2 against the plain solve on its contact set
@@ -1293,7 +1368,8 @@ def golden_gap(name, dev):
         return torch.cat([getattr(ph, f).reshape(-1) for f in fields])
 
     cpu_states, grows, crows = [cpu], [], []
-    for _ in range(int(g["steps"])):
+    steps = min(int(g["steps"]), GAP_STEPS)
+    for _ in range(steps):
         gpu, cpu = gstep(gpu, DT), cstep(cpu, DT)
         grows.append(rows(gpu))
         crows.append(rows(cpu))
@@ -1306,7 +1382,7 @@ def golden_gap(name, dev):
         hit = torch.nonzero(mask).flatten()
         return int(hit[0]) + 1 if len(hit) else None
 
-    out = {"steps": int(g["steps"]),
+    out = {"steps": steps,
            "max_gap": {f: float(f"{float(gap[:, i].max()):.4g}") for i, f in enumerate(fields)},
            f"first_step_over_{GAP_LIMIT:g}": {f: first(gap[:, i] > GAP_LIMIT)
                                                for i, f in enumerate(fields)},
@@ -1654,13 +1730,22 @@ def compare_game(kind, sc, state, step):
     devices' drift flipped a decision), or the card's and the CPU's contact
     sets differ only at ties or by rounding within CONTACT_TIE_ATOL (a hull
     rocking on coplanar contacts amplifies it) and the card's frame holds on
-    the CPU's set. After a flip both go on from the CPU's state. Returns
+    the CPU's set. After a flip both go on from the CPU's state. On the
+    banded branch the CPU's decisions are its polytope SAT grids. Returns
     (max abs errors, [(frame, cause and what broke, margin)])."""
     from lumixengine_tpu_torch import bridge
     from lumixengine_tpu_torch.engine.world import map_tensors
     from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import physics_banded as PBD
 
     pm = sc.world.modules["physics"]
+    banded = pm.statics().banded
+    own_sat = PBD.banded_polytope_grids
+
+    def cpu_sat(*args):
+        """The banded polytope SAT on the CPU, its grids on the card."""
+        return tuple(x.to(dev) for x in own_sat(*(a.cpu() for a in args[:5]), *args[5:]))
+
     gpu = map_tensors(lambda t: t[:4].clone(), state)
     dev = gpu.local.pos.device
     cpu, cpu_step = gpu.to("cpu"), sc.engine.build_step(sc.world, "cpu")
@@ -1680,7 +1765,8 @@ def compare_game(kind, sc, state, step):
             drift = max(gap(bridge.state_to_numpy(gpu), bridge.state_to_numpy(cpu))[0].values())
             cause, margin, out = PS.explain_break(
                 step, cpu.to(dev), ref, gap, drift, pm,
-                lambda c=cpu: pm._contact_stage(c, DT).contacts)
+                None if banded else (lambda c=cpu: pm._contact_stage(c, DT).contacts),
+                cpu_sat if banded else None)
             flips.append((frame0 + f + 1, f"{cause} ({broke})", float(f"{margin:.3g}")))
         if woke.any():
             flips.append((frame0 + f + 1, "sleep counters", int(woke.sum())))
@@ -1901,6 +1987,359 @@ def run_banded_props(dev, card):
         f"decisions flipped (step, cause and what broke, margin): {flips}")
     return {"ms": ms, "ops": n_ops, "launches": launches, "miss": sum(misses), "checks": checks,
             "layers": layers}
+
+
+# -- 10. the simulation tier: broadphase="sap", the stand-alone steps, the batched banded
+# branch, the layered crowd --
+
+
+def _pile_gpu_vs_cpu(step, state, carry, dev):
+    """3 steps of a stand-alone world step on the card and on the CPU from
+    `state` (pos, rot, vel, angvel on the card) tiled to 2 worlds, the
+    second's positions moved by 0.1 mm: within BODY_POS_ATOL / BODY_VEL_ATOL
+    with equal counters; a step that breaks them must hold them on the card
+    from the CPU's state (the runs' drift flipped a decision). Returns
+    (max abs errors, steps so held)."""
+    import torch
+
+    def tile(x, noise=False):
+        x2 = torch.stack([x, x])
+        if noise:
+            x2[1] = x2[1] + 1e-4 * torch.randn(x.shape, generator=torch.Generator(
+                device=x.device).manual_seed(5), device=x.device)
+        return x2
+
+    gpu = [tile(x, i == 0) for i, x in enumerate(state)]
+    gc = None if carry is None else tuple(tile(x) for x in carry)
+    cpu = [x.cpu() for x in gpu]
+    cc = None if gc is None else tuple(x.cpu() for x in gc)
+    errs, held = {"pos": 0.0, "vel": 0.0}, []
+
+    def one(st, c):
+        dt = torch.tensor(DT, dtype=torch.float32, device=st[0].device)
+        out = step(*st, dt) if c is None else step(*st, dt, c)
+        return list(out[:4]), out[4], (None if c is None else out[5])
+
+    def gap(a, b, ca, cb):
+        e = {"pos": max(float((x.cpu() - y).abs().max()) for x, y in zip(a[:2], b[:2])),
+             "vel": max(float((x.cpu() - y).abs().max()) for x, y in zip(a[2:], b[2:]))}
+        same = all(torch.equal(ca[k].cpu(), cb[k]) for k in ca)
+        return e, same and e["pos"] <= BODY_POS_ATOL and e["vel"] <= BODY_VEL_ATOL
+
+    for i in range(3):
+        (g2, gcnt, gc2), (c2, ccnt, cc2) = one(gpu, gc), one(cpu, cc)
+        e, ok = gap(g2, c2, gcnt, ccnt)
+        if not ok:
+            g3, g3cnt, _ = one([x.to(dev) for x in cpu],
+                               None if cc is None else tuple(x.to(dev) for x in cc))
+            e, ok = gap(g3, c2, g3cnt, ccnt)
+            if not ok:
+                raise AssertionError(f"stand-alone step, card vs CPU from the CPU's state: {e}")
+            held.append(i + 1)
+            g2 = [x.to(dev) for x in c2]
+            gc2 = None if cc2 is None else tuple(x.to(dev) for x in cc2)
+        errs = {k: max(errs[k], v) for k, v in e.items()}
+        gpu, gc, cpu, cc = g2, gc2, c2, cc2
+    return {k: float(f"{v:.3g}") for k, v in errs.items()}, held
+
+
+def run_sap_pile(dev, card):
+    """broadphase="sap" on the sap pile (physics_scenes.mixed_pile: 2,048
+    boxes, spheres and capsules a world, window 32) at SAP_WORLDS diverging
+    worlds for SAP_STEPS steps: ms/step, body-steps/s, torch ops a step, the
+    window miss summed on the card (0), the JAX test's settle gates on every
+    world (physics_scenes.check_pile, settled); no kernel launches (the branch
+    bypasses K2, as the reference's). Then 3 frames card vs CPU on 4 of its
+    worlds (compare_game)."""
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    sc = PS.mixed_pile(actors=PS.SAP_PILE_ACTORS, broadphase="sap", neighbors=32)
+    st = sc.world.modules["physics"].statics()
+    if not (st.sap and not st.banded):
+        raise AssertionError("the sap pile did not take the sap branch")
+    step = sc.engine.build_step(sc.world, dev)
+    state = PS.replicate_scene(sc.world.device_state(dev), SAP_WORLDS, seed=6)
+    miss = torch.zeros(SAP_WORLDS, dtype=torch.int32, device=dev)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    for i in range(SAP_STEPS):
+        if i == WARM_FRAMES:
+            ev0.record()
+        state = step(state, DT)
+        miss = miss + state.modules["physics"].counters["sap_window_miss"]
+    ev1.record()
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _launches()
+    ms = ev0.elapsed_time(ev1) / (SAP_STEPS - WARM_FRAMES)
+    _, n_ops = count_ops(lambda: step(state, DT))
+    ph = state.modules["physics"]
+    gates = PS.check_pile(ph.pos.cpu().numpy(), ph.vel.cpu().numpy(), ph.angvel.cpu().numpy(),
+                          st.occupied, PS.rest_heights(st.shape, st.radius, st.half_extents),
+                          settled=True)
+    rate = SAP_WORLDS * PS.SAP_PILE_ACTORS / (ms / 1e3)
+    ev_ms, dev_ms = layer_time(lambda: step(state, DT), 3)
+    busy = "not measured" if dev_ms is None else f"{dev_ms / ev_ms:.4f}"
+    log(f"[10 sap] {card}: the sap pile, {PS.SAP_PILE_ACTORS} actors a world at W={SAP_WORLDS}, "
+        f"{SAP_STEPS} steps in {wall:.2f} s: {ms:.3f} ms/step = {rate:.4g} body-steps/s, {n_ops} "
+        f"torch ops/step, launches {launches}, sap_window_miss summed {int(miss.sum())}, active "
+        f"contacts at the end {int(ph.counters['active_contacts'].sum())}; gates {gates}; one "
+        f"step {ev_ms:.4f} ms on events, {dev_ms} ms of kernels (torch.profiler): device-busy "
+        f"share {busy}")
+    if int(miss.sum()) or launches != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"sap pile: miss {int(miss.sum())}, launches {launches}")
+    errs, flips = compare_game("sap", sc, state, step)
+    log(f"[10 sap] 3 frames at W=4 card vs CPU: max abs err {errs}; decisions flipped {flips}")
+    return {"ms": ms, "rate": rate, "ops": n_ops, "launches": launches, "miss": int(miss.sum())}
+
+
+def run_pile_steps(dev, card):
+    """The stand-alone steps on the elongated pile (physics_scenes.elongated_pile
+    at PILE_BOXES boxes): make_big_world_step and make_banded_world_step
+    (4 sweeps, warm start) at test_box_drop_statistics's settings for
+    PILE_FALL_STEPS + PILE_SETTLE_STEPS steps, each step's window
+    certificate summed on the card, that test's gates
+    (physics_scenes.check_box_drop), exact_window_miss on the banded end
+    state (0); then make_banded_world_step on box_drop_pile(10_000) at
+    window BANDED_WINDOW for BANDED10K_STEPS steps, its certificate and
+    exact_window_miss (both 0). Each: ms/step, body-steps/s, torch ops a
+    step; 3 steps card vs CPU at W=2 on the pile at PILE_COMPARE_BOXES boxes
+    from its step PILE_COMPARE_AT."""
+    import torch
+
+    from lumixengine_tpu_torch.models import demo_scenes as DS
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import physics_banded as PBD
+    from lumixengine_tpu_torch.ops import physics_big as PBG
+    from lumixengine_tpu_torch.ops import physics_ops as P
+
+    out = {}
+
+    def exact_miss(pos, rot, tables, K):
+        nb = pos.shape[-1]
+        t = [torch.as_tensor(x, device=dev) for x in tables[:3]]
+        mn, mx = P.world_aabb(pos, rot, t[0].long(), t[1], t[2])
+        occ = torch.ones(nb, dtype=torch.bool, device=dev)
+        _o, ranks, _c = PBD.sweep_orders(mn, mx, occ, 4)
+        return int(PBD.exact_window_miss(mn, mx, occ, occ, ranks, K, min_overlap=0.005))
+
+    dt = torch.tensor(DT, dtype=torch.float32, device=dev)
+
+    def run(name, step, state, carry, steps, nb, fall=None):
+        miss = torch.zeros((), dtype=torch.int32, device=dev)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0, vx_fall = time.perf_counter(), None
+        for i in range(steps):
+            if i == WARM_FRAMES:
+                ev0.record()
+            res = step(*state, dt) if carry is None else step(*state, dt, carry)
+            state, carry = list(res[:4]), (None if carry is None else res[5])
+            miss = miss + res[4]["sap_window_miss"]
+            if fall is not None and i + 1 == fall:
+                vx_fall = state[2][0].clone()
+        ev1.record()
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, _launches()
+        ms = ev0.elapsed_time(ev1) / (steps - WARM_FRAMES)
+        st1, ca1 = state, carry
+        _, n_ops = count_ops(lambda: step(*st1, dt) if ca1 is None else step(*st1, dt, ca1))
+        finite = all(bool(torch.isfinite(x).all()) for x in state)
+        r = {"ms": ms, "rate": nb / (ms / 1e3), "ops": n_ops, "miss": int(miss),
+             "launches": launches, "finite": finite, "wall": wall}
+        if int(miss) or not finite or launches != {"K1": 0, "K2": 0}:
+            raise AssertionError(f"{name}: {r}")
+        return state, carry, vx_fall, r
+
+    def make(kind, nb):
+        tables = PS.box_pile_tables(nb)
+        if kind == "dynamic":
+            return PBG.make_big_world_step(*tables, **PS.PILE_STEP), None
+        step = PBD.make_banded_world_step(*tables, **PS.PILE_STEP, n_sweeps=4, warm_start=True)
+        return step, step.init_carry(dev)
+
+    def pile(nb):
+        pos0, rot0 = PS.elongated_pile(nb)
+        z = torch.zeros((3, nb), device=dev)
+        return [torch.as_tensor(pos0, device=dev), torch.as_tensor(rot0, device=dev), z, z]
+
+    nb = PILE_BOXES
+    tables = PS.box_pile_tables(nb)
+    for kind in ("dynamic", "banded"):
+        step, carry = make(kind, nb)
+        state, carry, vx_fall, r = run(kind, step, pile(nb), carry,
+                                       PS.PILE_FALL_STEPS + PS.PILE_SETTLE_STEPS, nb,
+                                       fall=PS.PILE_FALL_STEPS)
+        r["gates"] = PS.check_box_drop(kind, vx_fall.cpu().numpy(), state[0].cpu().numpy(),
+                                       state[2].cpu().numpy(), state[3].cpu().numpy(), r["miss"])
+        if kind == "banded":
+            r["exact_window_miss"] = exact_miss(state[0], state[1], tables,
+                                                PS.PILE_STEP["neighbors"])
+            if r["exact_window_miss"]:
+                raise AssertionError(f"banded pile: exact_window_miss {r['exact_window_miss']}")
+        step, carry = make(kind, PILE_COMPARE_BOXES)
+        cmp, carry, _vx, _r = run(kind, step, pile(PILE_COMPARE_BOXES), carry, PILE_COMPARE_AT,
+                                  PILE_COMPARE_BOXES)
+        r["gpu_vs_cpu"], r["held"] = _pile_gpu_vs_cpu(step, cmp, carry, dev)
+        log(f"[10 pile] {card}: make_{'big' if kind == 'dynamic' else 'banded'}_world_step, "
+            f"{nb} boxes, window {PS.PILE_STEP['neighbors']}, "
+            f"{PS.PILE_FALL_STEPS + PS.PILE_SETTLE_STEPS} steps in {r['wall']:.2f} s: "
+            f"{r['ms']:.3f} ms/step = {r['rate']:.4g} body-steps/s, {r['ops']} torch ops/step, "
+            f"launches {r['launches']}, certificate summed {r['miss']}"
+            + (f", exact_window_miss {r['exact_window_miss']}" if kind == "banded" else "")
+            + f"; gates {r['gates']}; the pile at {PILE_COMPARE_BOXES} boxes, 3 steps from step "
+            f"{PILE_COMPARE_AT} at W=2, card vs CPU: max abs err {r['gpu_vs_cpu']}, steps held "
+            f"from the CPU's state {r['held']}")
+        out[kind] = r
+
+    nb = BANDED10K_BOXES
+    tables = PS.box_pile_tables(nb)
+    _slot_step, pile, _consts = DS.box_drop_pile(nb, device=dev)
+    del _slot_step, _consts
+    step = PBD.make_banded_world_step(*tables, neighbors=BANDED_WINDOW, n_sweeps=4,
+                                      warm_start=True)
+    state = [pile[0], pile[1], torch.zeros_like(pile[2]), torch.zeros_like(pile[3])]
+    state, _carry, _vx, r = run("banded 10k", step, state, step.init_carry(dev),
+                                BANDED10K_STEPS, nb)
+    r["exact_window_miss"] = exact_miss(state[0], state[1], tables, BANDED_WINDOW)
+    r["lowest"] = float(state[0][1].min())
+    log(f"[10 pile] {card}: make_banded_world_step on box_drop_pile({nb}), window "
+        f"{BANDED_WINDOW}, 4 sweeps, warm start, {BANDED10K_STEPS} steps in {r['wall']:.2f} s: "
+        f"{r['ms']:.3f} ms/step = {r['rate']:.4g} body-steps/s, {r['ops']} torch ops/step, "
+        f"launches {r['launches']}, certificate summed {r['miss']}, exact_window_miss "
+        f"{r['exact_window_miss']}, lowest centre {r['lowest']:.4f} m")
+    if r["exact_window_miss"] or not r["lowest"] > BOX_LOWEST_MIN:
+        raise AssertionError(f"banded 10k: {r}")
+    out["banded_10k"] = r
+    return out
+
+
+def run_banded_farm(dev, card):
+    """The banded branch batched over worlds: the banded farm
+    (physics_scenes.mixed_pile at BANDED_FARM_ACTORS actors, which `auto`
+    takes to the banded branch) at each width of FARM_WIDTHS for
+    BANDED_FARM_STEPS steps: ms/step, body-steps/s, torch ops a step (equal
+    within 2% across the widths: one pass over the batch), the window
+    certificate summed (0), the blow-up gates on every world (the piles are
+    still landing at BANDED_FARM_STEPS: physics_scenes.check_pile, not
+    settled); then 3 frames
+    card vs CPU on 4 worlds of the widest."""
+    import torch
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    sc = PS.mixed_pile(actors=PS.BANDED_FARM_ACTORS, broadphase="auto", neighbors=32)
+    st = sc.world.modules["physics"].statics()
+    if not st.banded:
+        raise AssertionError("the banded farm did not take the banded branch")
+    step = sc.engine.build_step(sc.world, dev)
+    out = {}
+    for w in FARM_WIDTHS:
+        state = PS.replicate_scene(sc.world.device_state(dev), w, seed=8)
+        miss = torch.zeros(w, dtype=torch.int32, device=dev)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        for i in range(BANDED_FARM_STEPS):
+            if i == WARM_FRAMES:
+                ev0.record()
+            state = step(state, DT)
+            miss = miss + state.modules["physics"].counters["sap_window_miss"]
+        ev1.record()
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, _launches()
+        ms = ev0.elapsed_time(ev1) / (BANDED_FARM_STEPS - WARM_FRAMES)
+        _, n_ops = count_ops(lambda: step(state, DT))
+        ph = state.modules["physics"]
+        gates = PS.check_pile(ph.pos.cpu().numpy(), ph.vel.cpu().numpy(),
+                              ph.angvel.cpu().numpy(), st.occupied,
+                              PS.rest_heights(st.shape, st.radius, st.half_extents), settled=False)
+        r = {"ms": ms, "rate": w * PS.BANDED_FARM_ACTORS / (ms / 1e3), "ops": n_ops,
+             "miss": int(miss.sum()), "launches": launches}
+        log(f"[10 farm] {card}: the banded farm, {PS.BANDED_FARM_ACTORS} actors a world at W={w}, "
+            f"{BANDED_FARM_STEPS} steps in {wall:.2f} s: {ms:.3f} ms/step = {r['rate']:.4g} "
+            f"body-steps/s, {n_ops} torch ops/step, launches {launches}, certificate summed "
+            f"{r['miss']}, active contacts at the end {int(ph.counters['active_contacts'].sum())}; "
+            f"gates {gates}")
+        if r["miss"] or launches != {"K1": 0, "K2": 0}:
+            raise AssertionError(f"banded farm at W={w}: {r}")
+        out[w] = r
+    ops = [out[w]["ops"] for w in FARM_WIDTHS]
+    spread = (max(ops) - min(ops)) / min(ops)
+    log(f"[10 farm] torch ops a step at W={list(FARM_WIDTHS)}: {ops} (spread {spread:.4f})")
+    if spread > 0.02:
+        raise AssertionError(f"the banded farm's ops grow with the worlds: {ops}")
+    errs, flips = compare_game("farm", sc, state, step)
+    log(f"[10 farm] 3 frames at W=4 card vs CPU: max abs err {errs}; decisions flipped {flips}")
+    return out
+
+
+def run_layered(dev, card, replicate_state, map_tensors):
+    """The layered crowd (demo_scenes.layered_crowd_world: Layers over a
+    Blend2D base, a Switch over a Select on the upper body, an IKNode arm,
+    8 point lights and a platform under property animators) with
+    LAYERED_CHARACTERS animators a world at LAYERED_WORLDS worlds through
+    Engine.build_step(extra=cull_pass) for LAYERED_FRAMES frames: ms/frame,
+    entity-steps/s, torch ops a frame; K1 once a frame and bit for bit to
+    its plain version on the path's operands; every reachable effector
+    within IK_REACH_ATOL of its target on every world; every animated row
+    np.interp of its curve at the frame's time within PROPERTY_ATOL; 3
+    frames card vs CPU at W=4 (the animated rows within PROPERTY_ATOL)."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.models import demo_scenes as DS
+
+    engine, world, h = DS.layered_crowd_world(LAYERED_CHARACTERS)
+    rm = world.modules["renderer"]
+    step = engine.build_step(world, dev, extra=rm.cull_pass)
+    state = replicate_state(world.device_state(dev), LAYERED_WORLDS,
+                            torch.Generator(device=dev).manual_seed(9))
+    state, ms, wall, launches = _timed_frames(step, state, LAYERED_FRAMES - 1, WARM_FRAMES)
+    t_read = state.time.cpu().numpy()
+    state = step(state, DT)
+    launches = _launches()
+    if launches != {"K1": LAYERED_FRAMES, "K2": 0}:
+        raise AssertionError(f"layered crowd launches {launches}")
+    dist, reachable = DS.ik_gaps(world, state, h)
+    ik_worst = float(dist[reachable].max())
+    prop_worst = 0.0
+    for _name, rows, want in DS.property_rows(world, state, float(t_read.reshape(-1)[0]), h):
+        prop_worst = max(prop_worst, float(np.abs(rows - want).max()))
+    finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(state))
+    rate = LAYERED_WORLDS * world.capacity / (ms / 1e3)
+    log(f"[10 layered] {card}: the layered crowd, {LAYERED_CHARACTERS} animators a world at "
+        f"W={LAYERED_WORLDS}, {LAYERED_FRAMES} frames in {wall:.2f} s: {ms:.3f} ms/frame = "
+        f"{rate:.4g} entity-steps/s, launches {launches}, finite {finite}; IK: effector to target "
+        f"at most {ik_worst:.4f} m over the {int(reachable.sum())} reachable of {reachable.size} "
+        f"(limit {DS.IK_REACH_ATOL}); property rows vs np.interp at most {prop_worst:.3g} "
+        f"(limit {DS.PROPERTY_ATOL})")
+    if not finite or not ik_worst < DS.IK_REACH_ATOL or not prop_worst <= DS.PROPERTY_ATOL:
+        raise AssertionError(f"layered crowd: IK {ik_worst}, properties {prop_worst}")
+    k1 = k1_on_path("layered", world, state)
+    ops = op_counts(world, state, dev)
+    log(f"[10 layered] torch ops dispatched in one frame: {sum(ops.values())} = {ops}")
+    cmp = compare_with_plain(engine, world, map_tensors(lambda t: t[:4].clone(), state), step,
+                             extra=(("modules.renderer.pl_intensity", DS.PROPERTY_ATOL),
+                                    ("modules.renderer.pl_range", DS.PROPERTY_ATOL)))
+    log(f"[10 layered] 3 frames at W=4, card vs plain on the CPU: max abs err {cmp['errs']}, "
+        f"boundary flips {cmp['flips']}")
+    return {"ms": ms, "rate": rate, "ops": sum(ops.values()), "launches": launches, "k1": k1,
+            "ik_worst": ik_worst, "prop_worst": prop_worst}
+
+
+def run_sim_tier(dev, card, replicate_state, map_tensors):
+    """Phase 10: the sap pile, the stand-alone steps, the banded farm and the
+    layered crowd, each with the launch counts set to 0 just before it and
+    read just after."""
+    return {"sap": run_sap_pile(dev, card), "piles": run_pile_steps(dev, card),
+            "farm": run_banded_farm(dev, card),
+            "layered": run_layered(dev, card, replicate_state, map_tensors)}
 
 
 def _to_cpu(tree):

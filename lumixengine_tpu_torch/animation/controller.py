@@ -9,9 +9,11 @@ which the module samples and blends. Each Animation node owns a clock row
 of the state [..., T, A]. Inactive Animation nodes keep advancing their
 clocks while their weight is 0.
 
-Ported nodes: Input, Const, Math, AnimationNode, PlayRate and Blend1D
-(everything the demo's locomotion controller uses). Select, Switch,
-Blend2D, IKNode and Layers raise NotImplementedError.
+Nodes: Input, Const, Math, AnimationNode, PlayRate, Blend1D, Select and
+Switch (cross-fades over ``blend_length`` seconds, tracked in state rows;
+the entered child's clocks reset), Blend2D (gradient-band weights), IKNode
+(FABRIK on a bone chain, applied by the module after the absolute pose)
+and Layers (bone-masked layers over a base).
 """
 from __future__ import annotations
 
@@ -175,20 +177,198 @@ class Blend1D(PoseNode):
             child.emit(ctx, weight * torch.where(below, wl, wr))
 
 
-def _unported(name: str):
-    class Node(PoseNode):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(f"controller node {name} is not ported")
+def _collect_clocks(node) -> List[int]:
+    out = []
+    if isinstance(node, AnimationNode) and node._clock >= 0:
+        out.append(node._clock)
+    for c in getattr(node, "children_nodes", lambda: [])():
+        out.extend(_collect_clocks(c))
+    return out
 
-    Node.__name__ = Node.__qualname__ = name
-    return Node
+
+@dataclass
+class Select(PoseNode):
+    """Integer-valued select with cross-fade transitions.
+
+    State rows: current selection, previous selection, fade-elapsed
+    seconds. On a change the fade restarts and the entered child's
+    Animation clocks reset (the reference's enter())."""
+
+    value: ValueNode
+    children: Sequence[PoseNode]
+    blend_length: float = 0.3
+    _cur: int = field(default=-1, init=False)
+    _prev: int = field(default=-1, init=False)
+    _fade: int = field(default=-1, init=False)
+    _child_clocks: list = field(default_factory=list, init=False)
+
+    def children_nodes(self):
+        return list(self.children)
+
+    def setup(self, ctrl):
+        for c in self.children:
+            c.setup(ctrl)
+        self._cur = ctrl.alloc_clock()
+        self._prev = ctrl.alloc_clock()
+        self._fade = ctrl.alloc_clock()
+        self._child_clocks = [_collect_clocks(c) for c in self.children]
+
+    def advance(self, ctx):
+        for c in self.children:
+            c.advance(ctx)
+        v = torch.clamp(torch.round(self.value.eval(ctx)).to(torch.float32), 0,
+                        len(self.children) - 1)
+        cur = ctx.clocks[self._cur]
+        changed = v != cur
+        ctx.new_clocks[self._prev] = torch.where(changed, cur, ctx.clocks[self._prev])
+        ctx.new_clocks[self._cur] = v
+        ctx.new_clocks[self._fade] = torch.where(changed, 0.0, ctx.clocks[self._fade] + ctx.dt)
+        # enter(): the subtree that just became current restarts its clocks
+        for i, clocks in enumerate(self._child_clocks):
+            entered = changed & (v == i)
+            for ci in clocks:
+                ctx.new_clocks[ci] = torch.where(entered, 0.0, ctx.new_clocks[ci])
+
+    def emit(self, ctx, weight):
+        cur = ctx.new_clocks[self._cur]
+        prev = ctx.new_clocks[self._prev]
+        if self.blend_length > 0:
+            f = torch.clamp(ctx.new_clocks[self._fade] / self.blend_length, 0.0, 1.0)
+        else:
+            f = torch.ones(ctx.num_animators, dtype=torch.float32, device=ctx.device)
+        for i, c in enumerate(self.children):
+            w = (cur == i).to(torch.float32) * f + (prev == i).to(torch.float32) * (1.0 - f)
+            c.emit(ctx, weight * w)
 
 
-Select = _unported("Select")
-Switch = _unported("Switch")
-Blend2D = _unported("Blend2D")
-IKNode = _unported("IKNode")
-Layers = _unported("Layers")
+@dataclass
+class Switch(PoseNode):
+    """Boolean switch: a Select over (on_false, on_true) by cond != 0."""
+
+    cond: ValueNode
+    on_true: PoseNode
+    on_false: PoseNode
+    blend_length: float = 0.3
+    _sel: object = field(default=None, init=False)
+
+    def children_nodes(self):
+        return [self.on_true, self.on_false]
+
+    def setup(self, ctrl):
+        self._sel = Select(Math("neq", self.cond, Const(0.0)), [self.on_false, self.on_true],
+                           blend_length=self.blend_length)
+        self._sel.setup(ctrl)
+
+    def advance(self, ctx):
+        self._sel.advance(ctx)
+
+    def emit(self, ctx, weight):
+        self._sel.emit(ctx, weight)
+
+
+@dataclass
+class Blend2D(PoseNode):
+    """Children at 2D points blended by two inputs with gradient-band
+    weights: w_i = min_j (1 - clamp((p - p_i)·(p_j - p_i) / |p_j - p_i|²)),
+    normalized."""
+
+    value_x: ValueNode
+    value_y: ValueNode
+    children: Sequence[Tuple[Tuple[float, float], PoseNode]]  # ((x, y), node)
+
+    def children_nodes(self):
+        return [c for _, c in self.children]
+
+    def setup(self, ctrl):
+        for _, c in self.children:
+            c.setup(ctrl)
+
+    def advance(self, ctx):
+        for _, c in self.children:
+            c.advance(ctx)
+
+    def emit(self, ctx, weight):
+        px = self.value_x.eval(ctx)
+        py = self.value_y.eval(ctx)
+        pts = np.asarray([p for p, _ in self.children], np.float32)  # [C, 2]
+        ws = []
+        for i in range(len(pts)):
+            wi = None
+            dx_i = px - float(pts[i, 0])
+            dy_i = py - float(pts[i, 1])
+            for j in range(len(pts)):
+                if i == j:
+                    continue
+                ex = pts[j, 0] - pts[i, 0]
+                ey = pts[j, 1] - pts[i, 1]
+                denom = max(ex * ex + ey * ey, np.float32(1e-9))
+                h = torch.clamp(1.0 - (dx_i * float(ex) + dy_i * float(ey)) / float(denom),
+                                0.0, 1.0)
+                wi = h if wi is None else torch.minimum(wi, h)
+            ws.append(wi if wi is not None else torch.ones_like(px))
+        total = sum(ws) + 1e-9
+        for (_pt, child), w in zip(self.children, ws):
+            child.emit(ctx, weight * w / total)
+
+
+@dataclass
+class IKNode(PoseNode):
+    """FABRIK toward a target read from 3 controller inputs, alpha-blended:
+    emits the child's slots and registers an IK request that the module
+    applies after compute_absolute."""
+
+    child: PoseNode
+    chain: Sequence[int]                 # bone indices, root → effector
+    target_inputs: Tuple[int, int, int]  # input rows of the target's x, y, z
+    alpha: object = 1.0                  # a float, or an int = an input row
+
+    def children_nodes(self):
+        return [self.child]
+
+    def setup(self, ctrl):
+        self.child.setup(ctrl)
+        ctrl.ik_requests.append(self)
+
+    def advance(self, ctx):
+        self.child.advance(ctx)
+
+    def emit(self, ctx, weight):
+        self.child.emit(ctx, weight)
+
+
+@dataclass
+class Layers(PoseNode):
+    """A base layer blended over by weighted layers, each with an optional
+    bone mask [B]: the slots a layer emits carry its mask, and the module
+    blends them with ops/pose.masked_blend in emission order."""
+
+    layers: Sequence[Tuple[PoseNode, Optional[np.ndarray], float]]  # (node, bone mask, weight)
+    _masks: dict = field(default_factory=dict, init=False)
+
+    def children_nodes(self):
+        return [n for n, _, _ in self.layers]
+
+    def setup(self, ctrl):
+        for n, _mask, _w in self.layers:
+            n.setup(ctrl)
+
+    def advance(self, ctx):
+        for n, _, _ in self.layers:
+            n.advance(ctx)
+
+    def _mask(self, i, mask, device):
+        key = (i, str(device))
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(np.asarray(mask, bool), device=device)
+        return self._masks[key]
+
+    def emit(self, ctx, weight):
+        for i, (n, mask, w) in enumerate(self.layers):
+            start = len(ctx.slots)
+            n.emit(ctx, weight * float(np.float32(w)))
+            if mask is not None:
+                for s in range(start, len(ctx.slots)):
+                    ctx.slot_masks[s] = self._mask(i, mask, ctx.device)
 
 
 class _Ctx:
@@ -216,7 +396,7 @@ class Controller:
         self.root = root
         self.input_names = list(inputs)
         self._num_clocks = 0
-        self.ik_requests: list = []  # IK nodes are not ported; stays empty
+        self.ik_requests: List[IKNode] = []  # filled by IKNode.setup
         root.setup(self)
 
     def alloc_clock(self) -> int:

@@ -2,18 +2,23 @@
 ``lumixengine_tpu/animation/module.py``).
 
 Components: ``animable`` (one looping clip: advance the clock modulo the
-clip length, sample, compute absolute, build the palette) and ``animator``
-(a controller graph → blend slots → sampled, blended pose + root motion
-applied to the entity's local transform). Animators run in
-``update_parallel``, animables in ``update``.
+clip length, sample, compute absolute, build the palette), ``animator``
+(a controller graph → blend slots → sampled, blended pose, the controller's
+IK chains, root motion applied to the entity's local transform) and
+``property_animator`` (keyframe curves on the world's time driving a point
+light's intensity or range, a camera's fov, or an entity's local position
+and scale rows). Animators run in ``update_parallel``; animables, then the
+property animators, in ``update``.
 
 Animators and animables are grouped on the host by (model, controller) and
 by model; each group is a static column range of the pose pool [..., C, B, P]
 in the module state (animables first, then animators). Per frame and group:
 sampling is a two-frame gather + lerp per blend slot (ops/sampling.py), the
 blend a sequential nlerp over the slots (ops/pose.py), the absolute pose a
-level scan over the skeleton, the palette one dual-quaternion pass
-(ops/skinning.py). ``property_animator`` and IK raise NotImplementedError.
+level scan over the skeleton, FABRIK on each IK chain of the controller
+(ops/ik.py: the chain's joints set to the solution, each joint's rotation
+delta composed into its absolute rotation), the palette one
+dual-quaternion pass (ops/skinning.py).
 """
 from __future__ import annotations
 
@@ -30,11 +35,44 @@ from lumixengine_tpu_torch.animation.controller import Controller
 from lumixengine_tpu_torch.core import math as lm
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
+from lumixengine_tpu_torch.ops import ik as ik_ops
 from lumixengine_tpu_torch.ops import pose as pose_ops
 from lumixengine_tpu_torch.ops import sampling, skinning
 from lumixengine_tpu_torch.utils.store import DenseStore
 
 MAX_CONTROLLER_INPUTS = 8
+
+# (component, property) → the RenderState field and the renderer store whose
+# slot indexes it: the device rows a property animator drives
+_DEVICE_PROP_TARGETS = {
+    ("point_light", "intensity"): ("pl_intensity", "point_lights"),
+    ("point_light", "range"): ("pl_range", "point_lights"),
+    ("camera", "fov"): ("cam_fov", "cameras"),
+}
+
+# transform channels animate the entity's local rows (field, component)
+_TRANSFORM_TARGETS = {
+    ("transform", "x"): ("pos", 0),
+    ("transform", "y"): ("pos", 1),
+    ("transform", "z"): ("pos", 2),
+    ("transform", "scale_x"): ("scale", 0),
+    ("transform", "scale_y"): ("scale", 1),
+    ("transform", "scale_z"): ("scale", 2),
+}
+
+
+def interp(x, xp, fp):
+    """np.interp / jnp.interp of x at the knots xp (ascending) with values
+    fp, the ends held outside, in jnp.interp's formula."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[-1] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
 
 
 @dataclass
@@ -150,6 +188,9 @@ class AnimationModule(IModule):
             "start_time": ((), np.float32, 0.0)})
         self.animators = DenseStore(max_animators, {"controller": ((), np.int32, -1)})
         self.default_inputs = np.zeros((MAX_CONTROLLER_INPUTS, max_animators), np.float32)
+        self.property_animators: Dict[int, list] = {}
+        self.pa_default_enabled: Dict[int, bool] = {}
+        self._curves: Dict[str, dict] = {}   # device → {(entity, curve index): (times, values)}
         self._statics: Optional[AnimStatics] = None
         self._statics_version = -1
 
@@ -175,8 +216,34 @@ class AnimationModule(IModule):
             for name, v in props.get("inputs", {}).items():
                 c = self.system.controllers[int(ctrl)]
                 self.default_inputs[c.input_index(name), slot] = np.float32(v)
+        elif ctype == "property_animator":
+            # keyframe curves, each on one device row (_DEVICE_PROP_TARGETS,
+            # _TRANSFORM_TARGETS); other properties have no device row
+            curves = []
+            for cur in props.get("curves", []):
+                curves.append({"component": cur["component"], "property": cur["property"],
+                               "times": np.asarray(cur["times"], np.float32),
+                               "values": np.asarray(cur["values"], np.float32)})
+                key = (cur["component"], cur["property"])
+                if key not in _DEVICE_PROP_TARGETS and key not in _TRANSFORM_TARGETS:
+                    raise KeyError(
+                        f"property_animator target {cur['component']}.{cur['property']}"
+                        " has no device row (host-side reflection animation instead)")
+            self.property_animators[entity] = curves
+            self.pa_default_enabled[entity] = bool(props.get("enabled", True))
+            self._curves.clear()
         else:
-            raise NotImplementedError(f"animation component {ctype!r} is not ported")
+            raise KeyError(ctype)
+
+    def destroy_component(self, entity: int, ctype: str) -> None:
+        self._statics = None
+        if ctype == "animable":
+            self.animables.remove(entity)
+        elif ctype == "animator":
+            self.animators.remove(entity)
+        elif ctype == "property_animator":
+            self.property_animators.pop(entity, None)
+            self._curves.clear()
 
     # -- statics / state --------------------------------------------------------
 
@@ -221,7 +288,9 @@ class AnimationModule(IModule):
             pose_pos=torch.zeros((3, b, p), **f32),
             pose_rot=pose_rot,
             palette=palette,
-            pa_enabled=torch.ones(1, dtype=torch.bool, device=device),
+            pa_enabled=torch.as_tensor([self.pa_default_enabled.get(e, True)
+                                        for e in sorted(self.property_animators)] or [True],
+                                       dtype=torch.bool, device=device),
             counters={"animated": torch.zeros((), dtype=torch.int32, device=device)},
         )
 
@@ -294,6 +363,8 @@ class AnimationModule(IModule):
             if acc_pos is None:
                 continue
             apos, arot = pose_ops.compute_absolute(acc_pos, acc_rot, g["plan"])
+            for ik_node in ctrl.ik_requests:
+                apos, arot = self._ik_pass(ik_node, inputs_g, apos, arot)
             pose_pos = pose_pos.index_copy(-1, gd.pool_cols, apos)
             pose_rot = pose_rot.index_copy(-1, gd.pool_cols, arot)
             palette = palette.index_copy(
@@ -313,6 +384,27 @@ class AnimationModule(IModule):
         ms = ms.replace(ctrl_clocks=ctrl_clocks, pose_pos=pose_pos, pose_rot=pose_rot,
                         palette=palette)
         return state.replace(local=local, modules={**state.modules, self.name: ms})
+
+    @staticmethod
+    def _ik_pass(ik_node, inputs_g, apos, arot):
+        """One IK chain on a group's absolute pose [..., C, B, A]: FABRIK
+        toward the target inputs, alpha-blended; the chain's joints take
+        the solution and each joint but the effector composes its rotation
+        delta into its absolute rotation."""
+        chain = torch.as_tensor(np.asarray(ik_node.chain, np.int64), device=apos.device)
+        target = torch.stack([inputs_g[..., i, :] for i in ik_node.target_inputs], dim=-2)
+        if isinstance(ik_node.alpha, int) and not isinstance(ik_node.alpha, bool):
+            alpha = inputs_g[..., ik_node.alpha, :]
+        else:
+            alpha = float(ik_node.alpha)
+        joints = apos.index_select(-2, chain)
+        solved = ik_ops.apply_ik(joints, target, alpha)
+        deltas = ik_ops.chain_rotation_deltas(joints, solved)
+        parents = chain[:-1]
+        apos = apos.index_copy(-2, chain, solved)
+        arot = arot.index_copy(-2, parents, lm.quat_mul(deltas, arot.index_select(-2, parents),
+                                                        axis=-3))
+        return apos, arot
 
     def update(self, state: WorldState, dt) -> WorldState:
         """Animables: advance the clock modulo the clip length, sample,
@@ -341,7 +433,60 @@ class AnimationModule(IModule):
         ms = ms.replace(an_time=an_time, pose_pos=pose_pos, pose_rot=pose_rot, palette=palette,
                         counters={**ms.counters,
                                   "animated": torch.full_like(ms.counters["animated"], total)})
-        return state.replace(modules={**state.modules, self.name: ms})
+        state = state.replace(modules={**state.modules, self.name: ms})
+        if self.property_animators:
+            state = self._property_animators(state, ms)
+        return state
+
+    def _curve(self, e: int, i: int, cur: dict, device):
+        key = str(torch.device(device))
+        bank = self._curves.setdefault(key, {})
+        if (e, i) not in bank:
+            bank[(e, i)] = (torch.as_tensor(cur["times"], device=device),
+                            torch.as_tensor(cur["values"], device=device))
+        return bank[(e, i)]
+
+    def _property_animators(self, state: WorldState, ms: AnimState) -> WorldState:
+        """Each curve at the world's time modulo its last key, written into
+        its row where its animator is enabled: the renderer's point-light
+        and camera rows, the entities' local position and scale rows."""
+        rmod = self.world.modules.get("renderer")
+        rs = state.modules.get("renderer")
+        local = state.local
+        rs_dirty = local_dirty = False
+        pa_index = {e: i for i, e in enumerate(sorted(self.property_animators))}
+        dev = ms.pose_pos.device
+        for e, curves in self.property_animators.items():
+            en = ms.pa_enabled[..., pa_index[e]]
+            for i, cur in enumerate(curves):
+                key = (cur["component"], cur["property"])
+                times = cur["times"]
+                dur = float(times[-1]) if len(times) else 1.0
+                t = torch.remainder(state.time, np.float32(max(dur, 1e-6)))
+                v = interp(t, *self._curve(e, i, cur, dev))
+                if key in _TRANSFORM_TARGETS:
+                    field, axis = _TRANSFORM_TARGETS[key]
+                    slot = self.world.slot(e)
+                    if slot < 0:
+                        continue
+                    arr = getattr(local, field).clone()
+                    arr[..., axis, slot] = torch.where(en, v, arr[..., axis, slot])
+                    local = local.replace(**{field: arr})
+                    local_dirty = True
+                elif rs is not None:
+                    field, store_name = _DEVICE_PROP_TARGETS[key]
+                    slot = getattr(rmod, store_name).slot_of(e)
+                    if slot < 0:
+                        continue
+                    arr = getattr(rs, field).clone()
+                    arr[..., slot] = torch.where(en, v, arr[..., slot])
+                    rs = rs.replace(**{field: arr})
+                    rs_dirty = True
+        if local_dirty:
+            state = state.replace(local=local)
+        if rs_dirty:
+            state = state.replace(modules={**state.modules, "renderer": rs})
+        return state
 
 
 class AnimationSystem(ISystem):

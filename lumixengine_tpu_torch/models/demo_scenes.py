@@ -383,3 +383,193 @@ def script_stress_world(num_scripts: int = 64, device="cuda"):
         world.create_component(e, "model_instance", model=mid)
         sm.attach_lua_script(e, source=SCRIPT_MOVER_LUA % {"speed": 0.5 + 0.1 * (i % 7)})
     return engine, world, world.modules["renderer"]
+
+
+# -- the layered crowd: every animation component and controller node ----------------
+
+LAYERED_INPUTS = ("dir_x", "dir_y", "gesture", "which", "tx", "ty", "tz")
+IK_REACH_ATOL = 0.05     # tests/test_animation_ext.py: the effector at a reachable target
+PROPERTY_ATOL = 1e-6
+LAYERED_LIGHTS = 8
+ARM_LAYER_WEIGHT = 20.0
+
+
+def anim_api():
+    """The classes and functions the layered crowd is built with (the
+    port's); the CPU tests pass the JAX package's in their place."""
+    from types import SimpleNamespace
+
+    from lumixengine_tpu_torch.animation import animation, controller
+    from lumixengine_tpu_torch.animation.module import AnimationSystem
+    from lumixengine_tpu_torch.renderer.model import Model as M
+
+    return SimpleNamespace(Engine=Engine, RendererSystem=RendererSystem, Model=M,
+                           make_humanoid_skeleton=make_humanoid_skeleton,
+                           AnimationSystem=AnimationSystem, make_walk_clip=animation.make_walk_clip,
+                           nodes=controller)
+
+
+def arm_chain(skeleton, length: int = 4) -> list:
+    """The chain of `length` bones, root → effector, whose longest bone is
+    the least share of its length (the first such): a chain that folds to
+    reach targets near its root."""
+    parent = skeleton.bone_parent
+    abs_pos, _ = skeleton.absolute_bind()
+    best = None
+    for end in range(skeleton.bone_count):
+        chain = [end]
+        while len(chain) < length and parent[chain[0]] >= 0:
+            chain.insert(0, int(parent[chain[0]]))
+        if len(chain) < length:
+            continue
+        lengths = np.linalg.norm(np.diff(abs_pos[chain], axis=0), axis=1)
+        share = float(lengths.max() / lengths.sum())
+        if best is None or share < best[0]:
+            best = (share, chain)
+    return best[1]
+
+
+def layered_controller(api, anim, skeleton, chain):
+    """The layered crowd's controller: Layers over a Blend2D base of the four
+    walk clips; an upper-body layer (bones at depth 2 and below) switching
+    between a Select of two gesture clips and a rest clip; an arm layer
+    (the chain's bones and their ancestors, weighted ARM_LAYER_WEIGHT
+    against the layers' 1.8 so that the chain sits near its bind pose) of
+    an IKNode on `chain` toward the (tx, ty, tz) inputs."""
+    n = api.nodes
+    b = anim.max_bones
+    depth = np.zeros(skeleton.bone_count, np.int32)
+    for i, p in enumerate(skeleton.bone_parent):
+        depth[i] = 0 if p < 0 else depth[p] + 1
+    upper = np.zeros(b, bool)
+    upper[:skeleton.bone_count] = depth >= 2
+    arm = np.zeros(b, bool)
+    arm[chain] = True
+    p = int(skeleton.bone_parent[chain[0]])
+    while p >= 0:                       # and the chain root's ancestors
+        arm[p] = True
+        p = int(skeleton.bone_parent[p])
+    ik = n.IKNode(n.AnimationNode(7), chain=list(chain), target_inputs=(4, 5, 6), alpha=1.0)
+    root = n.Layers([
+        (n.Blend2D(n.Input(0), n.Input(1), [((0.0, 1.0), n.AnimationNode(0)),
+                                            ((1.0, 0.0), n.AnimationNode(1)),
+                                            ((-1.0, 0.0), n.AnimationNode(2)),
+                                            ((0.0, -1.0), n.AnimationNode(3))]), None, 1.0),
+        (n.Switch(n.Input(2), n.Select(n.Input(3), [n.AnimationNode(4), n.AnimationNode(5)],
+                                       blend_length=0.2),
+                  n.AnimationNode(6), blend_length=0.3), upper, 0.8),
+        (ik, arm, ARM_LAYER_WEIGHT)])
+    return n.Controller("layered", anim.bank_statics, root, inputs=list(LAYERED_INPUTS))
+
+
+def layered_crowd_world(num_characters: int = 128, seed: int = 0, api=None):
+    """The layered crowd: `num_characters` characters with the crowd's
+    32-bone humanoid skeleton, each an animator of layered_controller with
+    its own inputs (a unit walk direction, the gesture switch and select, an
+    arm target 0.1 to 0.2 of the chain's reach from the effector's bind
+    position: FABRIK's 5 passes converge from there), a camera, LAYERED_LIGHTS point lights whose intensity (and, on
+    every other one, range) follow property animators, and a platform whose
+    local x and y follow one. Returns (engine, world, handles): the arm
+    chain, the light and platform entities and each curve as numpy."""
+    api = api or anim_api()
+    rng = np.random.default_rng(seed)
+    engine = api.Engine()
+    engine.module_capacities = dict(model_instances=num_characters + 8, animables=8,
+                                    animators=num_characters, point_lights=LAYERED_LIGHTS)
+    renderer = api.RendererSystem(engine)
+    sk = api.make_humanoid_skeleton(32, seed=7)
+    renderer.add_model(api.Model(name="character", bounding_radius=1.2, material_id=4,
+                                 skeleton=sk))
+    engine.add_system(renderer)
+    anim = api.AnimationSystem(engine, renderer=renderer)
+    for i, name in enumerate(("n", "e", "w", "s", "wave_a", "wave_b", "rest", "arm")):
+        anim.add_clip(api.make_walk_clip(sk, name, frames=15 + 2 * i, amplitude=0.0 if i == 7
+                                         else 0.3, seed=20 + i))
+    chain = arm_chain(sk)
+    anim.add_controller(layered_controller(api, anim, sk, chain))
+    engine.add_system(anim)
+    world = engine.create_world(capacity=num_characters + LAYERED_LIGHTS + 8)
+    cam = world.create_entity(position=(0.0, 10.0, 60.0), name="camera")
+    world.create_component(cam, "camera", fov=np.radians(70.0), near=0.3, far=500.0)
+    abs_pos, _abs_rot = sk.absolute_bind()
+    lengths = np.linalg.norm(np.diff(abs_pos[chain], axis=0), axis=1)
+    reach = float(lengths.sum())
+    # a target nearer the root than this, the longest bone less the others, is out of reach
+    inner = float(max(0.0, 2 * lengths.max() - reach))
+    for _ in range(num_characters):
+        e = world.create_entity(
+            position=(rng.uniform(-50, 50), 0.0, rng.uniform(-50, 50)),
+            rotation=hm.quat_from_axis_angle(np.array([0, 1, 0], np.float32),
+                                             rng.uniform(0, 2 * np.pi)))
+        world.create_component(e, "model_instance", model="character")
+        ang = rng.uniform(0, 2 * np.pi)
+        d = rng.normal(size=3)
+        target = abs_pos[chain[-1]] + d / np.linalg.norm(d) * rng.uniform(0.1, 0.2) * reach
+        world.create_component(e, "animator", controller="layered", inputs={
+            "dir_x": float(np.cos(ang)), "dir_y": float(np.sin(ang)),
+            "gesture": float(rng.integers(2)), "which": float(rng.integers(2)),
+            "tx": float(target[0]), "ty": float(target[1]), "tz": float(target[2])})
+    curves = {}
+    lights = []
+    for i in range(LAYERED_LIGHTS):
+        e = world.create_entity(position=(rng.uniform(-40, 40), 4.0, rng.uniform(-40, 40)))
+        world.create_component(e, "point_light", intensity=1.0, range=10.0)
+        cs = [{"component": "point_light", "property": "intensity",
+               "times": [0.0, 0.5 + 0.1 * i, 2.0], "values": [0.0, 5.0 + i, 1.0]}]
+        if i % 2:
+            cs.append({"component": "point_light", "property": "range",
+                       "times": [0.0, 1.5], "values": [8.0, 12.0 + i]})
+        world.create_component(e, "property_animator", curves=cs)
+        curves[e] = cs
+        lights.append(e)
+    platform = world.create_entity(position=(0.0, 1.0, 0.0))
+    cs = [{"component": "transform", "property": "x", "times": [0.0, 1.0, 2.0],
+           "values": [-3.0, 3.0, -3.0]},
+          {"component": "transform", "property": "y", "times": [0.0, 0.5, 1.0],
+           "values": [1.0, 2.5, 1.0]}]
+    world.create_component(platform, "property_animator", curves=cs)
+    curves[platform] = cs
+    return engine, world, {"chain": chain, "reach": reach, "inner": inner, "lights": lights,
+                           "platform": platform, "curves": curves}
+
+
+def ik_gaps(world, state, handles):
+    """Each animator's effector against its target in model space, over the
+    world batch: (distance [..., A], reachable [..., A]: the target lies in
+    the chain's annulus, inner + 2 cm to reach − 2 cm from the chain's root
+    as posed)."""
+    import torch
+
+    am = world.modules["animation"]
+    slots = [k for k in range(am.animators.capacity) if am.animators.entity[k] >= 0]
+    ms = state.modules["animation"]
+    cols = torch.as_tensor([am.pool_col_animator(k) for k in slots], device=ms.pose_pos.device)
+    pose = ms.pose_pos.index_select(-1, cols)
+    target = ms.ctrl_inputs[..., 4:7, :].index_select(-1, cols - am.pool_col_animator(0))
+    chain = handles["chain"]
+    dist = torch.linalg.vector_norm(pose[..., :, chain[-1], :] - target, dim=-2)
+    r = torch.linalg.vector_norm(target - pose[..., :, chain[0], :], dim=-2)
+    reachable = (r >= handles["inner"] + 0.02) & (r <= handles["reach"] - 0.02)
+    return dist.cpu().numpy(), reachable.cpu().numpy()
+
+
+def property_rows(world, state, time: float, handles):
+    """The animated rows of the layered crowd after a frame whose update
+    read the world's time `time`, beside np.interp of each curve there:
+    [(row name, the rows over the world batch, the expected value)]."""
+    rm = world.modules["renderer"]
+    rs = state.modules["renderer"]
+    fields = {"intensity": "pl_intensity", "range": "pl_range"}
+    out = []
+    for e, curves in handles["curves"].items():
+        for cur in curves:
+            times = np.asarray(cur["times"], np.float32)
+            t = np.float32(time) % np.float32(max(float(times[-1]), 1e-6))
+            want = np.interp(t, times, np.asarray(cur["values"], np.float32))
+            if cur["component"] == "transform":
+                axis = "xyz".index(cur["property"])
+                rows = state.local.pos[..., axis, world.slot(e)]
+            else:
+                rows = getattr(rs, fields[cur["property"]])[..., rm.point_lights.slot_of(e)]
+            out.append((f"{e}.{cur['property']}", rows.detach().cpu().numpy(), want))
+    return out

@@ -1,8 +1,11 @@
 """PhysicsModule scenes: the worlds of the committed golden trajectories
 (``tests/data/golden_*.npz``, made by ``tools/golden_oracle.py``, a float64
 sequential-impulse simulator) with the bounds the JAX package's
-``tests/test_golden_trajectories.py`` holds its pipeline to, and a block of
-boxes on the bench's grid for the banded branch.
+``tests/test_golden_trajectories.py`` holds its pipeline to, a block of
+boxes on the bench's grid for the banded branch, the large-world scenes of
+the JAX package's tests (the mixed column and its pile at scale for
+``broadphase="sap"`` and the banded farm, the box pile of the stand-alone
+steps) and the game content.
 
 A golden world is built as the reference's test builds it (``build_world``
 of ``tests/test_parity.py``): actor capacity max(n, 2), 8 joint slots, the
@@ -255,6 +258,197 @@ def box_block(num_bodies: int, capacity: int, seed: int = 0, neighbors: int = 16
         world.create_component(e, "rigid_actor", motion="dynamic", shape="box",
                                half_extents=(0.5, 0.5, 0.5), mass=1.0, friction=0.6)
     return engine, world
+
+
+# -- the large-world paths: broadphase="sap", the stand-alone steps, the banded farm
+
+SHAPE_CYCLE = ("box", "sphere", "capsule")   # tests/test_physics_big.py's mixed scene
+
+
+def _mixed_actor(world, i, p):
+    """Actor i of the JAX large-world tests' mixed scene at `p`: box, sphere
+    and capsule in turn, half extents 0.4, radius 0.35, mass 1."""
+    e = world.create_entity(position=tuple(float(x) for x in p))
+    world.create_component(e, "rigid_actor", motion="dynamic", shape=SHAPE_CYCLE[i % 3],
+                           half_extents=(0.4, 0.4, 0.4), radius=0.35, mass=1.0)
+    return e
+
+
+def mixed_column(api=None, actors: int = 24, capacity: int = 32, broadphase: str = "sap",
+                 neighbors: int = 23, sweeps: int = 1, seed: int = 9) -> Scene:
+    """tests/test_physics_big.py::test_engine_banded_mode_matches_sap_mode's
+    scene: `actors` mixed actors dropped in a column (x, z uniform in ±3 m,
+    y = 1 + 0.6 i) at `capacity` slots, the broadphase forced, window
+    `neighbors` (23: every pair of 24 actors is a candidate), `sweeps`
+    sweeps (1: the classic sweep, the candidate set of sap)."""
+    engine, world, _phys = _game_world(api, capacity, True, False, capacity + 32)
+    rng = np.random.default_rng(seed)
+    sc = Scene(engine, world)
+    for i in range(actors):
+        xz = rng.uniform(-3, 3, 2)
+        _mixed_actor(world, i, (xz[0], 1.0 + 0.6 * i, xz[1]))
+    pm = world.modules["physics"]
+    pm.broadphase, pm.sap_neighbors, pm.sap_sweeps = broadphase, neighbors, sweeps
+    pm.invalidate_statics()
+    return sc
+
+
+def mixed_pile(api=None, actors: int = 2048, broadphase: str = "auto", neighbors: int = 32,
+               seed: int = 0, pitch: float = 1.2, columns: int = 4) -> Scene:
+    """The mixed actors of the JAX large-world tests at scale: `actors`
+    boxes, spheres and capsules in turn on a lattice long along x
+    (`columns` x `columns` a slab of x, 1.2 m pitch, jittered by 0-10 cm,
+    the lowest layer 0.6 m up), at `actors` slots. A slab of x holds
+    columns² bodies, so a sweep window of 32 holds every pair the x-sort
+    makes neighbours. `broadphase` "sap" is the sap pile; "auto" picks the
+    banded branch above 256 slots (the banded farm's world)."""
+    engine, world, _phys = _game_world(api, actors, True, False, actors + 8)
+    rng = np.random.default_rng(seed)
+    sc = Scene(engine, world)
+    per_slab = columns * columns
+    for i in range(actors):
+        ix, r = divmod(i, per_slab)
+        iy, iz = divmod(r, columns)
+        p = np.array([ix * pitch, 0.6 + iy * pitch, iz * pitch]) + rng.uniform(0.0, 0.1, 3)
+        _mixed_actor(world, i, p - [0.5 * pitch * (actors // per_slab), 0.0, 0.0])
+    pm = world.modules["physics"]
+    pm.broadphase, pm.sap_neighbors = broadphase, neighbors
+    pm.invalidate_statics()
+    return sc
+
+
+SAP_PILE_ACTORS, SAP_PILE_STEPS = 2048, 120
+BANDED_FARM_ACTORS = 512
+# the highest start centre of mixed_pile at its defaults (4 layers at 1.2 m from 0.6 m, 10 cm
+# jitter): no body of the pile can move faster than a fall from there, g = 9.81
+PILE_TOP = 0.6 + 3 * 1.2 + 0.1
+SANE_SPIN = 50.0   # rad/s
+# tests/test_physics_big.py::test_banded_step_matches_dynamic_step's settle gates: no centre
+# more than 8 cm under its resting height (its y.min() > 0.42 for unit boxes) and the median
+# speed below 0.5 m/s. Besides, at most PILE_DEEP_MAX bodies of a world more than 2 cm under
+# their resting height: on the sap pile at step 120 (tools/pile_gates.py, seeds 0-4, one
+# world) the JAX package reads 8-18 and the port 13-19, with half the position iterations
+# 87-108 and 81-108; the deepest centre alone is one body's (JAX 3.1-4.2 cm, port 3.2-6.8)
+# and lets the fault by on 2 seeds of the port's 5 (6.9, 7.8 cm)
+PILE_DEPTH_MAX, PILE_MEDIAN_SPEED_MAX = 0.08, 0.5
+PILE_DEEP, PILE_DEEP_MAX = 0.02, 40
+
+
+def rest_heights(shape, radius, half_extents):
+    """Each body's centre height at rest on the ground: a box on its
+    thinnest face, a sphere, a capsule lying down. numpy [NB]."""
+    from lumixengine_tpu_torch.ops import physics_ops as P
+
+    return np.where(np.asarray(shape) == P.SHAPE_BOX, np.asarray(half_extents).min(axis=0),
+                    np.asarray(radius)).astype(np.float32)
+
+
+def pile_readings(pos, vel, angvel, occupied, rest_y) -> dict:
+    """A pile's settle readings over every world of a batch (numpy [..., 3,
+    NB]): finite state, the largest speed and spin, the worst world's
+    median speed, the lowest centre, the deepest centre under its resting
+    height `rest_y` [NB], and the most bodies of a world deeper than 2, 3
+    and 4 cm under it."""
+    finite = bool(np.isfinite(pos).all() and np.isfinite(vel).all() and np.isfinite(angvel).all())
+    speed = np.linalg.norm(vel[..., occupied], axis=-2)
+    spin = np.linalg.norm(angvel[..., occupied], axis=-2)
+    y = pos[..., 1, :][..., occupied]
+    return {"finite": finite, "max_speed": round(float(speed.max()), 5),
+            "median_speed": round(float(np.median(speed, axis=-1).max()), 5),
+            "max_spin": round(float(spin.max()), 5), "lowest": round(float(y.min()), 5),
+            "depth": round(float((rest_y[occupied] - y).max()), 5),
+            **{f"deeper_{cm}cm": int(((rest_y[occupied] - y) > cm / 100).sum(axis=-1).max())
+               for cm in (2, 3, 4)}}
+
+
+def check_pile(pos, vel, angvel, occupied, rest_y, settled: bool, top: float = PILE_TOP) -> dict:
+    """A pile's gates on every world of a batch. Always the blow-up gates:
+    finite state, every occupied centre above the ground, every speed below
+    a free fall from `top` (energy the pile cannot exceed unless the solve
+    adds it), every spin below SANE_SPIN; these catch an exploding solve and
+    nothing finer. With `settled`, also the JAX test's settle gates: no
+    centre more than PILE_DEPTH_MAX under its resting height `rest_y`, every
+    world's median speed below PILE_MEDIAN_SPEED_MAX; and at most
+    PILE_DEEP_MAX bodies of a world deeper than PILE_DEEP. Raises
+    AssertionError; returns the readings (pile_readings)."""
+    out = pile_readings(pos, vel, angvel, occupied, rest_y)
+    out["speed_bound"] = round(float(np.sqrt(2 * 9.81 * top)), 3)
+    ok = (out["finite"] and out["lowest"] > 0.0 and out["max_speed"] < out["speed_bound"]
+          and out["max_spin"] < SANE_SPIN)
+    if settled:
+        ok = (ok and out["depth"] < PILE_DEPTH_MAX and out["median_speed"] < PILE_MEDIAN_SPEED_MAX
+              and out[f"deeper_{round(PILE_DEEP * 100)}cm"] <= PILE_DEEP_MAX)
+    if not ok:
+        raise AssertionError(f"pile {'settle' if settled else 'blow-up'} gates: {out}")
+    return out
+
+
+def box_pile_tables(nb: int):
+    """The body tables of the JAX package's stand-alone box-drop tests
+    (tests/test_physics_big.py, tests/test_parity.py): unit boxes (half
+    extent 0.5), mass 1, inverse inertia 6, friction 0.6, no restitution.
+    The positional arguments of make_big_world_step and
+    make_banded_world_step."""
+    return (np.full(nb, 1, np.int32), np.full(nb, 0.5, np.float32),
+            np.full((3, nb), 0.5, np.float32), np.ones(nb, bool), np.ones(nb, np.float32),
+            np.tile(np.full((1, nb), 1.0 / (1.0 / 12 * 2.0), np.float32), (3, 1)),
+            np.full(nb, 0.6, np.float32), np.zeros(nb, np.float32))
+
+
+def elongated_pile(nb: int = 256, seed: int = 0, lift: float = 1.5):
+    """tests/test_parity.py::test_box_drop_statistics's pile: boxes on a grid
+    of 4 x 4 in y and z and nb / 16 along x (16 at 256 boxes) at 1.15 m
+    pitch, jittered by 0-10 cm, lifted `lift` m, at rest. Returns the start
+    (pos, rot) as numpy [3, nb], [4, nb]."""
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(np.arange(nb // 16), np.arange(4), np.arange(4), indexing="ij"),
+                    -1).reshape(-1, 3)[:nb]
+    pos = (grid * 1.15 + rng.uniform(0.0, 0.1, (nb, 3)) + [0.0, lift, 0.0]).T.astype(np.float32)
+    rot = np.zeros((4, nb), np.float32)
+    rot[3] = 1.0
+    return pos, rot
+
+
+# test_box_drop_statistics's settings and gates, for its 256 boxes: |Σ vx| after the fall,
+# the kinetic energy, the highest centre, and the lowest centre by pipeline (the banded one
+# warm-starts: its pile rests at about the slop)
+PILE_STEP = dict(neighbors=32, iterations=16, position_iterations=6)
+PILE_FALL_STEPS, PILE_SETTLE_STEPS = 20, 300
+PILE_VX_SUM_MAX, PILE_KE_MAX, PILE_Y_TOP_MAX = 1e-2, 1000.0, 5.0
+PILE_Y_MIN = {"dynamic": 0.5 - 0.05, "banded": 0.5 - 0.012}
+# At 4,096 boxes (16 of the test's piles side by side) its deepest box goes deeper: the bound
+# on the lowest centre holds for all but one box per 256 beyond the test's first 256, and no
+# centre lies below PILE_Y_FLOOR. Readings after 320 steps (tools/pile_gates.py, seeds 0-2),
+# each as (lowest centre, centres under PILE_Y_MIN): the dynamic pipeline in the JAX package
+# 0.372-0.428 and 5-8, the port on an H100 0.372-0.414 and 6-14, with half the position
+# iterations 0.274-0.341 and 95-123; the banded one (4 sweeps, warm start) in the port
+# 0.4953 and 0 on every seed, without its warm start 0.385-0.406 and 329-358 (half the
+# position iterations leave it at 0.4944-0.4953). The energy bound scales with the boxes
+# and only catches a blow-up (the faults lower the energy).
+PILE_Y_FLOOR = {"dynamic": 0.5 - 0.15, "banded": 0.5 - 0.05}
+
+
+def check_box_drop(kind: str, vx_fall, pos, vel, angvel, miss) -> dict:
+    """test_box_drop_statistics's gates on a pile of nb boxes (nb a multiple
+    of 256): horizontal momentum held in free fall (|Σ vx| after
+    PILE_FALL_STEPS below PILE_VX_SUM_MAX), bounded penetration (at most
+    nb/256 - 1 centres below PILE_Y_MIN of the pipeline, none below its
+    PILE_Y_FLOOR; at 256 boxes the test's own bound), no popcorn (the
+    highest below PILE_Y_TOP_MAX), kinetic energy below PILE_KE_MAX per 256
+    boxes, and the window certificate summed to 0. Raises AssertionError;
+    returns the readings."""
+    y = pos[1]
+    nb = y.shape[-1]
+    out = {"vx_sum_fall": float(abs(vx_fall.sum())), "lowest": float(y.min()),
+           "below": int((y < PILE_Y_MIN[kind]).sum()), "below_max": nb // 256 - 1,
+           "highest": float(y.max()), "ke": float((vel ** 2).sum() + (angvel ** 2).sum()),
+           "ke_max": PILE_KE_MAX * nb / 256, "miss": int(miss)}
+    ok = (out["vx_sum_fall"] < PILE_VX_SUM_MAX and out["below"] <= out["below_max"]
+          and out["lowest"] > PILE_Y_FLOOR[kind] and out["highest"] < PILE_Y_TOP_MAX
+          and out["ke"] < out["ke_max"] and out["miss"] == 0)
+    if not ok:
+        raise AssertionError(f"{kind} box drop gates: {out}")
+    return out
 
 
 # -- game content: hulls, SDF meshes, heightfields, instanced statics, CCD,
@@ -789,12 +983,16 @@ def _contact_rows(c, device="cpu"):
                             device=device) for x in rows]
 
 
-def contact_ties(got, ref, atol: float = CONTACT_TIE_ATOL):
+def contact_ties(got, ref, atol: float = CONTACT_TIE_ATOL, broadphase=None):
     """Where two contact sets of one frame (Contacts, or (point, normal,
     depth, active) tuples, on any devices) differ, each difference explained
     as a decision at a tie: an active flag whose depth lies within `atol` of
-    0, or another vertex or axis of the same depth (within `atol`) picked by
-    a top-k or an argmin, as when a hull rests face down on an equal face.
+    0 (or, given `broadphase`, each slot's broadphase margin [..., C] as
+    sap_pair_margins gives it, whose pair's AABBs touch within `atol`; or
+    whose normal both sides left unnormalized: the pair's closest points lie
+    under the narrowphase's 1e-6 m distance clamp on both), or another
+    vertex or axis of the same depth (within `atol`) picked by a top-k or an
+    argmin, as when a hull rests face down on an equal face.
     Returns [(slot index, "active" or "tie", margin)]; raises AssertionError
     on a difference that is no tie, a depth more than `atol` apart on a slot
     active in both included."""
@@ -804,6 +1002,16 @@ def contact_ties(got, ref, atol: float = CONTACT_TIE_ATOL):
     for idx in torch.nonzero(ga != ra).tolist():
         i = tuple(idx)
         margin = float(max(abs(gd[i]), abs(rd[i])))
+        if not margin <= atol and broadphase is not None:
+            margin = float(abs(broadphase[i]))
+            if not margin <= atol:
+                # the normal is the closest points' difference over
+                # max(distance, 1e-6): shorter than 1 on both sides, the
+                # points lie under that clamp on both, and the flag
+                # (|n|² > 1e-6) is decided at that degenerate point
+                col = i[:-1] + (slice(None), i[-1])
+                n2 = float(max(torch.sum(gn[col] ** 2), torch.sum(rn[col] ** 2)))
+                margin = n2 ** 0.5 * 1e-6 if n2 < 0.5 else margin
         if not margin <= atol:
             raise AssertionError(f"an active flag flipped away from the threshold at {i}: {margin}")
         out.append((i, "active", margin))
@@ -848,6 +1056,29 @@ def step_on_contacts(pm, step, state, contacts, dt=DT):
         del pm._contact_stage
 
 
+def sap_pair_margins(pm, state):
+    """The broadphase margin of each slot of the sap branch's contact set
+    (PhysicsModule._sap_contacts) from `state`: on a pair's slots, the least
+    overlap of its two AABBs along the three axes (about 0: the overlap test
+    decided at a touch, where rounding picks); inf on the per-body stream.
+    [..., C] on the state's device."""
+    from lumixengine_tpu_torch.ops import physics_big as PBG
+    from lumixengine_tpu_torch.ops import physics_ops as P
+
+    d = pm.statics().on(state.local.pos.device, pm.system)
+    pos, rot = pm._poses(state, d)
+    mn, mx = P.world_aabb(pos, rot, d.shape, d.radius, d.he)
+    far = torch.where(d.occ, 0.0, 1e9)
+    mn, mx = mn + far, mx + far
+    pa, pb, _ok = PBG.sap_pairs(pos, mn, mx, pm.sap_neighbors)
+    m = torch.amin(torch.minimum(P.take_vecs(mx, pb) - P.take_vecs(mn, pa),
+                                 P.take_vecs(mx, pa) - P.take_vecs(mn, pb)), dim=-2)
+    m = m.tile((pm.points_per_pair,))
+    stream = pm._contact_stage(state, DT).contacts.depth.shape[-1]
+    return torch.cat([torch.full(m.shape[:-1] + (stream - m.shape[-1],), float("inf"),
+                                 device=m.device), m], -1)
+
+
 def state_gap(got, ref, pos_atol: float, vel_atol: float, sleep_flips: bool = False):
     """Two states of one frame (bridge.state_to_numpy dicts) against the
     tolerances: POS_FIELDS within `pos_atol`, VEL_FIELDS within `vel_atol`,
@@ -881,9 +1112,12 @@ def state_gap(got, ref, pos_atol: float, vel_atol: float, sleep_flips: bool = Fa
 
 
 def grid_rows(g):
-    """Banded grids ([3, k, K, NB] points and normals, [k, K, NB] depths and
-    flags) as contact rows: slots flattened to [3, S] and [S]."""
-    return tuple(x.reshape(x.shape[0], -1) if x.dim() == 4 else x.reshape(-1) for x in g)
+    """Banded grids (points and normals [..., 3, k, K, NB], depths and flags
+    [..., k, K, NB], any world axes) as contact rows: slots flattened to
+    [3, S] and [S]."""
+    point, normal, depth, active = g
+    return (point.movedim(-4, 0).reshape(3, -1), normal.movedim(-4, 0).reshape(3, -1),
+            depth.reshape(-1), active.reshape(-1))
 
 
 def step_on_banded_sat(step, start, ref_sat, dt=DT):
@@ -918,8 +1152,10 @@ def explain_break(step, start, ref, gap, drift: float, pm=None, ref_contacts=Non
     (errs, first break or None). If `step` from `start` holds, the two runs'
     drift before the frame (`drift`, within the tolerances) flipped a
     decision: ("drift", drift). Else the reference's contact decisions from
-    `start` are put in place of the step's own: on the all-pairs and pruned
-    branches `ref_contacts()` gives its contact set, on the banded branch
+    `start` are put in place of the step's own: on the all-pairs, pruned
+    and sap branches `ref_contacts()` gives its contact set (on sap an
+    active flag may also flip where its pair's AABBs touch,
+    sap_pair_margins), on the banded branch
     `ref_sat` computes its polytope SAT grids (step_on_banded_sat). The two
     sets must differ only at ties (contact_ties) or, with no tie, by at most
     CONTACT_TIE_ATOL (contact_gap), and `step` on the reference's decisions
@@ -936,7 +1172,9 @@ def explain_break(step, start, ref, gap, drift: float, pm=None, ref_contacts=Non
     elif ref_contacts is not None:
         ref_c = ref_contacts()
         own_c = pm._contact_stage(start, DT).contacts
-        ties, cgap = contact_ties(own_c, ref_c), contact_gap(own_c, ref_c)
+        st = pm.statics()
+        margins = sap_pair_margins(pm, start) if st.sap and not st.banded else None
+        ties, cgap = contact_ties(own_c, ref_c, broadphase=margins), contact_gap(own_c, ref_c)
         state = step_on_contacts(pm, step, start, ref_c)
     else:
         raise AssertionError(f"{broke} from the reference's own state")

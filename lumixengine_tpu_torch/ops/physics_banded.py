@@ -1,32 +1,40 @@
 """Banded sweep-order pipeline (counterpart of
 ``lumixengine_tpu/ops/physics_banded.py``): the shift views, the banded
 partner views, the leading-component-axis contact frame helpers, the
-multi-offset column sweeps with their coverage certificates, and what the
-PhysicsModule's banded branch runs on them: the banded narrowphase grids
-(analytic, and the polytope SAT for pairs with a convex hull),
-the multi-sweep Jacobi solve and position projection, the warm-start match
-across frames and the cross-sweep dedup. The slot-compacted pipeline
-(``physics_slots.py``) stands on the first four.
+multi-offset column sweeps with their coverage certificates, the banded
+narrowphase grids (analytic, and the polytope SAT for pairs with a convex
+hull), the single-sweep and multi-sweep Jacobi solves and position
+projections, the warm-start match across frames, the cross-sweep dedup, the
+exact all-pairs coverage count ``exact_window_miss`` and the stand-alone
+world step ``make_banded_world_step``. The PhysicsModule's banded branch
+runs the multi-sweep pipeline; the slot-compacted pipeline
+(``physics_slots.py``) stands on the sweeps and views.
 
 After a sweep's sort every candidate pair joins rank i to rank i+d, d <= K,
 so a pair's data is a shifted view and an impulse's scatter a shifted sum:
 the solve runs on [k, K, NB] slot grids with one rank gather and one
-scatter per sweep and pass. The reference's single-sweep
-``solve_contacts_banded`` / ``project_positions_banded``, its
-``make_banded_world_step`` (the bench's stand-alone banded world step,
-outside the PhysicsModule) and ``exact_window_miss`` are not ported.
+scatter per sweep and pass.
 
-Layout: body axis last; where a component axis exists it LEADS (``[3, ...,
-NB]``), as in the reference's banded grids. Sweep orders, ranks and column
-keys are int32 as in the reference; index arithmetic casts to int64 where a
-tensor is used to index.
+Layout: body axis last. Every function takes leading world axes, as the
+reference's take them under ``vmap``: per-body rows ``[..., NB]``, vectors
+``[..., 3, NB]``, and the banded grids ``[..., 3, k, K, NB]`` /
+``[..., 3, G, NB]`` with their component axis right after the world axes
+(axis -4 of a pair grid, -3 of a ground grid). Sweep orders are int64
+index tensors ``[..., NB]`` (each world sorts its own bodies: a gather
+along the last axis), ranks and column keys int32 as in the reference.
+Every argsort is stable, as ``jnp.argsort`` is: ties decide ranks.
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from lumixengine_tpu_torch.core import math as lm
+from lumixengine_tpu_torch.ops import physics_ops as P
 
 _FAR = 1 << 24        # sort key offset that puts dead slots last
 
@@ -73,22 +81,43 @@ def wrap_int32(x):
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def _tangents0(n):
-    """Orthonormal tangents for normals with the component axis leading."""
-    nx = n[0]
+def take_ranked(x, order):
+    """x [..., *inner, NB] at per-world indices order [..., M] along the
+    last axis (x carries order's world axes) → [..., *inner, M]."""
+    if order.dim() == 1:
+        return x.index_select(-1, order)
+    b = order.dim() - 1
+    idx = order.reshape(order.shape[:-1] + (1,) * (x.dim() - b - 1) + order.shape[-1:])
+    return torch.gather(x, -1, idx.expand(x.shape[:-1] + order.shape[-1:]))
+
+
+def unrank(x_r, order):
+    """Rank-ordered [..., *inner, NB] back to body order (order: rank →
+    body, [..., NB])."""
+    if order.dim() == 1:
+        return torch.zeros_like(x_r).index_copy(-1, order, x_r)
+    b = order.dim() - 1
+    idx = order.reshape(order.shape[:-1] + (1,) * (x_r.dim() - b - 1) + order.shape[-1:])
+    return torch.zeros_like(x_r).scatter_(-1, idx.expand(x_r.shape), x_r)
+
+
+def _tangents0(n, axis: int = 0):
+    """Orthonormal tangents for normals whose component axis is `axis`
+    (the banded grids' leading one)."""
+    nx = n.select(axis, 0)
     use_x = torch.abs(nx) < 0.9
     h = torch.stack([torch.where(use_x, 1.0, 0.0), torch.where(use_x, 0.0, 1.0),
-                     torch.zeros_like(nx)], dim=0)
-    t1 = lm.cross(n, h, axis=0)
-    t1 = t1 * torch.rsqrt(torch.clamp_min(torch.sum(t1 * t1, dim=0, keepdim=True), 1e-12))
-    t2 = lm.cross(n, t1, axis=0)
+                     torch.zeros_like(nx)], dim=axis)
+    t1 = lm.cross(n, h, axis=axis)
+    t1 = t1 * torch.rsqrt(torch.clamp_min(torch.sum(t1 * t1, dim=axis, keepdim=True), 1e-12))
+    t2 = lm.cross(n, t1, axis=axis)
     return t1, t2
 
 
-def _ang0(r, d, II):
-    """d · ((I⁻¹ (r × d)) × r), leading component axis."""
-    rxd = lm.cross(r, d, axis=0)
-    return torch.sum(lm.cross(II * rxd, r, axis=0) * d, dim=0)
+def _ang0(r, d, II, axis: int = 0):
+    """d · ((I⁻¹ (r × d)) × r) over the component axis `axis`."""
+    rxd = lm.cross(r, d, axis=axis)
+    return torch.sum(lm.cross(II * rxd, r, axis=axis) * d, dim=axis)
 
 
 def _beyond(nb: int, K: int, device):
@@ -98,39 +127,40 @@ def _beyond(nb: int, K: int, device):
 
 def window_miss(s_mn, s_mx, K: int, occ=None):
     """Bodies whose x-extent overlaps past the K-th successor — candidates the
-    bounded window may prune (0 ⇒ the window was wide enough this step)."""
+    bounded window may prune (0 ⇒ the window was wide enough this step).
+    Rank-ordered inputs; one count per world."""
     in_range, idx = _beyond(s_mn.shape[-1], K, s_mn.device)
     m = (s_mx[..., 0, :] >= s_mn[..., 0, :].index_select(-1, idx)) & in_range
     if occ is not None:
         m = m & occ
-    return torch.sum(m).to(torch.int32)
+    return torch.sum(m, dim=-1).to(torch.int32)
 
 
 def sweep_orders(mn, mx, occ, n_sweeps: int):
-    """Sort orders for multi-axis banded sweeps (single world, [3, NB]).
+    """Sort orders for multi-axis banded sweeps, per world ([..., 3, NB]).
 
     n_sweeps = 1: the classic min-x sweep; 2: column sweeps at offsets
     (0,0), (h,h); 4: all four (x, z) offset combos — the guaranteed-coverage
     mode (every overlapping pair shares a column in one of them); 5: classic
     + the four.  Column sweeps sort by the packed (qx, qz) cell id, then by
-    min-y within a column (two stable sorts).
+    min-y within a column (two stable sorts); the cell is sized by each
+    world's largest extent.
 
-    Returns (orders [rank → body, int64 [NB] each: index tensors, the
-    reference's int32 values], ranks [body → rank, int32 [NB] each],
-    col_keys [int32 [NB] body-order packed column id per sweep, or None for
-    the classic sweep])."""
+    Returns (orders [rank → body, int64 [..., NB] each], ranks [body → rank,
+    int32 [..., NB] each], col_keys [int32 [..., NB] body-order packed column
+    id per sweep, or None for the classic sweep])."""
     c = 0.5 * (mn + mx)
     ext = mx - mn
-    max_ext = torch.max(torch.where(occ[..., None, :], ext, 0.0))
-    cell = torch.clamp_min(2.02 * max_ext, 1e-3)
+    max_ext = torch.amax(torch.where(occ[..., None, :], ext, 0.0), dim=(-2, -1))
+    cell = torch.clamp_min(2.02 * max_ext, 1e-3).unsqueeze(-1)
     half = 0.5 * cell
     far = torch.where(occ, 0, _FAR)                      # int64
     farf = torch.where(occ, 0.0, 1e18)
 
     def lex_order(minor_vals, key_packed):
         o = torch.argsort(minor_vals + farf, dim=-1, stable=True)
-        kk = wrap_int32(key_packed.to(torch.int64) + far).index_select(-1, o)
-        return o.index_select(-1, torch.argsort(kk, dim=-1, stable=True))
+        kk = take_ranked(wrap_int32(key_packed.to(torch.int64) + far), o)
+        return take_ranked(o, torch.argsort(kk, dim=-1, stable=True))
 
     def col_order(off_x, off_z):
         qx = torch.floor((c[..., 0, :] - off_x) / cell).to(torch.int32)
@@ -156,36 +186,34 @@ def sweep_orders(mn, mx, occ, n_sweeps: int):
         orders.append(o)
         col_keys.append(key)
     iota = torch.arange(mn.shape[-1], dtype=torch.int32, device=mn.device)
-    ranks = [torch.empty_like(iota).scatter_(0, o, iota) for o in orders]
+    ranks = [unrank(iota.expand(o.shape), o) for o in orders]
     return orders, ranks, col_keys
 
 
 def column_window_miss(s_mn, s_mx, s_col, K: int, occ=None):
     """Per-sweep exactness certificate for a column sweep: counts bodies
     whose y-extent reaches their SAME-COLUMN rank-(i+K+1) successor. All
-    inputs rank-ordered."""
+    inputs rank-ordered; one count per world."""
     in_range, idx = _beyond(s_mn.shape[-1], K, s_mn.device)
     m = ((s_mx[..., 1, :] >= s_mn[..., 1, :].index_select(-1, idx))
          & (s_col == s_col.index_select(-1, idx)) & in_range)
     if occ is not None:
         m = m & occ
-    return torch.sum(m).to(torch.int32)
+    return torch.sum(m, dim=-1).to(torch.int32)
 
 
 def banded_pair_grids(sp, sr, s_rad, s_he, s_shape, s_mn, s_mx, K: int, k: int,
                       any_caps: bool):
-    """Banded narrowphase on rank-ordered body data (single world): the
-    partner views through pair_contacts_from_data → ([.., k, K, NB]
+    """Banded narrowphase on rank-ordered body data: the partner views
+    through pair_contacts_from_data → ([.., (3,) k, K, NB]
     point/normal/depth/raw-active grids, ok = rank validity & AABB overlap
-    [K, NB]). Callers AND their own masks (layers, occupancy, dynamics) into
-    the active grid."""
-    from lumixengine_tpu_torch.ops import physics_ops as P
-
+    [.., K, NB]). Callers AND their own masks (layers, occupancy, dynamics)
+    into the active grid."""
     nb = sp.shape[-1]
     valid_rank = (torch.arange(1, K + 1, device=sp.device)[:, None]
                   + torch.arange(nb, device=sp.device)[None, :]) < nb
     bmn, bmx = banded_pair_data(s_mn, K), banded_pair_data(s_mx, K)
-    overlap = torch.all((s_mn[:, None, :] <= bmx) & (bmn <= s_mx[:, None, :]), dim=-3)
+    overlap = torch.all((s_mn[..., :, None, :] <= bmx) & (bmn <= s_mx[..., :, None, :]), dim=-3)
     ok = overlap & valid_rank
 
     def bcast(x):
@@ -208,9 +236,9 @@ def banded_pair_grids(sp, sr, s_rad, s_he, s_shape, s_mn, s_mx, K: int, k: int,
 def banded_polytope_grids(sp, sr, s_pv, s_pax, s_prad, K: int, k: int):
     """The padded-polytope SAT (convex_ops.polytope_pair_contacts_from_data,
     the narrowphase of the all-pairs branch's convex pairs) over the banded
-    partner views. Inputs rank-ordered: s_pv [3, V, NB] local vertices,
-    s_pax [3, F, NB] local unit face axes, s_prad [NB] support radii.
-    Returns [(3,) k, K, NB] grids (point, normal, depth, active), the
+    partner views. Inputs rank-ordered: s_pv [.., 3, V, NB] local vertices,
+    s_pax [.., 3, F, NB] local unit face axes, s_prad [.., NB] support radii.
+    Returns [.., (3,) k, K, NB] grids (point, normal, depth, active), the
     contract of banded_pair_grids without its ok mask."""
     from lumixengine_tpu_torch.ops import convex_ops as CV
 
@@ -234,7 +262,7 @@ def banded_polytope_grids(sp, sr, s_pv, s_pax, s_prad, K: int, k: int):
 
 
 def _degree(sw, K: int):
-    """Active contacts per body of one sweep, in its rank space [NB]."""
+    """Active contacts per body of one sweep, in its rank space [.., NB]."""
     pa = sw["p_active"].to(torch.float32)
     deg = torch.sum(pa, dim=(-3, -2)) + back_sum(torch.sum(pa, dim=-3), K)
     if "g_active" in sw:
@@ -242,124 +270,122 @@ def _degree(sw, K: int):
     return deg
 
 
-def _body_degree(sweeps, nb: int, device):
-    """Active contacts per body over every sweep, in body order [NB]."""
-    deg = torch.zeros(nb, device=device)
+def _body_degree(sweeps, shape, device):
+    """Active contacts per body over every sweep, in body order [.., NB]."""
+    deg = torch.zeros(shape, device=device)
     for sw in sweeps:
-        deg = deg + torch.zeros_like(deg).index_copy(
-            -1, sw["order"], _degree(sw, sw["p_normal"].shape[-2]))
+        deg = deg + unrank(_degree(sw, sw["p_normal"].shape[-2]), sw["order"])
     return deg
 
 
-def _unrank(x_r, order):
-    """Rank-ordered [.., NB] back to body order."""
-    return torch.zeros_like(x_r).index_copy(-1, order, x_r)
-
-
-def _six(imp, r):
-    return torch.cat([imp, lm.cross(r, imp, axis=0)], dim=0)
+def _six(imp, r, axis: int):
+    return torch.cat([imp, lm.cross(r, imp, axis=axis)], dim=axis)
 
 
 def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt,
                                 iterations: int = 8, baumgarte: float = 0.0,
                                 slop: float = 0.005, relaxation: float = 0.75, warm=None):
-    """Multi-sweep projected-Jacobi PGS (single world, body-order vel/angvel
-    [3, NB]): each pass applies every sweep's banded contact block in its
-    own rank space. `sweeps` are dicts with `order` (int64 [NB]) and the
-    banded grids p_point/p_normal ([3, k, K, NB]), p_depth/p_active/p_fric/
-    p_rest ([k, K, NB]); the first may also carry ground grids g_* ([3, G,
-    NB] / [G, NB]). `warm`: per-sweep dicts {"p": (λn, λt1, λt2) [k, K, NB]
-    in this frame's rank space, "g": the ground lambdas [G, NB]}, applied
+    """Multi-sweep projected-Jacobi PGS (body-order vel/angvel/pos/iiw
+    [..., 3, NB], inverse masses [NB] or [..., NB]): each pass applies every
+    sweep's banded contact block in its own rank space. `sweeps` are dicts
+    with `order` (int64 [..., NB]) and the banded grids p_point/p_normal
+    ([..., 3, k, K, NB]), p_depth/p_active/p_fric/p_rest ([..., k, K, NB]);
+    the first may also carry ground grids g_* ([..., 3, G, NB] / [..., G,
+    NB]). `warm`: per-sweep dicts {"p": (λn, λt1, λt2) [..., k, K, NB] in
+    this frame's rank space, "g": the ground lambdas [..., G, NB]}, applied
     up front and seeding the accumulators. Returns (vel, angvel, the
     per-sweep final lambdas (gl, gl1, gl2, pl, pl1, pl2))."""
     nb = vel.shape[-1]
-    deg_body = _body_degree(sweeps, nb, vel.device)
+    body = vel.shape[:-2] + (nb,)
+    deg_body = _body_degree(sweeps, body, vel.device)
+    im_body = inv_mass_body.expand(body)
 
     consts = []
     for sw in sweeps:
         order = sw["order"]
         K = sw["p_normal"].shape[-2]
-        s_im = inv_mass_body.index_select(-1, order)
-        s_iiw = iiw_body.index_select(-1, order)
-        s_pos = pos_body.index_select(-1, order)
-        s_deg = deg_body.index_select(-1, order)
+        s_im = take_ranked(im_body, order)
+        s_iiw = take_ranked(iiw_body, order)
+        s_pos = take_ranked(pos_body, order)
+        s_deg = take_ranked(deg_body, order)
         c = {"order": order, "K": K, "im": s_im, "iiw": s_iiw}
         pos_b = banded_pair_data(s_pos, K)
         iiw_b = banded_pair_data(s_iiw, K)
         im_b = banded_pair_data(s_im, K)
-        c["p_ra"] = sw["p_point"] - s_pos[:, None, None, :]
-        c["p_rb"] = sw["p_point"] - pos_b[:, None, :, :]
-        c["p_t1"], c["p_t2"] = _tangents0(sw["p_normal"])
-        imab = s_im[None, None, :] + im_b[None, :, :]
-        II_a4, II_b4 = s_iiw[:, None, None, :], iiw_b[:, None, :, :]
+        c["p_ra"] = sw["p_point"] - s_pos[..., :, None, None, :]
+        c["p_rb"] = sw["p_point"] - pos_b[..., :, None, :, :]
+        c["p_t1"], c["p_t2"] = _tangents0(sw["p_normal"], -4)
+        imab = s_im[..., None, None, :] + im_b[..., None, :, :]
+        II_a4, II_b4 = s_iiw[..., :, None, None, :], iiw_b[..., :, None, :, :]
         for key, dvec in (("p_kn", sw["p_normal"]), ("p_kt1", c["p_t1"]), ("p_kt2", c["p_t2"])):
-            c[key] = torch.clamp_min(imab + _ang0(c["p_ra"], dvec, II_a4)
-                                     + _ang0(c["p_rb"], dvec, II_b4), 1e-9)
+            c[key] = torch.clamp_min(imab + _ang0(c["p_ra"], dvec, II_a4, -4)
+                                     + _ang0(c["p_rb"], dvec, II_b4, -4), 1e-9)
         deg_b = banded_pair_data(s_deg, K)
         c["p_relax"] = torch.clamp_max(1.6 / torch.clamp_min(
-            torch.maximum(s_deg[None, None, :], deg_b[None, :, :]), 1.0), relaxation)
+            torch.maximum(s_deg[..., None, None, :], deg_b[..., None, :, :]), 1.0), relaxation)
         c["p_bias"] = (baumgarte / dt) * torch.clamp_min(sw["p_depth"] - slop, 0.0)
         if "g_active" in sw:
-            c["g_r"] = sw["g_point"] - s_pos[:, None, :]
-            c["g_t1"], c["g_t2"] = _tangents0(sw["g_normal"])
-            imn = s_im[None, :]
+            c["g_r"] = sw["g_point"] - s_pos[..., :, None, :]
+            c["g_t1"], c["g_t2"] = _tangents0(sw["g_normal"], -3)
+            imn = s_im[..., None, :]
             for key, dvec in (("g_kn", sw["g_normal"]), ("g_kt1", c["g_t1"]),
                               ("g_kt2", c["g_t2"])):
-                c[key] = torch.clamp_min(imn + _ang0(c["g_r"], dvec, s_iiw[:, None, :]), 1e-9)
-            c["g_relax"] = torch.clamp_max(1.6 / torch.clamp_min(s_deg[None, :], 1.0),
+                c[key] = torch.clamp_min(imn + _ang0(c["g_r"], dvec, s_iiw[..., :, None, :], -3),
+                                         1e-9)
+            c["g_relax"] = torch.clamp_max(1.6 / torch.clamp_min(s_deg[..., None, :], 1.0),
                                            relaxation)
             c["g_bias"] = (baumgarte / dt) * torch.clamp_min(sw["g_depth"] - slop, 0.0)
         consts.append(c)
 
     def rel_vels(c, v_r, w_r):
         K = c["K"]
-        vw = torch.cat([v_r, w_r], dim=0)
-        va_p = vw[0:3][:, None, None, :] + lm.cross(
-            vw[3:6][:, None, None, :].expand(c["p_ra"].shape), c["p_ra"], axis=0)
+        vw = torch.cat([v_r, w_r], dim=-2)
+        va_p = vw[..., 0:3, None, None, :] + lm.cross(
+            vw[..., 3:6, None, None, :].expand(c["p_ra"].shape), c["p_ra"], axis=-4)
         vw_b = banded_pair_data(vw, K)
-        vb_p = vw_b[0:3][:, None, :, :] + lm.cross(
-            vw_b[3:6][:, None, :, :].expand(c["p_rb"].shape), c["p_rb"], axis=0)
+        vb_p = vw_b[..., 0:3, None, :, :] + lm.cross(
+            vw_b[..., 3:6, None, :, :].expand(c["p_rb"].shape), c["p_rb"], axis=-4)
         g_vr = None
         if "g_r" in c:
-            g_vr = -(vw[0:3][:, None, :] + lm.cross(vw[3:6][:, None, :].expand(c["g_r"].shape),
-                                                     c["g_r"], axis=0))
+            g_vr = -(vw[..., 0:3, None, :] + lm.cross(
+                vw[..., 3:6, None, :].expand(c["g_r"].shape), c["g_r"], axis=-3))
         return g_vr, vb_p - va_p
 
     for c, sw in zip(consts, sweeps):
-        g_vr0, p_vr0 = rel_vels(c, vel.index_select(-1, c["order"]),
-                                angvel.index_select(-1, c["order"]))
-        p_vn0 = torch.sum(p_vr0 * sw["p_normal"], dim=0)
+        g_vr0, p_vr0 = rel_vels(c, take_ranked(vel, c["order"]), take_ranked(angvel, c["order"]))
+        p_vn0 = torch.sum(p_vr0 * sw["p_normal"], dim=-4)
         c["p_target"] = torch.maximum(c["p_bias"], torch.where(
             p_vn0 < -0.5, -sw["p_rest"] * p_vn0, 0.0))
         if g_vr0 is not None:
-            g_vn0 = torch.sum(g_vr0 * sw["g_normal"], dim=0)
+            g_vn0 = torch.sum(g_vr0 * sw["g_normal"], dim=-3)
             c["g_target"] = torch.maximum(c["g_bias"], torch.where(
                 g_vn0 < -0.5, -sw["g_rest"] * g_vn0, 0.0))
 
-    def pgs(vr, nrm, t1, t2, target, kn, kt1, kt2, relax, fric, active, l0, l1, l2):
+    def pgs(vr, nrm, t1, t2, target, kn, kt1, kt2, relax, fric, active, l0, l1, l2, ax):
         """One projected-Jacobi update of a slot grid → (impulse, dλn, dλt1, dλt2)."""
-        vn = torch.sum(vr * nrm, dim=0)
+        vn = torch.sum(vr * nrm, dim=ax)
         dln = (target - vn) / kn * relax
         dln = torch.where(active, torch.clamp_min(l0 + dln, 0.0) - l0, 0.0)
         max_f = fric * (l0 + dln)
-        n1 = torch.clamp(l1 + (-torch.sum(vr * t1, dim=0) / kt1) * relax, -max_f, max_f)
-        n2 = torch.clamp(l2 + (-torch.sum(vr * t2, dim=0) / kt2) * relax, -max_f, max_f)
+        n1 = torch.clamp(l1 + (-torch.sum(vr * t1, dim=ax) / kt1) * relax, -max_f, max_f)
+        n2 = torch.clamp(l2 + (-torch.sum(vr * t2, dim=ax) / kt2) * relax, -max_f, max_f)
         d1 = torch.where(active, n1 - l1, 0.0)
         d2 = torch.where(active, n2 - l2, 0.0)
-        imp = torch.where(active[None], nrm * dln[None] + t1 * d1[None] + t2 * d2[None], 0.0)
+        imp = torch.where(active.unsqueeze(ax), nrm * dln.unsqueeze(ax) + t1 * d1.unsqueeze(ax)
+                          + t2 * d2.unsqueeze(ax), 0.0)
         return imp, dln, d1, d2
 
     def apply(c, v_r, w_r, g_imp, p_imp):
         acc = 0.0
         if g_imp is not None:
-            acc = -torch.sum(_six(g_imp, c["g_r"]), dim=-2)
-        acc = acc - torch.sum(_six(p_imp, c["p_ra"]), dim=(-3, -2))
-        acc = acc + back_sum(torch.sum(_six(p_imp, c["p_rb"]), dim=-3), c["K"])
-        return v_r + acc[0:3] * c["im"][None, :], w_r + acc[3:6] * c["iiw"]
+            acc = -torch.sum(_six(g_imp, c["g_r"], -3), dim=-2)
+        acc = acc - torch.sum(_six(p_imp, c["p_ra"], -4), dim=(-3, -2))
+        acc = acc + back_sum(torch.sum(_six(p_imp, c["p_rb"], -4), dim=-3), c["K"])
+        return v_r + acc[..., 0:3, :] * c["im"][..., None, :], w_r + acc[..., 3:6, :] * c["iiw"]
 
     def sweep_iter(c, sw, v, w, lams):
         order = c["order"]
-        v_r, w_r = v.index_select(-1, order), w.index_select(-1, order)
+        v_r, w_r = take_ranked(v, order), take_ranked(w, order)
         g_vr, p_vr = rel_vels(c, v_r, w_r)
         gl, gl1, gl2, pl, pl1, pl2 = lams
         g_imp = None
@@ -367,13 +393,14 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
             g_imp, g_dln, g_d1, g_d2 = pgs(g_vr, sw["g_normal"], c["g_t1"], c["g_t2"],
                                           c["g_target"], c["g_kn"], c["g_kt1"], c["g_kt2"],
                                           c["g_relax"], sw["g_fric"], sw["g_active"],
-                                          gl, gl1, gl2)
+                                          gl, gl1, gl2, -3)
             gl, gl1, gl2 = gl + g_dln, gl1 + g_d1, gl2 + g_d2
         p_imp, p_dln, p_d1, p_d2 = pgs(p_vr, sw["p_normal"], c["p_t1"], c["p_t2"],
                                       c["p_target"], c["p_kn"], c["p_kt1"], c["p_kt2"],
-                                      c["p_relax"], sw["p_fric"], sw["p_active"], pl, pl1, pl2)
+                                      c["p_relax"], sw["p_fric"], sw["p_active"], pl, pl1, pl2,
+                                      -4)
         v_r, w_r = apply(c, v_r, w_r, g_imp, p_imp)
-        return (_unrank(v_r, order), _unrank(w_r, order),
+        return (unrank(v_r, order), unrank(w_r, order),
                 (gl, gl1, gl2, pl + p_dln, pl1 + p_d1, pl2 + p_d2))
 
     lams = []
@@ -395,13 +422,14 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
             order = c["order"]
             g_imp = None
             if "g_r" in c and gl.dim():
-                g_imp = torch.where(sw["g_active"][None], sw["g_normal"] * gl[None]
-                                    + c["g_t1"] * gl1[None] + c["g_t2"] * gl2[None], 0.0)
-            p_imp = torch.where(sw["p_active"][None], sw["p_normal"] * pl[None]
-                                + c["p_t1"] * pl1[None] + c["p_t2"] * pl2[None], 0.0)
-            v_r, w_r = apply(c, vel.index_select(-1, order), angvel.index_select(-1, order),
-                             g_imp, p_imp)
-            vel, angvel = _unrank(v_r, order), _unrank(w_r, order)
+                g_imp = torch.where(sw["g_active"].unsqueeze(-3), sw["g_normal"] * gl.unsqueeze(-3)
+                                    + c["g_t1"] * gl1.unsqueeze(-3)
+                                    + c["g_t2"] * gl2.unsqueeze(-3), 0.0)
+            p_imp = torch.where(sw["p_active"].unsqueeze(-4), sw["p_normal"] * pl.unsqueeze(-4)
+                                + c["p_t1"] * pl1.unsqueeze(-4) + c["p_t2"] * pl2.unsqueeze(-4),
+                                0.0)
+            v_r, w_r = apply(c, take_ranked(vel, order), take_ranked(angvel, order), g_imp, p_imp)
+            vel, angvel = unrank(v_r, order), unrank(w_r, order)
 
     for _ in range(iterations):
         for i, (c, sw) in enumerate(zip(consts, sweeps)):
@@ -412,57 +440,64 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
 def match_warm_lams(prev_lams, prev_rank, order, K: int):
     """Carry accumulated pair impulses across frames in rank space.
 
-    prev_lams [L, k, K, NB] in the previous frame's rank space (λn, λt1,
-    λt2), prev_rank int32 [NB] the previous body → rank map (-1: cold),
-    order int64 [NB] this frame's rank → body map. Returns [L, k, K, NB] in
-    this frame's rank space: slot (d-1, i) holds the previous lambdas of the
-    pair (order[i], order[i+d]) if it sat in the previous window in either
-    orientation, else 0. A pair whose ranks crossed keeps λn and λt1 and
-    flips λt2 (n' = -n gives t1' = -t1, t2' = t2)."""
+    prev_lams [..., L, k, K, NB] in the previous frame's rank space (λn,
+    λt1, λt2), prev_rank int32 [..., NB] the previous body → rank map (-1:
+    cold), order int64 [..., NB] this frame's rank → body map. Returns
+    [..., L, k, K, NB] in this frame's rank space: slot (d-1, i) holds the
+    previous lambdas of the pair (order[i], order[i+d]) if it sat in the
+    previous window in either orientation, else 0. A pair whose ranks
+    crossed keeps λn and λt1 and flips λt2 (n' = -n gives t1' = -t1, t2' =
+    t2)."""
     nb = order.shape[-1]
-    r2p = prev_rank.index_select(-1, order).to(torch.int64)
+    r2p = take_ranked(prev_rank, order).to(torch.int64)
     r2p_safe = torch.where(r2p < 0, -(1 << 20), r2p)
-    partner = banded_pair_data(r2p_safe, K)              # [K, NB]
-    delta = partner - r2p_safe[None, :]
+    partner = banded_pair_data(r2p_safe, K)              # [.., K, NB]
+    delta = partner - r2p_safe[..., None, :]
     fwd = (delta >= 1) & (delta <= K)
     bwd = (delta <= -1) & (delta >= -K)
-    valid = (fwd | bwd) & (r2p[None, :] >= 0) & (partner >= 0)
+    valid = (fwd | bwd) & (r2p[..., None, :] >= 0) & (partner >= 0)
     didx = torch.where(fwd, delta, -delta) - 1
-    base = torch.where(fwd, r2p_safe[None, :], partner)
+    base = torch.where(fwd, r2p_safe[..., None, :], partner)
     flat = torch.clamp(didx * nb + base, 0, K * nb - 1)
     src = prev_lams.reshape(prev_lams.shape[:-2] + (K * nb,))
-    out = src.index_select(-1, flat.reshape(-1)).reshape(prev_lams.shape)
-    out = torch.where(valid, out, 0.0)
-    sign = torch.where(bwd, -1.0, 1.0)
-    return torch.cat([out[:2], out[2:3] * sign, out[3:]], dim=0)
+    out = take_ranked(src, flat.reshape(flat.shape[:-2] + (K * nb,))).reshape(prev_lams.shape)
+    out = torch.where(valid[..., None, None, :, :], out, 0.0)
+    sign = torch.where(bwd, -1.0, 1.0)[..., None, None, :, :]
+    return torch.cat([out[..., 0:2, :, :, :], out[..., 2:3, :, :, :] * sign,
+                      out[..., 3:, :, :, :]], dim=-4)
 
 
 def project_positions_banded_multi(pos_body, sweeps, inv_mass_body, iterations: int = 3,
                                    slop: float = 0.005, relaxation: float = 0.8,
                                    max_correction: float = 0.05):
-    """Multi-sweep split-impulse position projection (single world,
-    body-order positions [3, NB]); the per-frame push is capped at
-    max_correction, as in the reference."""
+    """Multi-sweep split-impulse position projection (body-order positions
+    [..., 3, NB]); the per-frame push is capped at max_correction, as in the
+    reference."""
     if iterations <= 0:
         return pos_body
-    deg_body = _body_degree(sweeps, pos_body.shape[-1], pos_body.device)
+    body = pos_body.shape[:-2] + pos_body.shape[-1:]
+    deg_body = _body_degree(sweeps, body, pos_body.device)
+    im_body = inv_mass_body.expand(body)
     consts = []
     for sw in sweeps:
         order = sw["order"]
         K = sw["p_normal"].shape[-2]
-        s_im = inv_mass_body.index_select(-1, order)
-        s_deg = deg_body.index_select(-1, order)
+        s_im = take_ranked(im_body, order)
+        s_deg = take_ranked(deg_body, order)
         c = {"order": order, "K": K, "im": s_im,
-             "p_k": torch.clamp_min(s_im[None, None, :] + banded_pair_data(s_im, K)[None], 1e-9),
+             "p_k": torch.clamp_min(s_im[..., None, None, :]
+                                    + banded_pair_data(s_im, K)[..., None, :, :], 1e-9),
              "p_e0": torch.where(sw["p_active"],
                                  torch.clamp(sw["p_depth"] - slop, 0.0, max_correction), 0.0),
              "p_rx": torch.clamp_max(1.6 / torch.clamp_min(torch.maximum(
-                 s_deg[None, None, :], banded_pair_data(s_deg, K)[None]), 1.0), relaxation)}
+                 s_deg[..., None, None, :], banded_pair_data(s_deg, K)[..., None, :, :]), 1.0),
+                 relaxation)}
         if "g_active" in sw:
-            c["g_k"] = torch.clamp_min(s_im[None, :], 1e-9)
+            c["g_k"] = torch.clamp_min(s_im[..., None, :], 1e-9)
             c["g_e0"] = torch.where(sw["g_active"],
                                     torch.clamp(sw["g_depth"] - slop, 0.0, max_correction), 0.0)
-            c["g_rx"] = torch.clamp_max(1.6 / torch.clamp_min(s_deg[None, :], 1.0), relaxation)
+            c["g_rx"] = torch.clamp_max(1.6 / torch.clamp_min(s_deg[..., None, :], 1.0),
+                                        relaxation)
         consts.append(c)
 
     dpos = torch.zeros_like(pos_body)
@@ -471,37 +506,282 @@ def project_positions_banded_multi(pos_body, sweeps, inv_mass_body, iterations: 
     for _ in range(iterations):
         for i, (c, sw) in enumerate(zip(consts, sweeps)):
             order = c["order"]
-            dp_r = dpos.index_select(-1, order)
+            dp_r = take_ranked(dpos, order)
             gl, pl = lams[i]
             d_acc = 0.0
             if "g_k" in c:
-                g_sep = torch.sum((-dp_r[:, None, :]) * sw["g_normal"], dim=0)
+                g_sep = torch.sum((-dp_r[..., :, None, :]) * sw["g_normal"], dim=-3)
                 g_dl = (c["g_e0"] - g_sep) / c["g_k"] * c["g_rx"]
                 g_dl = torch.where(sw["g_active"], torch.clamp_min(gl + g_dl, 0.0) - gl, 0.0)
-                d_acc = -torch.sum(torch.where(sw["g_active"][None],
-                                               sw["g_normal"] * g_dl[None], 0.0), dim=-2)
+                d_acc = -torch.sum(torch.where(sw["g_active"].unsqueeze(-3),
+                                               sw["g_normal"] * g_dl.unsqueeze(-3), 0.0), dim=-2)
                 gl = gl + g_dl
             dp_b = banded_pair_data(dp_r, c["K"])
-            p_sep = torch.sum((dp_b[:, None, :, :] - dp_r[:, None, None, :]) * sw["p_normal"],
-                              dim=0)
+            p_sep = torch.sum((dp_b[..., :, None, :, :] - dp_r[..., :, None, None, :])
+                              * sw["p_normal"], dim=-4)
             p_dl = (c["p_e0"] - p_sep) / c["p_k"] * c["p_rx"]
             p_new = torch.clamp_min(pl + p_dl, 0.0)
             p_dl = torch.where(sw["p_active"], p_new - pl, 0.0)
-            step_p = torch.where(sw["p_active"][None], sw["p_normal"] * p_dl[None], 0.0)
+            step_p = torch.where(sw["p_active"].unsqueeze(-4),
+                                 sw["p_normal"] * p_dl.unsqueeze(-4), 0.0)
             d_acc = (d_acc - torch.sum(step_p, dim=(-3, -2))
                      + back_sum(torch.sum(step_p, dim=-3), c["K"]))
-            dpos = _unrank(dp_r + d_acc * c["im"][None, :], order)
+            dpos = unrank(dp_r + d_acc * c["im"][..., None, :], order)
             lams[i] = (gl, pl + p_dl)
     return pos_body + dpos
 
 
+def _identity_sweep(grids, nb: int, device):
+    """One sweep dict of rank-ordered grids whose rank space is body order."""
+    return dict(grids, order=torch.arange(nb, device=device))
+
+
+def solve_contacts_banded(vel, angvel, inv_mass, iiw, g_point, g_normal, g_depth, g_active,
+                          g_fric, g_rest, p_point, p_normal, p_depth, p_active, p_fric, p_rest,
+                          pos_rank, dt, iterations: int = 8, baumgarte: float = 0.0,
+                          slop: float = 0.005, relaxation: float = 0.75):
+    """Single-sweep projected-Jacobi PGS in rank space: every input is
+    rank-ordered (vel/angvel/iiw/pos_rank [..., 3, NB], ground grids
+    [..., (3,) G, NB], banded pair grids [..., (3,) k, K, NB], the partner
+    of slot (s, d-1, i) is rank i+d). The multi-sweep solve with one sweep
+    whose rank space is the input's order: the same updates in the same
+    order. Returns (vel, angvel) rank-ordered."""
+    sw = _identity_sweep(dict(g_point=g_point, g_normal=g_normal, g_depth=g_depth,
+                              g_active=g_active, g_fric=g_fric, g_rest=g_rest, p_point=p_point,
+                              p_normal=p_normal, p_depth=p_depth, p_active=p_active,
+                              p_fric=p_fric, p_rest=p_rest), vel.shape[-1], vel.device)
+    v, w, _ = solve_contacts_banded_multi(vel, angvel, inv_mass, iiw, pos_rank, [sw], dt,
+                                          iterations=iterations, baumgarte=baumgarte, slop=slop,
+                                          relaxation=relaxation)
+    return v, w
+
+
+def project_positions_banded(pos_rank, g_normal, g_depth, g_active, p_normal, p_depth, p_active,
+                             inv_mass, iterations: int = 3, slop: float = 0.005,
+                             relaxation: float = 0.8, max_correction: float = 0.05):
+    """Single-sweep split-impulse position projection in rank space (the
+    multi-sweep projection with one sweep in the input's order)."""
+    sw = _identity_sweep(dict(g_normal=g_normal, g_depth=g_depth, g_active=g_active,
+                              p_normal=p_normal, p_depth=p_depth, p_active=p_active),
+                         pos_rank.shape[-1], pos_rank.device)
+    return project_positions_banded_multi(pos_rank, [sw], inv_mass, iterations=iterations,
+                                          slop=slop, relaxation=relaxation,
+                                          max_correction=max_correction)
+
+
 def cross_sweep_coverage(order_s, ranks_earlier, K: int):
-    """[K, NB] mask: banded slot (d-1, i) of this sweep already inside an
-    earlier sweep's window (rank distance <= K there); None for the first
+    """[.., K, NB] mask: banded slot (d-1, i) of this sweep already inside
+    an earlier sweep's window (rank distance <= K there); None for the first
     sweep."""
     covered = None
     for rk in ranks_earlier:
-        rr = rk.index_select(-1, order_s)
-        c = torch.abs(banded_pair_data(rr, K) - rr[None, :]) <= K
+        rr = take_ranked(rk, order_s)
+        c = torch.abs(banded_pair_data(rr, K) - rr[..., None, :]) <= K
         covered = c if covered is None else (covered | c)
     return covered
+
+
+def exact_window_miss(mn, mx, occ, dyn, ranks, K: int, block: int = 512,
+                      min_overlap: float = 0.0):
+    """The exact count of AABB-overlapping (occupied, at least one dynamic)
+    pairs that no sweep's rank window holds: chunked all-pairs, row blocks
+    of `block` bodies against all NB, one count per world. mn, mx [..., 3,
+    NB]; occ, dyn bool [NB]; ranks: body → rank int32 [..., NB] per sweep.
+    min_overlap > 0 counts only misses whose least per-axis overlap
+    exceeds it (that overlap bounds the contact's depth). A diagnostic, not
+    a per-step cost."""
+    nb = mn.shape[-1]
+    nblocks = -(-nb // block)
+    pad = nblocks * block - nb
+    if pad:
+        mn, mx = F.pad(mn, (0, pad)), F.pad(mx, (0, pad))
+        occ = torch.cat([occ, occ.new_zeros(pad)])
+        dyn = torch.cat([dyn, dyn.new_zeros(pad)])
+        ranks = [F.pad(r, (0, pad), value=1 << 24) for r in ranks]
+    iota = torch.arange(nblocks * block, device=mn.device)
+    acc = torch.zeros(mn.shape[:-2], dtype=torch.int64, device=mn.device)
+    for ib in range(nblocks):
+        sl = slice(ib * block, (ib + 1) * block)
+        mn_r, mx_r = mn[..., sl], mx[..., sl]
+        ov_amount = (torch.minimum(mx_r[..., :, :, None], mx[..., :, None, :])
+                     - torch.maximum(mn_r[..., :, :, None], mn[..., :, None, :]))
+        ov = torch.amin(ov_amount, dim=-3) > min_overlap            # [.., block, NB]
+        upper = iota[sl][:, None] < iota[None, :]                   # j > i once per pair
+        mask = ov & upper & (occ[sl][:, None] & occ[None, :]) & (dyn[sl][:, None] | dyn[None, :])
+        covered = torch.zeros_like(mask)
+        for r in ranks:
+            covered = covered | (torch.abs(r[..., sl][..., :, None] - r[..., None, :]) <= K)
+        acc = acc + torch.sum(mask & ~covered, dim=(-2, -1))
+    return acc.to(torch.int32)
+
+
+def make_banded_world_step(shape_np: np.ndarray, radius_np, half_extents_np, dyn_mask_np,
+                           inv_mass_np, inv_inertia_body_np, friction_np, restitution_np,
+                           gravity=(0.0, -9.81, 0.0), neighbors: int = 24,
+                           points_per_pair: int = 4, iterations: int = 8,
+                           position_iterations: int = 3, ground_y: float = 0.0,
+                           lin_damping: float = 0.05, ang_damping: float = 0.05,
+                           ground_friction: float = 0.6, n_sweeps: int = 1,
+                           exact_miss: bool = False, warm_start: bool = False):
+    """The stand-alone banded world step (the physics of
+    physics_big.make_big_world_step on the banded solve), leading world
+    axes allowed: step(pos, rot, vel, angvel, dt) → (pos, rot, vel, angvel,
+    counters {active_contacts, sap_window_miss}).
+
+    n_sweeps > 1 runs the multi-sweep pipeline (sweep_orders); exact_miss
+    puts exact_window_miss (min overlap 5 mm) in the counters in place of
+    the per-step certificate. warm_start (any n_sweeps; the multi-sweep
+    pipeline) carries the contact impulses across frames (match_warm_lams):
+    step(pos, rot, vel, angvel, dt, carry) → (..., counters, carry'), the
+    cold carry from step.init_carry(device, batch=()). The tables move to
+    the state's device on first use."""
+    nb = shape_np.shape[0]
+    K, k, gslots = neighbors, points_per_pair, 4
+    any_caps = bool(np.any(np.asarray(shape_np) == P.SHAPE_CAPSULE))
+    tables = dict(shape=(shape_np, torch.int64), radius=(radius_np, torch.float32),
+                  he=(half_extents_np, torch.float32), dyn=(dyn_mask_np, torch.bool),
+                  im=(inv_mass_np, torch.float32), iib=(inv_inertia_body_np, torch.float32),
+                  fric=(friction_np, torch.float32), rest=(restitution_np, torch.float32),
+                  gravity=(gravity, torch.float32), occ=(np.ones(nb, bool), torch.bool))
+    n_s = n_sweeps if n_sweeps in (1, 2) else (5 if n_sweeps >= 5 else 4)
+
+    @functools.lru_cache(maxsize=None)
+    def on(device):
+        return {name: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+                for name, (a, dt) in tables.items()}
+
+    def ranked(t, order):
+        """The per-body tables in `order`'s rank space."""
+        body = order.shape
+        out = {}
+        for name in ("shape", "radius", "dyn", "im", "fric", "rest"):
+            out[name] = take_ranked(t[name].expand(body), order)
+        for name in ("he", "iib"):
+            out[name] = take_ranked(t[name].expand(body[:-1] + t[name].shape), order)
+        return SimpleNamespace(**out)
+
+    def ground_grids(sp, sr, s):
+        g = P.ground_contacts(sp, sr, s.shape, s.radius, s.he, s.dyn, ground_y=ground_y,
+                              slots_per_body=gslots)
+        g_point = g.point.reshape(g.point.shape[:-1] + (gslots, nb))
+        g_depth = g.depth.reshape(g.depth.shape[:-1] + (gslots, nb))
+        return dict(g_point=g_point, g_normal=g.normal.reshape(g_point.shape), g_depth=g_depth,
+                    g_active=g.active.reshape(g_depth.shape),
+                    g_fric=torch.sqrt(torch.clamp_min(s.fric * ground_friction, 0.0))[
+                        ..., None, :].expand(g_depth.shape),
+                    g_rest=s.rest[..., None, :].expand(g_depth.shape))
+
+    def pair_grids(sp, sr, s, s_mn, s_mx):
+        p_point, p_normal, p_depth, p_raw, ok = banded_pair_grids(
+            sp, sr, s.radius, s.he, s.shape, s_mn, s_mx, K, k, any_caps)
+        either_dyn = s.dyn[..., None, :] | banded_pair_data(s.dyn, K)
+        fric = torch.sqrt(torch.clamp_min(s.fric[..., None, :] * banded_pair_data(s.fric, K), 0.0))
+        rest = torch.maximum(s.rest[..., None, :], banded_pair_data(s.rest, K))
+        return (dict(p_point=p_point, p_normal=p_normal, p_depth=p_depth,
+                     p_fric=fric.unsqueeze(-3).expand(p_depth.shape),
+                     p_rest=rest.unsqueeze(-3).expand(p_depth.shape)),
+                p_raw, ok & either_dyn)
+
+    def init_carry(device, batch=()):
+        return (torch.zeros(batch + (n_s, 3, k, K, nb), device=device),
+                torch.zeros(batch + (3, gslots, nb), device=device),
+                torch.full(batch + (n_s, nb), -1, dtype=torch.int32, device=device))
+
+    def step_multi(pos, rot, vel, angvel, dt, carry=None):
+        t = on(pos.device)
+        vel, angvel = P.integrate_velocities(vel, angvel, dt, t["gravity"], lin_damping,
+                                             ang_damping, t["dyn"])
+        mn, mx = P.world_aabb(pos, rot, t["shape"], t["radius"], t["he"])
+        orders, ranks, col_keys = sweep_orders(mn, mx, t["occ"], n_sweeps)
+        warm_in = [] if (warm_start and carry is not None) else None
+        sweeps = []
+        for s, order in enumerate(orders):
+            tb = ranked(t, order)
+            sp, sr = take_ranked(pos, order), take_ranked(rot, order)
+            sw, p_raw, act_kn = pair_grids(sp, sr, tb, take_ranked(mn, order),
+                                           take_ranked(mx, order))
+            if s > 0:
+                act_kn = act_kn & ~cross_sweep_coverage(order, ranks[:s], K)
+            sw["order"] = order
+            sw["p_active"] = p_raw & act_kn.unsqueeze(-3)
+            if warm_in is not None:
+                wl = match_warm_lams(carry[0][..., s, :, :, :, :], carry[2][..., s, :], order, K)
+                warm_in.append({"p": tuple(wl[..., j, :, :, :] for j in range(3))})
+            if s == 0:
+                sw.update(ground_grids(sp, sr, tb))
+                if warm_in is not None:
+                    warm_in[0]["g"] = tuple(take_ranked(carry[1][..., j, :, :], order)
+                                            for j in range(3))
+            sweeps.append(sw)
+
+        iiw_body = P.inv_inertia_world_diag(rot, t["iib"])
+        vel, angvel, lams = solve_contacts_banded_multi(
+            vel, angvel, t["im"], iiw_body, pos, sweeps, dt, iterations=iterations,
+            baumgarte=0.0, warm=warm_in)
+        pos, rot = P.integrate_positions(pos, rot, vel, angvel, dt, t["dyn"])
+        pos = project_positions_banded_multi(pos, sweeps, t["im"], iterations=position_iterations)
+        if exact_miss:
+            miss = exact_window_miss(mn, mx, t["occ"], t["dyn"], ranks, K, min_overlap=0.005)
+        else:
+            # the per-step certificate: only the column sweeps certify (every
+            # overlapping pair shares a column in one of them); a lone
+            # classic sweep certifies by its x-window bound
+            miss = torch.zeros(pos.shape[:-2], dtype=torch.int32, device=pos.device)
+            for order, ck in zip(orders, col_keys):
+                s_mn, s_mx = take_ranked(mn, order), take_ranked(mx, order)
+                if ck is None:
+                    if len(orders) == 1:
+                        miss = miss + window_miss(s_mn, s_mx, K)
+                    continue
+                miss = miss + column_window_miss(s_mn, s_mx, take_ranked(ck, order), K)
+        n_act = sum(torch.sum(sw["p_active"], dim=(-3, -2, -1)) for sw in sweeps) \
+            + torch.sum(sweeps[0]["g_active"], dim=(-2, -1))
+        counters = {"active_contacts": n_act.to(torch.int32), "sap_window_miss": miss}
+        if warm_start:
+            new_lam = torch.stack([torch.stack(lam[3:6], dim=-4) for lam in lams], dim=-5)
+            new_glam = unrank(torch.stack(lams[0][0:3], dim=-3), orders[0])
+            carry_out = (new_lam, new_glam, torch.stack(ranks, dim=-2).to(torch.int32))
+            return pos, rot, vel, angvel, counters, carry_out
+        return pos, rot, vel, angvel, counters
+
+    if n_sweeps > 1 or warm_start:
+        step_multi.init_carry = init_carry
+        return step_multi
+
+    def step(pos, rot, vel, angvel, dt):
+        t = on(pos.device)
+        vel, angvel = P.integrate_velocities(vel, angvel, dt, t["gravity"], lin_damping,
+                                             ang_damping, t["dyn"])
+        mn, mx = P.world_aabb(pos, rot, t["shape"], t["radius"], t["he"])
+        order = torch.argsort(mn[..., 0, :], dim=-1, stable=True)
+        tb = ranked(t, order)
+        sp, sr = take_ranked(pos, order), take_ranked(rot, order)
+        sv, sw_ = take_ranked(vel, order), take_ranked(angvel, order)
+        s_mn, s_mx = take_ranked(mn, order), take_ranked(mx, order)
+        if exact_miss:
+            iota = torch.arange(nb, dtype=torch.int32, device=pos.device)
+            rank0 = unrank(iota.expand(order.shape), order)
+            miss = exact_window_miss(mn, mx, t["occ"], t["dyn"], [rank0], K, min_overlap=0.005)
+        else:
+            miss = window_miss(s_mn, s_mx, K)
+        grids, p_raw, act_kn = pair_grids(sp, sr, tb, s_mn, s_mx)
+        p_active = p_raw & act_kn.unsqueeze(-3)
+        g = ground_grids(sp, sr, tb)
+        iiw = P.inv_inertia_world_diag(sr, tb.iib)
+        sv, sw_ = solve_contacts_banded(
+            sv, sw_, tb.im, iiw, g["g_point"], g["g_normal"], g["g_depth"], g["g_active"],
+            g["g_fric"], g["g_rest"], grids["p_point"], grids["p_normal"], grids["p_depth"],
+            p_active, grids["p_fric"], grids["p_rest"], sp, dt, iterations=iterations,
+            baumgarte=0.0)
+        sp, sr = P.integrate_positions(sp, sr, sv, sw_, dt, tb.dyn)
+        sp = project_positions_banded(sp, g["g_normal"], g["g_depth"], g["g_active"],
+                                      grids["p_normal"], grids["p_depth"], p_active, tb.im,
+                                      iterations=position_iterations)
+        counters = {"active_contacts": (torch.sum(p_active, dim=(-3, -2, -1))
+                                        + torch.sum(g["g_active"], dim=(-2, -1))).to(torch.int32),
+                    "sap_window_miss": miss}
+        return (unrank(sp, order), unrank(sr, order), unrank(sv, order), unrank(sw_, order),
+                counters)
+
+    return step
+

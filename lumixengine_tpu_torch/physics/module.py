@@ -6,7 +6,8 @@ meshes baked to SDF grids (``mesh_collider``), instanced static cubes and
 hulls (``instanced_cube``, ``instanced_mesh``), the four joint types,
 sleeping, CCD, raycast-suspension vehicles with their wheels, capsule
 character controllers and the raycast and sphere-sweep queries, under the
-three broadphase branches the reference's ``broadphase="auto"`` picks:
+three broadphase branches the reference's ``broadphase="auto"`` picks, and
+its ``broadphase="sap"``:
 
 * all-pairs (at most ``pruned_threshold`` candidate pairs): the static pair
   lists, every pair in the contact stream each frame;
@@ -16,18 +17,24 @@ three broadphase branches the reference's ``broadphase="auto"`` picks:
 * banded (above ``sap_threshold`` actor slots): the multi-sweep rank-space
   pipeline of ``ops/physics_banded.py``, with its warm-start carry and its
   per-frame window certificate; pairs with a hull take the polytope SAT, and
-  the hulls' ground contacts and the SDF streams join the per-body stream.
+  the hulls' ground contacts and the SDF streams join the per-body stream;
+  each world of a batch sorts its own bodies, in one pass over the batch;
+* sap (forced): the sweep-and-prune pairs of ``ops/physics_big.py``, each
+  body with its next ``sap_neighbors`` in min-x order, solved by the Jacobi
+  solve on data body indices with a position projection; no warm start; the
+  SDF streams join the per-body stream, and a hull pairs and meets the
+  ground as its bounding sphere.
 
 One frame of ``update_parallel``: clamp dt to 1/20 s, static and kinematic
 bodies take their entity's world pose, integrate velocities, the vehicles'
 suspension, drive and grip impulses, build the contact streams [ground or
 heightfield | simple pairs | convex pairs | convex ground | SDF] (the
 pruned branch appends its compacted pairs), solve them (kernel K2 in the
-first two branches, the banded Jacobi solve in the third), the joints,
-integrate positions, clamp the CCD bodies' motion, add the projection's
-dpos, update sleep. ``update`` steps the character controllers and writes
-them and the dynamic bodies back to their entities' local transforms.
-``broadphase="sap"`` raises NotImplementedError.
+first two branches, the banded Jacobi solve in the third, the dynamic
+solve under sap), the joints, integrate positions, clamp the CCD bodies'
+motion, add the projection's dpos, update sleep. ``update`` steps the
+character controllers and writes them and the dynamic bodies back to
+their entities' local transforms.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from lumixengine_tpu_torch.ops import convex_ops as CV
 from lumixengine_tpu_torch.ops import physics_banded as PBD
 from lumixengine_tpu_torch.ops import physics_ops as P
 from lumixengine_tpu_torch.ops import solver as S
-from lumixengine_tpu_torch.ops.physics_big import compact_pairs
+from lumixengine_tpu_torch.ops import physics_big as PBG
 from lumixengine_tpu_torch.physics.cooking import cook_convex_cached, cook_mesh_sdf_cached
 from lumixengine_tpu_torch.utils.store import DenseStore
 
@@ -104,10 +111,6 @@ class PhysStatics:
         nb = st.capacity
         occupied = st.entity >= 0
         motion = np.asarray(st.data["motion"], np.int32)
-        if module.broadphase == "sap":
-            raise NotImplementedError(
-                "broadphase='sap' (PhysicsModule._sap_solve on physics_big.sap_pairs, "
-                "solve_contacts_dynamic, project_positions_dynamic) is not ported")
         self.entity_slots = w.to_slots(st.entity)
         self.shape = np.asarray(st.data["shape"], np.int32)
         self.radius = np.asarray(st.data["radius"], np.float32)
@@ -178,6 +181,9 @@ class PhysStatics:
         self.ground_plane = bool(module.system.ground_plane)
         self.ground_slots = module.ground_slots_per_body
         self.sap = module.sap_active()
+        # the large-world branches: banded (auto, banded) or the sweep-and-prune
+        # pairs with their per-body sums (sap)
+        self.banded = self.sap and module.broadphase in ("auto", "banded")
         self.any_caps = bool(np.any(occupied & (self.shape == P.SHAPE_CAPSULE)))
 
         # polytope data (the convex narrowphase, and the SDF candidate points):
@@ -250,8 +256,10 @@ class PhysStatics:
                 self.heightfield_origin = tuple(float(x) for x in w.get_global_transform(e)[0])
                 break
         # hulls take the polytope ground stream against the plane (and leave
-        # the generic ground or heightfield stream)
-        self.has_conv_gnd = self.has_convex and self.ground_plane
+        # the generic ground or heightfield stream); under "sap" a hull pairs
+        # and meets the ground as its bounding sphere, as in the reference
+        self.has_conv_gnd = self.has_convex and self.ground_plane and (
+            not self.sap or self.banded)
 
         ppp = module.points_per_pair
         self.pruned = False
@@ -471,11 +479,14 @@ class PhysicsModule(IModule):
         super().__init__(world, system)
         # "auto": banded above sap_threshold actor slots, else pruned above
         # pruned_threshold candidate pairs, else all-pairs; "allpairs",
-        # "pruned" and "banded" force a branch ("sap" is not ported)
+        # "pruned", "banded" and "sap" force a branch
         self.broadphase = broadphase
         self.sap_neighbors = sap_neighbors
         self.sap_threshold = sap_threshold
         self.sap_sweeps = sap_sweeps
+        # the banded branch's impulse carry across frames (match_warm_lams);
+        # off only to compare with the cold-started sap branch
+        self.warm_starting = True
         self.pair_budget = pair_budget
         self.pruned_threshold = pruned_threshold
         self.pruned_margin = pruned_margin
@@ -825,7 +836,7 @@ class PhysicsModule(IModule):
         f32 = dict(dtype=torch.float32, device=device)
         i32 = dict(dtype=torch.int32, device=device)
         n_lam = 0 if st.sap else st.n_contact_slots
-        if st.sap:
+        if st.banded and self.warm_starting:
             n_s, k, K = self._sweep_count(), self.points_per_pair, self.sap_neighbors
             sap_lam = torch.zeros((n_s, 3, k, K, nb), **f32)
             sap_glam = torch.zeros((3, self._banded_ground_slots(st), nb), **f32)
@@ -864,7 +875,7 @@ class PhysicsModule(IModule):
         amn, amx = P.take_vecs(mn, d.pair_a), P.take_vecs(mx, d.pair_a)
         bmn, bmx = P.take_vecs(mn, d.pair_b), P.take_vecs(mx, d.pair_b)
         overlap = torch.all((amn <= bmx + m) & (bmn <= amx + m), dim=-2)  # [.., P]
-        cpa, cpb, valid, miss = compact_pairs(d.pair_a, d.pair_b, overlap, st.pair_budget)
+        cpa, cpb, valid, miss = PBG.compact_pairs(d.pair_a, d.pair_b, overlap, st.pair_budget)
         pair_key = torch.where(valid, cpa * nb + cpb, -1).to(torch.int32)
         cc = P.pair_contacts(pos, rot, d.shape, d.radius, d.he, cpa.to(torch.int64),
                              cpb.to(torch.int64), points_per_pair=k, any_caps=st.any_caps)
@@ -946,6 +957,8 @@ class PhysicsModule(IModule):
             for sc in sdf_streams:
                 gc = sc if gc is None else P.concat_contacts(gc, sc)
             c.gc = gc
+            if not st.banded:
+                c.contacts, c.fric, c.rest, c.miss = self._sap_contacts(st, d, pos, rot, gc)
             return c
         # streams in the order of the static slot layout
         streams = [] if gc is None else [gc]
@@ -999,9 +1012,9 @@ class PhysicsModule(IModule):
         """K2's operands for this frame (the contact set the step would
         solve), for kernel checks against the plain version."""
         c = self._contact_stage(state, dt)
-        if c.contacts is None:
-            raise ValueError("this frame has no contact stream for K2 (banded branch, or no "
-                             "ground and no pairs)")
+        if c.contacts is None or self.statics().sap:
+            raise ValueError("this frame has no contact stream for K2 (a large-world branch, or "
+                             "no ground and no pairs)")
         return S.prologue(c.pos, c.vel, c.angvel, c.contacts, c.d.inv_mass, c.iiw, c.dt_c,
                           c.fric, c.rest, warm_lambdas=c.warm, **self._solver_kwargs())
 
@@ -1014,9 +1027,11 @@ class PhysicsModule(IModule):
         zero = torch.zeros(batch, dtype=torch.int32, device=pos.device)
         counters = dict(ms.counters)
         dpos = proj = None
-        if st.sap:
+        if st.banded:
             vel, angvel, n_active, miss, proj, carry = self._banded_solve(st, d, c, ms)
             ms = ms.replace(sap_lam=carry[0], sap_glam=carry[1], sap_rank=carry[2])
+        elif st.sap:
+            vel, angvel, n_active, miss, proj = self._sap_solve(st, d, c)
         elif c.contacts is not None:
             vel, angvel, lams, dpos = S.solve_contacts_fused(
                 pos, vel, angvel, c.contacts, d.inv_mass, c.iiw, c.dt_c, c.fric, c.rest,
@@ -1090,130 +1105,166 @@ class PhysicsModule(IModule):
     # -- the banded branch ------------------------------------------------------
 
     def _banded_solve(self, st: PhysStatics, d, c, ms: PhysicsState):
-        """The banded contact solve for each world of the batch (the sweeps
-        sort one world's bodies). Returns (vel, angvel, n_active, miss,
-        projection, warm-start carry)."""
-        batch = c.pos.shape[:-2]
-        if not batch:
-            return self._banded_solve_world(st, d, c.pos, c.rot, c.vel, c.angvel, c.gc,
-                                            c.dt_c, ms)
-        n = int(np.prod(batch))
-
-        def world(x, i):
-            return x.reshape((n,) + x.shape[len(batch):])[i]
-
-        outs = []
-        for i in range(n):
-            gc = None if c.gc is None else c.gc._replace(
-                point=world(c.gc.point, i), normal=world(c.gc.normal, i),
-                depth=world(c.gc.depth, i), active=world(c.gc.active, i))
-            wms = ms.replace(sap_lam=world(ms.sap_lam, i), sap_glam=world(ms.sap_glam, i),
-                             sap_rank=world(ms.sap_rank, i))
-            outs.append(self._banded_solve_world(st, d, world(c.pos, i), world(c.rot, i),
-                                                 world(c.vel, i), world(c.angvel, i), gc,
-                                                 c.dt_c, wms))
-
-        def stack(xs):
-            return torch.stack(xs).reshape(batch + xs[0].shape)
-
-        projs = [o[4] for o in outs]
-
-        def proj(p):
-            flat = p.reshape((n,) + p.shape[len(batch):])
-            return stack([f(flat[i]) for i, f in enumerate(projs)])
-
-        carry = tuple(stack([o[5][j] for o in outs]) for j in range(3))
-        return (stack([o[0] for o in outs]), stack([o[1] for o in outs]),
-                stack([o[2] for o in outs]), stack([o[3] for o in outs]), proj, carry)
-
-    def _banded_solve_world(self, st: PhysStatics, d, pos, rot, vel, angvel, gc, dt_c,
-                            ms: PhysicsState):
-        """One world's multi-sweep banded pipeline: one banded grid per sweep
-        order (sweep_orders: offset cell columns put every overlapping pair in
+        """The multi-sweep banded pipeline over the whole batch (each world
+        sorts its own bodies): one banded grid per sweep order
+        (sweep_orders: offset cell columns put every overlapping pair in
         some sweep's window), pairs an earlier sweep already holds masked
-        out, solved jointly by solve_contacts_banded_multi in body order. The
-        miss count is the per-step window certificate (0: no contact was
+        out, solved jointly by solve_contacts_banded_multi in body order.
+        The miss count is the per-step window certificate (0: no contact was
         dropped). Last frame's lambdas are re-matched through the previous
-        rank maps and seed the solve."""
+        rank maps and seed the solve. Returns (vel, angvel, n_active, miss,
+        projection, warm-start carry)."""
+        pos, rot, vel, angvel, gc = c.pos, c.rot, c.vel, c.angvel, c.gc
         K, k, nb = self.sap_neighbors, self.points_per_pair, pos.shape[-1]
+        batch = pos.shape[:-2]
         sys = self.system
         occ = d.occ
         mn, mx = P.world_aabb(pos, rot, d.shape, d.radius, d.he)
         far = torch.where(occ, 0.0, 1e9)   # dead slots park far +x, never pair
-        mn, mx = mn + far[None, :], mx + far[None, :]
+        mn, mx = mn + far, mx + far
         orders, ranks, col_keys = PBD.sweep_orders(mn, mx, occ, self.sap_sweeps)
         warm_in, sweeps = [], []
-        miss = torch.zeros((), dtype=torch.int32, device=pos.device)
-        n_active = torch.zeros((), dtype=torch.int32, device=pos.device)
+        warm_ok = ms.sap_rank.numel() > 0
+        miss = torch.zeros(batch, dtype=torch.int32, device=pos.device)
+        n_active = torch.zeros(batch, dtype=torch.int32, device=pos.device)
         for s, (order, ck) in enumerate(zip(orders, col_keys)):
             def rk(x, _o=order):
-                return x.index_select(-1, _o)
+                """A per-world row in this sweep's rank space."""
+                return PBD.take_ranked(x, _o)
+
+            def rks(x, _o=order):
+                """A per-body table in this sweep's rank space."""
+                return PBD.take_ranked(x.expand(batch + x.shape), _o)
 
             sp, sr = rk(pos), rk(rot)
-            s_dyn, s_occ, s_layer = rk(d.dyn), rk(occ), rk(d.layer)
-            s_fric, s_rest = rk(d.friction_body), rk(d.restitution_body)
+            s_dyn, s_occ, s_layer = rks(d.dyn), rks(occ), rks(d.layer)
+            s_fric, s_rest = rks(d.friction_body), rks(d.restitution_body)
             s_mn, s_mx = rk(mn), rk(mx)
             p_point, p_normal, p_depth, p_raw, ok = PBD.banded_pair_grids(
-                sp, sr, rk(d.radius), rk(d.he), rk(d.shape), s_mn, s_mx, K, k,
+                sp, sr, rks(d.radius), rks(d.he), rks(d.shape), s_mn, s_mx, K, k,
                 any_caps=st.any_caps)
             if st.has_convex:
                 # pairs with a hull take the polytope SAT instead
                 c_pt, c_n, c_d, c_act = PBD.banded_polytope_grids(
-                    sp, sr, rk(d.poly_verts), rk(d.poly_axes), rk(d.poly_rad), K, k)
-                s_cvx = rk(d.is_convex)
-                cvx_pair = s_cvx[None, :] | PBD.banded_pair_data(s_cvx, K)   # [K, NB]
-                p_point = torch.where(cvx_pair, c_pt, p_point)
-                p_normal = torch.where(cvx_pair, c_n, p_normal)
-                p_depth = torch.where(cvx_pair, c_d, p_depth)
-                p_raw = torch.where(cvx_pair, c_act, p_raw)
-            layer_ok = d.layer_matrix[s_layer[None, :] * MAX_LAYERS
+                    sp, sr, rks(d.poly_verts), rks(d.poly_axes), rks(d.poly_rad), K, k)
+                s_cvx = rks(d.is_convex)
+                cvx_pair = s_cvx[..., None, :] | PBD.banded_pair_data(s_cvx, K)   # [.., K, NB]
+                cv3 = cvx_pair[..., None, None, :, :]
+                p_point = torch.where(cv3, c_pt, p_point)
+                p_normal = torch.where(cv3, c_n, p_normal)
+                p_depth = torch.where(cvx_pair.unsqueeze(-3), c_d, p_depth)
+                p_raw = torch.where(cvx_pair.unsqueeze(-3), c_act, p_raw)
+            layer_ok = d.layer_matrix[s_layer[..., None, :] * MAX_LAYERS
                                       + PBD.banded_pair_data(s_layer, K)]
-            ok = (ok & layer_ok & (s_dyn[None, :] | PBD.banded_pair_data(s_dyn, K))
-                  & s_occ[None, :] & PBD.banded_pair_data(s_occ, K))
+            ok = (ok & layer_ok & (s_dyn[..., None, :] | PBD.banded_pair_data(s_dyn, K))
+                  & s_occ[..., None, :] & PBD.banded_pair_data(s_occ, K))
             if s > 0:
                 ok = ok & ~PBD.cross_sweep_coverage(order, ranks[:s], K)
             fric_b, rest_b = PBD.banded_pair_data(s_fric, K), PBD.banded_pair_data(s_rest, K)
             sw = {"order": order, "p_point": p_point, "p_normal": p_normal, "p_depth": p_depth,
-                  "p_active": p_raw & ok[None, :, :],
-                  "p_fric": torch.sqrt(torch.clamp_min(s_fric[None, :] * fric_b, 0.0))[None]
-                  .expand(p_depth.shape),
-                  "p_rest": torch.maximum(s_rest[None, :], rest_b)[None].expand(p_depth.shape)}
-            wl = PBD.match_warm_lams(ms.sap_lam[s], ms.sap_rank[s], order, K)
-            warm_in.append({"p": (wl[0], wl[1], wl[2])})
+                  "p_active": p_raw & ok.unsqueeze(-3),
+                  "p_fric": torch.sqrt(torch.clamp_min(s_fric[..., None, :] * fric_b, 0.0))
+                  .unsqueeze(-3).expand(p_depth.shape),
+                  "p_rest": torch.maximum(s_rest[..., None, :], rest_b).unsqueeze(-3)
+                  .expand(p_depth.shape)}
+            if warm_ok:
+                wl = PBD.match_warm_lams(ms.sap_lam[..., s, :, :, :, :], ms.sap_rank[..., s, :],
+                                         order, K)
+                warm_in.append({"p": tuple(wl[..., j, :, :, :] for j in range(3))})
             if s == 0 and gc is not None:
                 gsl = gc.depth.shape[-1] // nb
-                sw["g_point"] = rk(gc.point.reshape(3, gsl, nb))
-                sw["g_normal"] = rk(gc.normal.reshape(3, gsl, nb))
-                sw["g_depth"] = rk(gc.depth.reshape(gsl, nb))
-                sw["g_active"] = rk(gc.active.reshape(gsl, nb)) & s_occ[None, :]
+                sw["g_point"] = rk(gc.point.reshape(batch + (3, gsl, nb)))
+                sw["g_normal"] = rk(gc.normal.reshape(batch + (3, gsl, nb)))
+                sw["g_depth"] = rk(gc.depth.reshape(batch + (gsl, nb)))
+                sw["g_active"] = rk(gc.active.reshape(batch + (gsl, nb))) & s_occ[..., None, :]
                 sw["g_fric"] = torch.sqrt(torch.clamp_min(s_fric * sys.ground_friction, 0.0))[
-                    None, :].expand(sw["g_depth"].shape)
-                sw["g_rest"] = torch.clamp_min(s_rest, sys.ground_restitution)[None, :].expand(
-                    sw["g_depth"].shape)
-                n_active = n_active + torch.sum(sw["g_active"]).to(torch.int32)
-                warm_in[0]["g"] = tuple(rk(ms.sap_glam[j]) for j in range(3))
+                    ..., None, :].expand(sw["g_depth"].shape)
+                sw["g_rest"] = torch.clamp_min(s_rest, sys.ground_restitution)[
+                    ..., None, :].expand(sw["g_depth"].shape)
+                n_active = n_active + torch.sum(sw["g_active"], dim=(-2, -1)).to(torch.int32)
+                if warm_ok:
+                    warm_in[0]["g"] = tuple(rk(ms.sap_glam[..., j, :, :]) for j in range(3))
             if ck is not None:
                 miss = miss + PBD.column_window_miss(s_mn, s_mx, rk(ck), K, occ=s_occ)
             elif len(orders) == 1:
                 miss = miss + PBD.window_miss(s_mn, s_mx, K, occ=s_occ)
-            n_active = n_active + torch.sum(sw["p_active"]).to(torch.int32)
+            n_active = n_active + torch.sum(sw["p_active"], dim=(-3, -2, -1)).to(torch.int32)
             sweeps.append(sw)
 
         iiw = P.inv_inertia_world_diag(rot, d.inv_inertia_body)
         vel, angvel, lams = PBD.solve_contacts_banded_multi(
-            vel, angvel, d.inv_mass, iiw, pos, sweeps, dt_c, iterations=self.solver_iterations,
-            warm=warm_in, **self._solver_kwargs())
+            vel, angvel, d.inv_mass, iiw, pos, sweeps, c.dt_c, iterations=self.solver_iterations,
+            warm=warm_in if warm_ok else None, **self._solver_kwargs())
 
         def proj(p):
             return PBD.project_positions_banded_multi(p, sweeps, d.inv_mass,
                                                       iterations=self.position_iterations)
 
-        new_lam = torch.stack([torch.stack(lam[3:6]) for lam in lams])
+        if not warm_ok:
+            return vel, angvel, n_active, miss, proj, (ms.sap_lam, ms.sap_glam, ms.sap_rank)
+        new_lam = torch.stack([torch.stack(lam[3:6], dim=-4) for lam in lams], dim=-5)
         new_glam = ms.sap_glam
         if gc is not None:
-            new_glam = PBD._unrank(torch.stack(lams[0][0:3]), orders[0])
-        carry = (new_lam, new_glam, torch.stack(ranks).to(torch.int32))
+            new_glam = PBD.unrank(torch.stack(lams[0][0:3], dim=-3), orders[0])
+        carry = (new_lam, new_glam, torch.stack(ranks, dim=-2).to(torch.int32))
         return vel, angvel, n_active, miss, proj, carry
+
+    def _sap_contacts(self, st: PhysStatics, d, pos, rot, gc):
+        """The sap branch's contact set: each body paired with its next
+        sap_neighbors in min-x order (physics_big.sap_pairs; unoccupied slots
+        park far +x), the pairs the layer matrix or two non-dynamic bodies
+        rule out masked, the analytic narrowphase on the gathered pairs (a
+        hull as its bounding sphere), after the per-body stream `gc`.
+        Returns (Contacts with per-world body columns, b = -1 on the
+        per-body stream, friction, restitution, window miss)."""
+        k = self.points_per_pair
+        occ = d.occ
+        mn, mx = P.world_aabb(pos, rot, d.shape, d.radius, d.he)
+        far = torch.where(occ, 0.0, 1e9)   # unoccupied slots can never overlap
+        pa, pb, ok, miss = PBG.sap_pairs(pos, mn + far, mx + far, self.sap_neighbors,
+                                        return_miss_count=True)
+        ok = ok & d.layer_matrix[d.layer[pa] * MAX_LAYERS + d.layer[pb]]
+        ok = ok & (d.dyn[pa] | d.dyn[pb])
+        cc = P.pair_contacts(pos, rot, d.shape, d.radius, d.he, pa, pb, points_per_pair=k,
+                             any_caps=st.any_caps)
+        cc = cc._replace(active=cc.active & ok.tile((k,)))
+        fricb, restb = d.friction_body, d.restitution_body
+        cfric = torch.sqrt(torch.clamp_min(fricb[cc.body_a] * fricb[cc.body_b], 0.0))
+        crest = torch.maximum(restb[cc.body_a], restb[cc.body_b])
+        if gc is None:
+            return cc, cfric, crest, miss
+        gba = gc.body_a
+        batch = cfric.shape[:-1]
+        gc = gc._replace(active=gc.active & occ[gba])
+        gfric = torch.sqrt(torch.clamp_min(fricb[gba] * self.system.ground_friction, 0.0))
+        grest = torch.clamp_min(restb[gba], self.system.ground_restitution)
+        return (P.concat_contacts(gc, cc), torch.cat([gfric.expand(batch + gfric.shape), cfric], -1),
+                torch.cat([grest.expand(batch + grest.shape), crest], -1), miss)
+
+    def _sap_solve(self, st: PhysStatics, d, c):
+        """The sap branch's solve (broadphase="sap"): the contact set of
+        _sap_contacts by solve_contacts_dynamic, each body's impulses summed
+        by a fixed-width plan, no warm start. Returns (vel, angvel,
+        n_active, miss, projection)."""
+        cs = c.contacts
+        K, k, nb = self.sap_neighbors, self.points_per_pair, c.pos.shape[-1]
+        has_b = (cs.body_b >= 0).to(torch.float32)
+        body_a, body_b = cs.body_a, torch.clamp_min(cs.body_b, 0)
+        gsl = 0 if c.gc is None else c.gc.depth.shape[-1] // nb
+        # a body is a of its gsl per-body slots and of K pairs, b of at most K
+        plans = PBG.contact_plans(body_a, body_b, has_b, nb, gsl + K * k, K * k)
+        iiw = P.inv_inertia_world_diag(c.rot, d.inv_inertia_body)
+        vel, angvel = PBG.solve_contacts_dynamic(
+            c.pos, c.vel, c.angvel, d.inv_mass, iiw, cs.point, cs.normal, cs.depth, cs.active,
+            body_a, body_b, has_b, c.fric, c.rest, c.dt_c, plans,
+            iterations=self.solver_iterations, **self._solver_kwargs())
+
+        def proj(p):
+            return PBG.project_positions_dynamic(p, cs.normal, cs.depth, cs.active, body_a, body_b,
+                                                has_b, d.inv_mass, plans,
+                                                iterations=self.position_iterations)
+
+        return vel, angvel, torch.sum(cs.active, dim=-1).to(torch.int32), c.miss, proj
 
     # -- joints -----------------------------------------------------------------
 

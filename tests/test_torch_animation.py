@@ -177,9 +177,27 @@ def test_blend1d_weights(systems):
 
 
 def test_unported_nodes_raise():
-    for node in (pctl.Select, pctl.Switch, pctl.Blend2D, pctl.IKNode, pctl.Layers):
-        with pytest.raises(NotImplementedError):
-            node(pctl.Input(0), [])
+    """Select, Switch, Blend2D, IKNode and Layers build, set up their clock
+    rows as the reference's do, and evaluate to slots
+    (tests/test_torch_anim_ext.py holds them to the reference's values)."""
+    leaf = pctl.AnimationNode
+    nodes = {
+        "Select": pctl.Select(pctl.Input(0), [leaf(0), leaf(1)]),
+        "Switch": pctl.Switch(pctl.Input(0), leaf(0), leaf(1)),
+        "Blend2D": pctl.Blend2D(pctl.Input(0), pctl.Input(1),
+                                [((0.0, 1.0), leaf(0)), ((1.0, 0.0), leaf(1))]),
+        "IKNode": pctl.IKNode(leaf(0), chain=[0, 1, 2], target_inputs=(0, 1, 2)),
+        "Layers": pctl.Layers([(leaf(0), None, 1.0), (leaf(1), np.ones(32, bool), 0.5)]),
+    }
+    statics = pds.build_engine(with_animation=True)[2].bank_statics
+    for name, node in nodes.items():
+        ctrl = pctl.Controller(name, statics, node, inputs=["a", "b", "c"])
+        assert ctrl.num_clocks == {"Select": 5, "Switch": 5, "IKNode": 1}.get(name, 2), name
+        assert (ctrl.ik_requests == [node]) == (name == "IKNode")
+        slots, masks, clocks = ctrl.eval(torch.zeros(3, 4), torch.zeros(ctrl.num_clocks, 4),
+                                         torch.tensor(DT))
+        assert len(slots) == (1 if name == "IKNode" else 2) and clocks.shape[0] == ctrl.num_clocks
+        assert (1 in masks) == (name == "Layers")
 
 
 @pytest.fixture(scope="module")

@@ -197,16 +197,21 @@ def ref_step_with_contacts(rsc, worlds):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_banded_sat():
+def _ref_banded_sat(batched: bool):
     import lumixengine_tpu.ops.physics_banded as RPBD
 
-    return jax.jit(RPBD.banded_polytope_grids, static_argnums=(5, 6))
+    fn = RPBD.banded_polytope_grids
+    if batched:   # the port sorts every world of a batch at once; the reference under vmap
+        fn = jax.vmap(fn, in_axes=(0, 0, 0, 0, 0, None, None))
+    return jax.jit(fn, static_argnums=(5, 6))
 
 
 def ref_banded_sat(*args):
     """The reference's banded polytope SAT, jitted as in its step, on the
-    port's inputs (torch on the CPU; the window and points per pair last)."""
-    out = _ref_banded_sat()(*(jnp.asarray(x.numpy()) for x in args[:5]), *args[5:])
+    port's inputs (torch on the CPU; the window and points per pair last;
+    a leading world axis taken world by world)."""
+    out = _ref_banded_sat(args[0].dim() == 3)(*(jnp.asarray(x.numpy()) for x in args[:5]),
+                                              *args[5:])
     return tuple(torch.as_tensor(np.array(x)) for x in out)
 
 

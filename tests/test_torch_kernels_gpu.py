@@ -592,3 +592,133 @@ def test_windowed_separation_card_matches_cpu(cuda):
         state, cpu = step(state, 1 / 60), cpu_step(cpu, 1 / 60)
     torch.testing.assert_close(state.modules["navigation"].agent_pos.cpu(),
                                cpu.modules["navigation"].agent_pos, atol=1e-4, rtol=0)
+
+
+def test_segment_sums_repeat_on_the_card(cuda):
+    """The dynamic solve's per-body sums (physics_big.segment_plan) on the
+    card: the same result bit for bit on a second run (no atomic adds),
+    within 1e-5 of the CPU's."""
+    from lumixengine_tpu_torch.ops import physics_big as PBG
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    idx = torch.randint(0, 2048, (16, 140_000), generator=g)
+    keep = torch.rand((16, 140_000), generator=g) > 0.2
+    x = torch.randn((16, 6, 140_000), generator=g)
+    plan = PBG.segment_plan(idx.to(cuda), 2048, 160, keep=keep.to(cuda))
+    a = PBG.segment_sum(x.to(cuda), plan)
+    b = PBG.segment_sum(x.to(cuda), PBG.segment_plan(idx.to(cuda), 2048, 160, keep=keep.to(cuda)))
+    assert torch.equal(a, b)
+    ref = PBG.segment_sum(x, PBG.segment_plan(idx, 2048, 160, keep=keep))
+    torch.testing.assert_close(a.cpu(), ref, rtol=0, atol=1e-5)
+
+
+def test_sap_branch_on_the_card(cuda):
+    """broadphase="sap" on the sap pile at 256 actors, W=4: 30 steps on the
+    card twice (bit for bit the same, no kernel launches); the same 30 steps
+    on the card and on the CPU in lockstep (each step from the card's state
+    on both), each within the physics tolerances or else explained as a tie
+    (physics_scenes.explain_break with the CPU's contact set). Free running
+    from one start, card and CPU part by more than the tolerances: their
+    states, 1e-6 m apart, pick one contact's point at a tie of equal depths
+    at step 15, and the landing piles go on from there
+    (tools/sap_divergence.py finds the step). The ties and the free-running
+    gap are printed."""
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import solver as S
+
+    dt = 1.0 / 60.0
+    sc = PS.mixed_pile(actors=256, broadphase="sap", neighbors=32)
+    pm = sc.world.modules["physics"]
+    step, cpu_step = sc.engine.build_step(sc.world, cuda), sc.engine.build_step(sc.world, "cpu")
+
+    def start():
+        return PS.replicate_scene(sc.world.device_state(cuda), 4, seed=1)
+
+    def free(fn, state):
+        for _ in range(30):
+            state = fn(state, dt)
+        return bridge.state_to_numpy(state)
+
+    runs = []
+    for _ in range(2):
+        before = S.solve_cuda.launches
+        runs.append(free(step, start()))
+        assert S.solve_cuda.launches == before
+    for k, v in runs[0].items():
+        assert (v == runs[1][k]).all(), k
+
+    def gap(got, ref):
+        return PS.state_gap(got, ref, 1e-3, 5e-3)[:2]
+
+    state, ties = start(), []
+    for i in range(30):
+        cpu = state.to("cpu")
+        nxt, ref = step(state, dt), bridge.state_to_numpy(cpu_step(cpu, dt))
+        _errs, broke = gap(bridge.state_to_numpy(nxt), ref)
+        if broke is not None:
+            cause, margin, _e = PS.explain_break(
+                step, state, ref, gap, 0.0, pm,
+                lambda c=cpu: pm._contact_stage(c, dt).contacts)
+            ties.append((i + 1, cause, margin))
+        state = nxt
+    card_cpu = gap(runs[0], free(cpu_step, start().to("cpu")))[0]["local.pos"]
+    print(f"sap pile, 30 steps: lockstep breaks explained {ties}; free-running local.pos gap "
+          f"card vs CPU {card_cpu:.4g} m")
+    assert int(runs[0][PS.PH + "counters.active_contacts"].min()) > 0
+
+
+def test_banded_farm_batches_on_the_card(cuda):
+    """The banded farm at W=8 on the card: every world equals that world
+    stepped alone on the card within 1e-5 over 10 steps, ranks and
+    counters equal."""
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    sc = PS.mixed_pile(actors=512, broadphase="auto", neighbors=32)
+    step = sc.engine.build_step(sc.world, cuda)
+    batch = PS.replicate_scene(sc.world.device_state(cuda), 8, seed=2)
+    tree = bridge.state_to_numpy(batch)
+    alone = [bridge.state_from_numpy({k: v[i] for k, v in tree.items()}, cuda) for i in (0, 5)]
+    for _ in range(10):
+        batch = step(batch, 1.0 / 60.0)
+        alone = [step(a, 1.0 / 60.0) for a in alone]
+    bm = batch.modules["physics"]
+    for i, a in zip((0, 5), alone):
+        am = a.modules["physics"]
+        for f in ("pos", "rot", "vel", "angvel"):
+            torch.testing.assert_close(getattr(bm, f)[i], getattr(am, f), rtol=0, atol=1e-5)
+        assert torch.equal(bm.sap_rank[i], am.sap_rank)
+        assert int(bm.counters["sap_window_miss"][i]) == int(am.counters["sap_window_miss"]) == 0
+
+
+def test_layered_crowd_on_the_card(cuda):
+    """The layered crowd at W=64 on the card: K1 once a frame, the IK and
+    property checks of chip_smoke.py on every world, and 3 frames within
+    the animation tolerances of the CPU's."""
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import demo_scenes as DS
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, h = DS.layered_crowd_world(32)
+    rm = world.modules["renderer"]
+    state = replicate_state(world.device_state(cuda), 64, torch.Generator(device=cuda).manual_seed(1))
+    step = engine.build_step(world, cuda, extra=rm.cull_pass)
+    before = cull.frustum_cull_cuda.launches
+    for _ in range(20):
+        t = float(state.time.reshape(-1)[0])
+        state = step(state, 1.0 / 60.0)
+    assert cull.frustum_cull_cuda.launches == before + 20
+    dist, reachable = DS.ik_gaps(world, state, h)
+    assert reachable.mean() > 0.5 and dist[reachable].max() < DS.IK_REACH_ATOL
+    for name, rows, want in DS.property_rows(world, state, t, h):
+        assert abs(rows - want).max() <= DS.PROPERTY_ATOL, name
+    cpu_step = engine.build_step(world, "cpu", extra=rm.cull_pass)
+    gpu, cpu = state, state.to("cpu")
+    for _ in range(3):
+        gpu, cpu = step(gpu, 1.0 / 60.0), cpu_step(cpu, 1.0 / 60.0)
+    got, ref = bridge.state_to_numpy(gpu), bridge.state_to_numpy(cpu)
+    for k in ("pose_pos", "pose_rot", "palette", "ctrl_clocks"):
+        k = "modules.animation." + k
+        assert abs(got[k] - ref[k]).max() <= 1e-5, k

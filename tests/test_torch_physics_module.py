@@ -321,10 +321,11 @@ def test_all_pairs_world_batch(monkeypatch):
 
 
 def test_unported_physics_raises():
-    """What the port's PhysicsModule leaves out, broadphase="sap", raises
-    NotImplementedError with its name. Every component type of the
-    reference is accepted."""
-    _e, world, _ = stack3("torch")
+    """Every component type of the reference is accepted, and
+    broadphase="sap", the last branch that raised, builds its statics (no
+    static pair list, no warm-start carry) and steps the stack of boxes
+    (tests/test_torch_sap.py holds the branch to the reference)."""
+    engine, world, _ = stack3("torch")
     pm = world.modules["physics"]
     ref_types = ["rigid_actor", "distance_joint", "spherical_joint", "hinge_joint", "d6_joint",
                  "physics_controller", "heightfield", "vehicle", "wheel", "mesh_collider",
@@ -332,8 +333,16 @@ def test_unported_physics_raises():
     assert sorted(pm.component_types()) == sorted(ref_types)
     pm.broadphase = "sap"
     pm.invalidate_statics()
-    with pytest.raises(NotImplementedError, match="sap"):
-        pm.statics()
+    st = pm.statics()
+    assert st.sap and not st.banded and not st.pruned and len(st.pair_a) == 0
+    state = world.device_state("cpu")
+    assert state.modules["physics"].sap_lam.numel() == 0
+    step = engine.build_step(world, "cpu")
+    for _ in range(60):
+        state = step(state, DT)
+    ms = state.modules["physics"]
+    assert torch.isfinite(ms.pos).all() and int(ms.counters["active_contacts"]) > 0
+    assert int(ms.counters["sap_window_miss"]) == 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -112,12 +112,26 @@ def test_unported_arms_raise(kw):
 
 
 def test_unported_components_raise(worlds):
+    """The render terrain and decal components raise NotImplementedError;
+    property_animator is ported: it takes curves on its device rows and
+    raises KeyError, as the reference, for a property without one."""
     _ref, (_pe, pw, _pr, _pp) = worlds
     for ctype, props in (("terrain", dict(terrain=0)),
-                         ("property_animator", dict(curves=[])),
                          ("decal", dict(half_extents=(1.0, 1.0, 1.0)))):
         with pytest.raises(NotImplementedError):
             pw.create_component(0, ctype, **props)
+    with pytest.raises(KeyError, match="no device row"):
+        pw.create_component(0, "property_animator", curves=[{
+            "component": "point_light", "property": "color", "times": [0.0], "values": [1.0]}])
+    am = pw.modules["animation"]
+    try:
+        pw.create_component(0, "property_animator", curves=[{
+            "component": "transform", "property": "y", "times": [0.0, 1.0],
+            "values": [0.0, 2.0]}])
+        assert list(am.property_animators) == [0]
+    finally:
+        pw.destroy_component(0, "property_animator")
+    assert not am.property_animators
 
 
 def test_time_smoother_matches_reference():
