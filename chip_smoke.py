@@ -138,7 +138,7 @@ Phases, each printed on its own line:
      320 steps (its gates, certificates summed: 0, exact_window_miss of
      the banded end state: 0, 3 steps card vs CPU at W=2 on a 512-box
      pile), make_banded_world_step on box_drop_pile(10_000) at window 40
-     for 120 steps (certificate and exact_window_miss: 0); the banded farm,
+     for 60 steps (certificate and exact_window_miss: 0); the banded farm,
      mixed_pile(512) under `auto` at W=1 and W=64 for 60 steps (ops/step
      equal within 2% across the widths, certificate 0, the blow-up gates,
      3 frames card vs CPU); the layered crowd, demo_scenes.layered_crowd_world(128) at
@@ -147,6 +147,19 @@ Phases, each printed on its own line:
      m of its target, every animated light and platform row np.interp of
      its curve within 1e-6, 3 frames card vs CPU). None of these paths
      launches K2 (the large-world branches bypass it, as in the reference);
+  11. render and present (printed before phase 8's timings): app.main's
+     path, headless_demo_world(2048) through the Runner (start, 60 ticks
+     with the cull pass, K1 once a tick and bit for bit to plain on the
+     path's operands), then present() with the builtin plugins at 480x270
+     (host raster, the passes on the card) and present_tpu() at 480x270 and
+     1280x720 (the tile raster, decals, clustered lights and splats on the
+     card): ms a present on CUDA events (median and spread), torch ops a
+     present, overflow, the raster's device time against the passes', one
+     present with every synchronizing CUDA call an error, two presents on
+     one state byte-identical, and the card against the CPU from one state
+     (present_tpu: equal overflow, hit masks on 99.9% of the pixels, depth
+     within 1e-5 relative, rgb within 1 level on 99.9%; present(): within
+     2 u8 levels);
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -206,7 +219,7 @@ SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds bel
 # the elongated pile and on the 10k boxes; the banded farm's widths and steps; the layered
 # crowd
 SAP_WORLDS, SAP_STEPS = 16, 120
-PILE_BOXES, BANDED10K_BOXES, BANDED10K_STEPS = 4096, 10_000, 120
+PILE_BOXES, BANDED10K_BOXES, BANDED10K_STEPS = 4096, 10_000, 60   # 120 before phase 11
 PILE_COMPARE_BOXES, PILE_COMPARE_AT = 512, 40   # the stand-alone steps' card-vs-CPU pile
 FARM_WIDTHS, BANDED_FARM_STEPS = (1, 64), 60
 LAYERED_CHARACTERS, LAYERED_WORLDS, LAYERED_FRAMES = 128, 1024, 30
@@ -228,8 +241,9 @@ LAYER_REPS = 20
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
 LIGHT_DIR = (0.3, -1.0, 0.2)   # bench.py --config render's shadow light
 # the card-vs-CPU golden gap, over the first GAP_STEPS steps of each arc (the full arcs before
-# the simulation tier joined the script; the gaps pass GAP_LIMIT by step 132)
-GAP_GOLDENS, GAP_LIMIT, GAP_STEPS = ("ballistic", "d6_slider"), 1e-5, 300
+# the simulation tier joined the script, 300 steps before phase 11; the gaps pass GAP_LIMIT by
+# step 132)
+GAP_GOLDENS, GAP_LIMIT, GAP_STEPS = ("ballistic", "d6_slider"), 1e-5, 150
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 DT = 1.0 / 60.0
 ITERATIONS, POSITION_ITERATIONS = 10, 3
@@ -246,6 +260,15 @@ SCRIPT_MOVERS, SCRIPT_WORLDS = 64, 4096   # bench.py --config scripts (bench.py:
 NAV_CROSSING, NAV_WORLDS = 512, 256        # phase 9c: two crossing streams of 512 agents
 SCRIPT_ATOL = 1e-5       # fast-path rows card vs CPU: the same float32 formulas, sin/cos ulps
 NAV_ATOL = 1e-4          # agents card vs CPU over 3 frames: sqrt/rsqrt ulps at |x| <= 60 m
+# phase 11, render and present: the app's main path (app.main's world and frames), the
+# presents' sizes, the timing (warm calls, timed calls) and the card-vs-CPU limits
+PRESENT_ENTITIES, PRESENT_FRAMES = 2048, 60
+PRESENT_SIZES = ((480, 270), (1280, 720))
+PRESENT_WARM, PRESENT_REPS, SOFT_REPS = 3, 10, 3
+PRESENT_COVERAGE_MIN = 0.999   # share of pixels whose hit mask agrees, card vs CPU
+PRESENT_DEPTH_RTOL = 1e-5      # where both hit
+PRESENT_RGB_LEVELS, PRESENT_RGB_SHARE = 1, 0.999
+SOFT_LEVELS = 2                # the software present's u8 image, card vs CPU
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
@@ -494,6 +517,10 @@ def main() -> int:
     sim = run_sim_tier(dev, card, replicate_state, map_tensors)
     mark("phase 10")
 
+    # 11. render and present: the app's main path, both presents, card vs CPU
+    present = run_present(dev, card)
+    mark("phase 11")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -545,6 +572,7 @@ def main() -> int:
     k1_paths["attachments"] = attach["k1"]
     k1_paths["scripts"] = scripts["k1"]
     k1_paths["layered"] = sim["layered"]["k1"]
+    k1_paths["present"] = present["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -593,6 +621,8 @@ def main() -> int:
          "launches_game_world": game_world["launches"]["K1"],
          "launches_nav_width": nav_width["launches"]["K1"],
          "launches_layered": sim["layered"]["launches"]["K1"],
+         "launches_present": present["launches"]["K1"],
+         "launches_present_views": present["view_launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -614,6 +644,7 @@ def main() -> int:
          "launches_game_world": game_world["launches"]["K2"],
          "launches_nav_width": nav_width["launches"]["K2"],
          "launches_sim_tier": {k: v["K2"] for k, v in sim_launches.items()},
+         "launches_present": present["launches"]["K2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -638,6 +669,176 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def event_times(fn, warm: int, reps: int):
+    """`warm` calls of fn(), then `reps` calls each between two CUDA events:
+    (median ms, spread max - min ms)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2], times[-1] - times[0]
+
+
+def present_gap(got, ref):
+    """Card against CPU for one on-device present, each (rgb, depth,
+    overflow) on the host: the figures and whether they hold."""
+    import numpy as np
+
+    rgb, depth, ov = (np.asarray(x) for x in got)
+    rrgb, rdepth, rov = (np.asarray(x) for x in ref)
+    hit, rhit = np.isfinite(depth), np.isfinite(rdepth)
+    both = hit & rhit
+    diff = np.abs(rgb.astype(np.int32) - rrgb.astype(np.int32)).max(axis=-1)
+    fig = {"overflow": [int(ov), int(rov)], "coverage": float((hit == rhit).mean()),
+           "depth_rel": float((np.abs(depth[both] - rdepth[both]) / rdepth[both]).max())
+           if both.any() else 0.0,
+           "rgb_share": float((diff <= PRESENT_RGB_LEVELS).mean()), "rgb_max": int(diff.max())}
+    ok = (int(ov) == int(rov) and fig["coverage"] >= PRESENT_COVERAGE_MIN
+          and fig["depth_rel"] <= PRESENT_DEPTH_RTOL and fig["rgb_share"] >= PRESENT_RGB_SHARE)
+    return fig, ok
+
+
+def run_present(dev, card):
+    """Phase 11: app.main's path on the card — headless_demo_world(2048)
+    through the Runner (start, PRESENT_FRAMES ticks with the cull pass),
+    then present() with the builtin plugins and present_tpu() at each of
+    PRESENT_SIZES — timed, counted, the on-device present once with every
+    synchronizing call an error and twice for identical bytes, K1 bit for
+    bit on the path's operands, and the card against the CPU from one
+    state (the CPU running the port's presents)."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch import app
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models.demo_scenes import headless_demo_world
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.renderer import gpu_soft, gpu_tpu, pipeline, plugins
+
+    engine, world, renderer = headless_demo_world(PRESENT_ENTITIES)
+    engine.device = dev
+    runner = app.Runner([], engine=engine)
+    runner.use_world(world)
+    runner.start()
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    runner.run(PRESENT_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    log(f"[11 present] {card}: headless_demo_world({PRESENT_ENTITIES}) through Runner.tick, "
+        f"{PRESENT_FRAMES} frames in {wall:.2f} s ({wall / PRESENT_FRAMES * 1e3:.3f} ms a tick "
+        f"on the host's clock), launches {launches}, metrics {runner.metrics()}")
+    if launches["K1"] != PRESENT_FRAMES:
+        raise AssertionError(f"present path: K1 launched {launches['K1']} times in "
+                             f"{PRESENT_FRAMES} ticks")
+    state = runner.state
+    rm = world.modules["renderer"]
+    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"], rm.statics())
+    centers, radii = centers[None].contiguous(), radii[None].contiguous()
+    bad, err, fracs = k1_check(centers, radii, (frustum.planes[None].contiguous(),
+                                                random_planes(1, dev)))
+    log(f"[11 present] K1 on the path's own operands {list(centers.shape)}, world camera and a "
+        f"random view: {bad} mismatches with the plain version (visible fractions "
+        f"{[round(f, 4) for f in fracs]})")
+    if bad:
+        raise AssertionError(f"K1 is not bit-exact on the present path: {bad} mismatches")
+    k1 = {"mismatches": bad, "max_abs_err": err, "shape": list(centers.shape)}
+
+    plugins.install_builtins(renderer)
+    out = {"k1": k1, "launches": launches, "tick_ms_host": wall / PRESENT_FRAMES * 1e3}
+    # the software present: host raster, the plugins' passes on the card
+    _zero_launches()
+    img = runner.present(width=480, height=270)
+    view_launches = _launches()
+    if img.shape != (270, 480, 3) or img.dtype != np.uint8 or not img.std() > 4.0:
+        raise AssertionError(f"software present: {img.shape} {img.dtype} std {img.std()}")
+    soft_ms, soft_spread = event_times(lambda: runner.present(width=480, height=270), 1, SOFT_REPS)
+    _, soft_ops = count_ops(lambda: runner.present(width=480, height=270))
+    log(f"[11 present] {card}: present() 480x270 with {len(renderer.plugins)} builtin plugins: "
+        f"{soft_ms:.3f} ms a present (median of {SOFT_REPS}, spread {soft_spread:.3f} ms; CUDA "
+        f"events around the whole call, host raster included), {soft_ops} torch ops a present, "
+        f"K1 launches in the first {view_launches['K1']} (prepare_view)")
+    out.update(view_launches=view_launches, soft={"ms": soft_ms, "spread": soft_spread,
+                                                   "ops": soft_ops})
+    # the on-device present
+    gpu_out = {}
+    for w, h in PRESENT_SIZES:
+        tp = gpu_tpu.TpuPresent(w, h)
+        rgb, depth, ov = tp(runner)
+        rgb2, depth2, ov2 = tp(runner)
+        same = bool(torch.equal(rgb, rgb2) and torch.equal(depth, depth2) and int(ov) == int(ov2))
+        if not same:
+            raise AssertionError(f"present_tpu {w}x{h}: two calls on one state differ")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tp(runner)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms, spread = event_times(lambda: tp(runner), PRESENT_WARM, PRESENT_REPS)
+        _, ops = count_ops(lambda: tp(runner))
+        _, raster_ops = count_ops(lambda: tp.raster_stage(state))
+        r_ms, r_dev = layer_time(lambda: tp.raster_stage(state), 5)
+        r = tp.raster_stage(state)
+        p_ms, p_dev = layer_time(lambda: tp.passes_stage(state, r[0], r[1]), 5)
+        t1 = time.perf_counter()
+        host = runner.present_tpu(width=w, height=h)
+        host_ms = (time.perf_counter() - t1) * 1e3
+        if host[0].shape != (h, w, 3) or not np.isfinite(host[1][np.isfinite(host[1])]).all():
+            raise AssertionError(f"present_tpu {w}x{h}: {host[0].shape}")
+        fill = float(torch.isfinite(depth).float().mean())
+        gpu_out[(w, h)] = (rgb.cpu().numpy(), depth.cpu().numpy(), int(ov))
+        out[f"tpu_{w}x{h}"] = {"ms": ms, "spread": spread, "ops": ops, "raster_ops": raster_ops,
+                               "overflow": int(ov), "raster_device_ms": r_dev,
+                               "passes_device_ms": p_dev, "host_ms": host_ms,
+                               "soup_tris": len(tp.soup.tri)}
+        log(f"[11 present] {card}: present_tpu {w}x{h}: {ms:.3f} ms a present (CUDA events, "
+            f"median of {PRESENT_REPS} after {PRESENT_WARM} warm, spread {spread:.3f} ms), "
+            f"{ops} torch ops a present ({raster_ops} in the raster), overflow {int(ov)}, "
+            f"{len(tp.soup.tri)} soup triangles, {fill:.4f} of the pixels hit; device time: "
+            f"raster {r_dev if r_dev is None else round(r_dev, 4)} ms ({r_ms:.4f} on events), "
+            f"decal + light + splat passes {p_dev if p_dev is None else round(p_dev, 4)} ms "
+            f"({p_ms:.4f} on events); Runner.present_tpu with the image read back "
+            f"{host_ms:.3f} ms on the host's clock; two calls identical, one call with every "
+            f"synchronizing CUDA call an error")
+    # card against CPU from one state: the port's presents on the CPU
+    cpu_runner = app.Runner([], engine=engine)
+    cpu_runner.use_world(world)
+    cpu_runner.state = map_tensors(lambda x: x.cpu(), state)
+    gaps = {}
+    for w, h in PRESENT_SIZES:
+        fig, ok = present_gap(gpu_out[(w, h)], gpu_tpu.TpuPresent(w, h)(cpu_runner))
+        gaps[f"tpu_{w}x{h}"] = fig
+        log(f"[11 present] present_tpu {w}x{h} card vs CPU: overflow {fig['overflow']} (equal), "
+            f"hit masks agree on {fig['coverage']:.6f} of the pixels (limit "
+            f"{PRESENT_COVERAGE_MIN}), depth {fig['depth_rel']:.3e} relative where both hit "
+            f"(limit {PRESENT_DEPTH_RTOL:g}), rgb within {PRESENT_RGB_LEVELS} level on "
+            f"{fig['rgb_share']:.6f} (limit {PRESENT_RGB_SHARE}), largest rgb gap {fig['rgb_max']}")
+        if not ok:
+            raise AssertionError(f"present_tpu {w}x{h} card vs CPU: {fig}")
+    img_g, _ = gpu_soft.render_frame(runner, None, width=480, height=270)
+    img_c, _ = gpu_soft.render_frame(cpu_runner, None, width=480, height=270)
+    soft_gap = int(np.abs(img_g.astype(np.int32) - img_c.astype(np.int32)).max())
+    gaps["soft"] = soft_gap
+    log(f"[11 present] present() 480x270 card vs CPU (host raster, passes on each device): "
+        f"largest u8 gap {soft_gap} (limit {SOFT_LEVELS})")
+    if soft_gap > SOFT_LEVELS:
+        raise AssertionError(f"software present card vs CPU: {soft_gap} levels")
+    out["gaps"] = gaps
+    return out
 
 
 def _timed_frames(step, state, frames, warm):

@@ -6,17 +6,25 @@ built-in system. Load: a world the caller builds (``use_world``). Loop: the
 host frame (OS events, dt smoothing, scripts on the host interpreter, the
 scripts' pending writes flushed into the device state) then the device step
 (``Engine.build_step`` with the cull pass), then the GUI's button signals.
-The step runs on the card unless the caller passes a CPU device.
+The step runs on the card unless the caller passes a CPU device. Present:
+``present`` replays the frame's DrawStream through the software backend
+(host raster, postprocess passes on the card, TAA history kept across
+calls); ``present_tpu`` rasterizes on the card and returns the image, the
+depth and the overflow count. ``main`` boots the headless demo world, runs
+the frames and writes a screenshot:
+
+    python -m lumixengine_tpu_torch.app --frames 60 --screenshot out.png [--device cpu]
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: loading a serialized or .unv world (host tier, Queue 1 item 7), the
-present paths (render and present, Queue 1 item 6) and the per-phase cost
-model (Queue 1 item 7).
+item: loading a serialized or .unv world, the per-phase cost model and the
+terminal UI (``--tui``), all of the host tier (Queue 1 item 7).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from lumixengine_tpu_torch.core import config as cfg
@@ -67,6 +75,8 @@ class Runner:
         self.settings.register("world", "", "app")
         self.settings.register("profile_start", False, "app")
         self.settings.register("fps_cap", 60.0, "app")
+        self.settings.register("screenshot", "", "app")
+        self.settings.register("tui", False, "app")
         self.cli = cfg.CommandLineParser(argv or [])
         self.cli.apply_to_settings(self.settings)
 
@@ -84,6 +94,8 @@ class Runner:
         self.frame_index = 0
         self._fixed_dt = None
         self._miss_warned = False
+        self._present_backend = None
+        self._present_tpu = None
 
     # -- boot (≙ Runner::onInit) --------------------------------------------------
 
@@ -194,13 +206,41 @@ class Runner:
 
     def present(self, path: Optional[str] = None, cam_slot: int = 0,
                 width: int = 480, height: int = 270):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="the software present (renderer/gpu_soft.py)", item=6))
+        """Record this frame's DrawStream and replay it through the software
+        backend (host raster, the registered RenderPlugins' passes on the
+        state's device). The backend is kept across calls, so TAA history
+        accumulates. Returns the uint8 image [H, W, 3]; writes a PNG at
+        `path` when given."""
+        from lumixengine_tpu_torch.renderer import gpu_soft
+
+        img, self._present_backend = gpu_soft.render_frame(
+            self, path, cam_slot, width, height, backend=self._present_backend)
+        return img
 
     def present_tpu(self, path: Optional[str] = None, cam_slot: int = 0,
                     width: int = 480, height: int = 270, gui: bool = True):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="the on-device present (renderer/gpu_tpu.py)", item=6))
+        """The on-device present (renderer/gpu_tpu.py): the scene is
+        tile-binned and z-filled on the state's device, rebaked on a topology
+        change; only the image crosses to the host, where the GUI (host
+        content) composites over it. Returns (rgb uint8 [H, W, 3], depth f32
+        [H, W], overflow int); writes a PNG at `path` when given."""
+        from lumixengine_tpu_torch.renderer import gpu_tpu
+
+        tp = self._present_tpu
+        if tp is None or (tp.width, tp.height) != (width, height):
+            tp = self._present_tpu = gpu_tpu.TpuPresent(width, height)
+        rgb, depth, overflow = tp(self, cam_slot)
+        rgb = rgb.cpu().numpy()
+        if gui and self.world.modules.get("gui") is not None:
+            from lumixengine_tpu_torch.renderer.gpu_soft import compose_gui
+
+            buf = compose_gui(rgb.astype(np.float32), self, width, height)
+            rgb = np.clip(buf, 0, 255).astype(np.uint8)
+        if path is not None:
+            from lumixengine_tpu_torch.renderer.texture import write_png
+
+            write_png(path, rgb)
+        return rgb, depth.cpu().numpy(), int(overflow)
 
     def metrics(self, phases: bool = False) -> dict:
         """Frame, time and every module counter (summed over a world batch)."""
@@ -223,3 +263,55 @@ class Runner:
         self.engine.stop_game(self.world)
         if trace_path:
             profiler.export_chrome_trace(trace_path)
+
+
+def _run_tui(runner: "Runner", frames: int) -> None:
+    raise NotImplementedError(_NOT_PORTED.format(
+        what="the terminal UI (core/os_terminal.py)", item=7))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Boot the headless demo world (2,048 entities) on `--device` (the card
+    unless `cpu` is given), run `--frames` frames (300), then present a
+    `--screenshot` PNG through the software present with the builtin
+    plugins, and print the metrics."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cli = cfg.CommandLineParser(argv)
+    device = torch.device(cli.value("device", "cuda"))
+    if cli.value("world"):
+        runner = Runner(argv, engine=create_full_engine(device=device))
+        runner.load_world(runner.settings.get("world"))
+    else:
+        # no world given: boot the headless demo scene
+        from lumixengine_tpu_torch.models import demo_scenes
+
+        engine, world, _ = demo_scenes.headless_demo_world(num_entities=2048)
+        engine.device = device
+        runner = Runner(argv, engine=engine)
+        runner.use_world(world)
+    runner.start()
+    frames = int(cli.value("frames", "300"))
+    t0 = time.perf_counter()
+    if runner.settings.get("tui"):
+        _run_tui(runner, frames)
+    runner.run(frames)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    el = time.perf_counter() - t0
+    log.log_info("app", f"{frames} frames in {el:.2f}s ({frames / el:.1f} fps)")
+    shot = runner.settings.get("screenshot")
+    if shot:
+        from lumixengine_tpu_torch.renderer.plugins import install_builtins
+
+        install_builtins(runner.world.modules["renderer"].system)
+        runner.present(str(shot))
+        log.log_info("app", f"screenshot -> {shot}")
+    print(runner.metrics())
+    runner.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

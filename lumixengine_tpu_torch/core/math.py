@@ -98,3 +98,18 @@ def dual_quat_from_rigid(rot, pos, axis: int = -1):
     pq = torch.stack([px, py, pz, torch.zeros_like(px)], dim=axis)
     dual = 0.5 * quat_mul(pq, rot, axis)
     return torch.cat([rot, dual], dim=axis)
+
+
+def dual_quat_transform(dq, v, axis: int = -1):
+    """Apply dual quaternion(s) [..., 8, ...] to points [..., 3, ...]."""
+    real, dual = torch.split(dq, 4, dim=axis)
+    tx, ty, tz, _ = unstack(quat_mul(dual, quat_conjugate(real, axis), axis), axis)
+    trans = torch.stack([2.0 * tx, 2.0 * ty, 2.0 * tz], dim=axis)
+    return quat_rotate(real, v, axis) + trans
+
+
+def dual_quat_normalize(dq, axis: int = -1):
+    """Both halves scaled by rsqrt of the real part's squared length."""
+    real, dual = torch.split(dq, 4, dim=axis)
+    inv_len = torch.rsqrt(torch.clamp_min(torch.sum(real * real, dim=axis, keepdim=True), 1e-12))
+    return torch.cat([real * inv_len, dual * inv_len], dim=axis)

@@ -1,5 +1,5 @@
 """Counter-based randomness: the parts of ``jax.random`` the particle path
-uses (``PRNGKey``, ``fold_in``, ``bits``, ``uniform``), bit for bit.
+uses (``PRNGKey``, ``fold_in``, ``split``, ``bits``, ``uniform``), bit for bit.
 
 The generator is threefry2x32 in JAX's partitionable mode
 (``jax_threefry_partitionable = True``): element ``i`` of a draw of shape S
@@ -68,6 +68,16 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     d = int(data) & MASK if isinstance(data, int) else _words(data.to(key.device))
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` in partitionable mode: key i is the
+    hash of the counter (0, i), the same words as ``fold_in(key, i)`` →
+    int64 keys [num, 2]."""
+    key = _words(key)
+    i = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None], 0, i)
+    return torch.stack([y0, y1], dim=-1)
 
 
 def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

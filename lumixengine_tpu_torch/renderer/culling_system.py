@@ -24,6 +24,9 @@ class CullingSystem:
     def add(self, entity: int, radius: float) -> None:
         self.store.add(entity, radius=np.float32(radius))
 
+    def remove(self, entity: int) -> None:
+        self.store.remove(entity)
+
     def device_state(self, device, world=None) -> CullingState:
         d = self.store.device(device, world)
         return CullingState(entity=d["entity"], radius=d["radius"])

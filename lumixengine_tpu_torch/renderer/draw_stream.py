@@ -5,10 +5,11 @@ The render pipeline records typed commands that reference device tensors
 (instance buffers, palettes, particle payloads) into a stream; substreams
 recorded in parallel merge in a fixed order; a backend replays the commands
 against whatever presents. ``record_frame`` records one view's frame with
-the RenderPlugin hooks at the reference's call points. The port has no
-terrain, decal or procedural-geometry store (those components raise on
-creation), so a frame holds the commands of the components it has, in the
-reference's order.
+the RenderPlugin hooks at the reference's call points: the instance
+draws, the instanced-model chunks, terrains, procedural geometry, the
+decal and light dispatches, particles, tonemap and the UI, in the
+reference's order. Replay times each pass into the profiler
+(``gpu_pass:<name>`` blocks).
 """
 from __future__ import annotations
 
@@ -59,15 +60,28 @@ class DrawStream:
 
     def replay(self, backend) -> int:
         """Call the backend's method named after each op with the command's
-        arguments (``backend.unknown(op=..., **args)`` for an op it lacks).
-        Returns the number of commands replayed."""
+        arguments (``backend.unknown(op=..., **args)`` for an op it lacks),
+        each pass inside a ``gpu_pass:<name>`` profiler block. Returns the
+        number of commands replayed."""
+        from lumixengine_tpu_torch.core import profiler
+
         self.merge()
-        for cmd in self.commands:
-            fn = getattr(backend, cmd.op, None)
-            if fn is None:
-                getattr(backend, "unknown", lambda **kw: None)(op=cmd.op, **cmd.args)
-            else:
-                fn(**cmd.args)
+        pass_block = None
+        try:
+            for cmd in self.commands:
+                if cmd.op == OP_SET_PASS:
+                    if pass_block is not None:
+                        pass_block.__exit__(None, None, None)
+                    pass_block = profiler.block(f"gpu_pass:{cmd.args.get('name', '?')}")
+                    pass_block.__enter__()
+                fn = getattr(backend, cmd.op, None)
+                if fn is None:
+                    getattr(backend, "unknown", lambda **kw: None)(op=cmd.op, **cmd.args)
+                else:
+                    fn(**cmd.args)
+        finally:
+            if pass_block is not None:
+                pass_block.__exit__(None, None, None)
         return len(self.commands)
 
 
@@ -95,6 +109,9 @@ class RenderPlugin:
     def render_ui(self, stream, view, module):
         pass
 
+    def frame(self, renderer_system):
+        pass
+
 
 def record_frame(view, rs, module, stream: Optional[DrawStream] = None) -> DrawStream:
     """Record one frame's commands from the View of one world."""
@@ -115,6 +132,18 @@ def record_frame(view, rs, module, stream: Optional[DrawStream] = None) -> DrawS
             if vis[i]:
                 s.push(OP_DRAW_INSTANCED, model=int(st.im_models[i]), chunk=i,
                        source="instanced_model")
+    # terrains, procedural geometry (a triangle soup at the entity
+    # transform), then the decal projection over the depth buffer (curve
+    # decals sample their bezier into segments of the same pass)
+    for slot in range(module.terrains.capacity):
+        e = int(module.terrains.entity[slot])
+        if e >= 0:
+            s.push(OP_DRAW_TERRAIN, entity=e, terrain=int(module.terrains.get(e, "terrain")))
+    for e, pg in module.procedural_geometries.items():
+        if len(pg.get("vertices", ())):
+            s.push(OP_DRAW_MODEL, source="procedural_geometry", entity=e)
+    if (module.decals.entity >= 0).any() or (module.curve_decals.entity >= 0).any():
+        s.push(OP_DISPATCH, shader="decals")
     # clustered point-light shading
     if (module.point_lights.entity >= 0).any():
         s.push(OP_DISPATCH, shader="deferred_lights")

@@ -1,8 +1,9 @@
 """Model resources (counterpart of ``lumixengine_tpu/renderer/model.py``), as
 far as the cull pass, the animation and physics need them: a bounding
 radius, up to 4 LOD switch distances, a material id, an optional skeleton
-and optional vertex positions (the point cloud an instanced_mesh cooks its
-hull from) per model.
+and optional mesh data per model: vertex positions (the point cloud an
+instanced_mesh cooks its hull from), UVs, triangles and skin weights (the
+presents draw them).
 ``ModelRegistry.bake`` fills the host mirrors the view statics read and the
 bank's bone count."""
 from __future__ import annotations
@@ -68,6 +69,10 @@ class Model:
     skeleton: Optional[Skeleton] = None
     vertex_positions: Optional[np.ndarray] = None  # f32 [V,3]
     material_id: int = 0
+    vertex_uvs: Optional[np.ndarray] = None        # f32 [V,2] (bake-time texture sampling)
+    vertex_triangles: Optional[np.ndarray] = None  # int32 [T,3] (the presents' meshes)
+    vertex_weights: Optional[np.ndarray] = None    # f32 [V,4] skin weights
+    vertex_bones4: Optional[np.ndarray] = None     # int32 [V,4] skin bone ids
 
     def __post_init__(self):
         if self.lod_distances is None:

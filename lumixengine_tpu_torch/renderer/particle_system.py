@@ -76,11 +76,14 @@ class ParticleSystem:
     """One compiled script instance: a set of emitters with cross-emit edges
     (one per particle_emitter component)."""
 
-    def __init__(self, emitters: Dict[str, CompiledEmitter]):
+    def __init__(self, emitters: Dict[str, CompiledEmitter],
+                 capacity_override: Optional[Dict[str, int]] = None):
         self.emitters = emitters
-        # a declared capacity of 0 runs one slot
-        self.caps = {name: max(em.decl.max_ribbons * em.decl.max_ribbon_length
-                               if em.decl.max_ribbons else em.decl.max_particles, 1)
+        # a declared capacity of 0 runs one slot; `capacity_override` (emitter
+        # name → slots) replaces the declared capacity as it is
+        self.caps = {name: (capacity_override or {}).get(
+                         name, max(em.decl.max_ribbons * em.decl.max_ribbon_length
+                                   if em.decl.max_ribbons else em.decl.max_particles, 1))
                      for name, em in emitters.items()}
         # declared `global` inputs (name → width), shared across emitters
         self.globals_decl: Dict[str, int] = {}
@@ -115,8 +118,8 @@ class ParticleSystem:
         self.order = order
 
     @classmethod
-    def from_source(cls, src: str, imports: Optional[Dict[str, str]] = None):
-        return cls(compile_source(src, imports=imports))
+    def from_source(cls, src: str, imports: Optional[Dict[str, str]] = None, **kw):
+        return cls(compile_source(src, imports=imports), **kw)
 
     # -- state ------------------------------------------------------------------
 

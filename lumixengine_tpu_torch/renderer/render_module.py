@@ -1,13 +1,17 @@
 """RenderModule + RendererSystem (counterpart of
 ``lumixengine_tpu/renderer/render_module.py``).
 
-The ported components are model_instance, camera, point_light, environment,
-particle_emitter, instanced_model (host instance blobs, culled as one sphere
-each by ``pipeline.prepare_view``) and bone_attachment. The phases are
-end_frame (previous-frame transforms of the model instances), update (one
-frame of every particle emitter, with the particle counters), late_update
-(bone attachments follow their animated bone) and the pipeline's cull pass.
-Other component types raise NotImplementedError.
+The components are model_instance, camera, point_light, environment,
+particle_emitter (with per-emitter `capacities` and script globals set by
+``set_particle_global``), instanced_model (host instance blobs, culled as
+one sphere each by ``pipeline.prepare_view``), bone_attachment, terrain
+(a heightmap id of ``RendererSystem.terrains``), decal and curve_decal
+(boxes the presents project onto the depth buffer), procedural_geometry
+(host triangle soups), reflection_probe and environment_probe (baked by
+``probes.bake_all_probes``). The phases are end_frame (previous-frame
+transforms of the model instances), update (one frame of every particle
+emitter, with the particle counters), late_update (bone attachments follow
+their animated bone) and the pipeline's cull pass.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
 from lumixengine_tpu_torch.renderer.terrain import TerrainRegistry
 from lumixengine_tpu_torch.utils.store import DenseStore
 
-_NOT_PORTED = ("terrain", "decal", "curve_decal", "procedural_geometry", "reflection_probe",
-               "environment_probe")
+# component type → its DenseStore attribute, for the stores destroy_component empties
+_STORES = {"terrain": "terrains", "decal": "decals", "curve_decal": "curve_decals",
+           "reflection_probe": "reflection_probes", "environment_probe": "environment_probes",
+           "bone_attachment": "bone_attachments"}
 
 
 @dataclass
@@ -91,6 +97,32 @@ class RenderModule(IModule):
         self.env_intensity = np.float32(1.0)
         # particle emitter components: key -> (entity, ParticleSystem instance)
         self.particle_emitters: Dict[str, tuple] = {}
+        # per emitter component: the script's `global` inputs (name -> value)
+        self.particle_globals: Dict[str, Dict[str, object]] = {}
+        self.decals = DenseStore(256, {
+            "material": ((), np.int32, 0),
+            "half_extents": ((3,), np.float32, 0.5),
+            "uv_scale": ((2,), np.float32, 1.0),
+        })
+        self.curve_decals = DenseStore(64, {
+            "material": ((), np.int32, 0),
+            "half_extents": ((3,), np.float32, 0.5),
+            "uv_scale": ((2,), np.float32, 1.0),
+            "bezier_p0": ((2,), np.float32, 0.0),
+            "bezier_p2": ((2,), np.float32, 1.0),
+        })
+        # the terrain component: a heightmap id into RendererSystem.terrains
+        self.terrains = DenseStore(8, {"terrain": ((), np.int32, -1)})
+        self.reflection_probes = DenseStore(32, {
+            "size": ((), np.int32, 128),
+            "half_extents": ((3,), np.float32, 10.0),
+        })
+        self.environment_probes = DenseStore(32, {
+            "inner": ((3,), np.float32, 5.0),
+            "outer": ((3,), np.float32, 10.0),
+        })
+        # ProceduralGeometry: per-entity vertex blobs (consecutive triangles)
+        self.procedural_geometries: Dict[int, dict] = {}
         # BoneAttachment: the entity follows a bone of an animated parent
         self.bone_attachments = DenseStore(64, {
             "parent_entity": ((), np.int32, -1),
@@ -106,7 +138,8 @@ class RenderModule(IModule):
 
     def component_types(self):
         return ["model_instance", "camera", "point_light", "environment", "particle_emitter",
-                "instanced_model", "bone_attachment", *_NOT_PORTED]
+                "terrain", "decal", "curve_decal", "instanced_model", "procedural_geometry",
+                "reflection_probe", "environment_probe", "bone_attachment"]
 
     def statics(self):
         """Host view statics (slot indices, model ids, radii, the attachment
@@ -146,8 +179,37 @@ class RenderModule(IModule):
             if "intensity" in props:
                 self.env_intensity = np.float32(props["intensity"])
         elif ctype == "particle_emitter":
-            self.particle_emitters[f"pe{entity}"] = (entity,
-                                                     self.system.particle_system(props["script"]))
+            ps = self.system.particle_system(props["script"],
+                                             capacity_override=props.get("capacities"))
+            ps.script_name = props["script"]
+            self.particle_emitters[f"pe{entity}"] = (entity, ps)
+        elif ctype == "terrain":
+            self.terrains.add(entity, terrain=np.int32(props.get("terrain", -1)))
+        elif ctype == "decal":
+            self.decals.add(entity, material=np.int32(props.get("material", 0)),
+                            half_extents=np.asarray(props.get("half_extents", (0.5,) * 3),
+                                                    np.float32),
+                            uv_scale=np.asarray(props.get("uv_scale", (1.0, 1.0)), np.float32))
+        elif ctype == "curve_decal":
+            self.curve_decals.add(
+                entity, material=np.int32(props.get("material", 0)),
+                half_extents=np.asarray(props.get("half_extents", (0.5,) * 3), np.float32),
+                uv_scale=np.asarray(props.get("uv_scale", (1.0, 1.0)), np.float32),
+                bezier_p0=np.asarray(props.get("bezier_p0", (0.0, 0.0)), np.float32),
+                bezier_p2=np.asarray(props.get("bezier_p2", (1.0, 1.0)), np.float32))
+        elif ctype == "procedural_geometry":
+            self.procedural_geometries[entity] = {
+                "vertices": np.asarray(props.get("vertices", np.zeros((0, 3))), np.float32),
+                "material": int(props.get("material", 0)),
+            }
+        elif ctype == "reflection_probe":
+            self.reflection_probes.add(
+                entity, size=np.int32(props.get("size", 128)),
+                half_extents=np.asarray(props.get("half_extents", (10.0,) * 3), np.float32))
+        elif ctype == "environment_probe":
+            self.environment_probes.add(
+                entity, inner=np.asarray(props.get("inner", (5.0,) * 3), np.float32),
+                outer=np.asarray(props.get("outer", (10.0,) * 3), np.float32))
         elif ctype == "instanced_model":
             mid = props.get("model")
             mid = self.system.models.get_id(mid) if isinstance(mid, str) else int(mid)
@@ -169,7 +231,32 @@ class RenderModule(IModule):
             if parent >= 0 and self.world.get_parent(entity) < 0:
                 self.world.set_parent(entity, parent)
         else:
-            raise NotImplementedError(f"render component {ctype!r} is not ported")
+            raise KeyError(ctype)
+
+    def destroy_component(self, entity: int, ctype: str) -> None:
+        self._statics = None
+        if ctype == "particle_emitter":
+            self.particle_emitters.pop(f"pe{entity}", None)
+        elif ctype in _STORES:
+            getattr(self, _STORES[ctype]).remove(entity)
+        elif ctype == "instanced_model":
+            self.instanced_models.pop(entity, None)
+        elif ctype == "procedural_geometry":
+            self.procedural_geometries.pop(entity, None)
+        elif ctype == "model_instance":
+            self.model_instances.remove(entity)
+            self.culling.remove(entity)
+        elif ctype == "camera":
+            self.cameras.remove(entity)
+        elif ctype == "point_light":
+            self.point_lights.remove(entity)
+        elif ctype == "environment":
+            self.env_entity = -1
+
+    def set_particle_global(self, entity: int, name: str, value) -> None:
+        """Set a script `global` of this entity's emitter; the next frame's
+        update reads it."""
+        self.particle_globals.setdefault(f"pe{entity}", {})[name] = value
 
     def device_state(self, device) -> RenderState:
         w = self.world
@@ -266,8 +353,8 @@ class RenderModule(IModule):
     def update(self, state: WorldState, dt) -> WorldState:
         """One frame of every particle emitter, in component-key order, each
         on its own key folded from the frame counter; the emitter's entity
-        position is the script's `entity_position` (declared `global`s read
-        zeros: nothing sets them)."""
+        position is the script's `entity_position`, its declared `global`s
+        the values set by ``set_particle_global`` (zeros until set)."""
         if not self.particle_emitters:
             return state
         rs: RenderState = state.modules[self.name]
@@ -275,7 +362,8 @@ class RenderModule(IModule):
         particles = dict(rs.particles)
         alive_n = emitted_n = killed_n = torch.zeros_like(state.frame)
         for i, (pkey, (entity, ps)) in enumerate(sorted(self.particle_emitters.items())):
-            system = {"entity_position": state.world.pos[..., :, self.world.slot(entity)]}
+            system = dict(self.particle_globals.get(pkey, {}))
+            system.setdefault("entity_position", state.world.pos[..., :, self.world.slot(entity)])
             sub = ps.step(particles[pkey], dt, state.time, prng.fold_in(key, i), system=system)
             particles[pkey] = sub
             for st in sub.values():
@@ -293,9 +381,11 @@ class RendererSystem(ISystem):
 
     def __init__(self, engine):
         super().__init__(engine)
+        from lumixengine_tpu_torch.renderer.material import MaterialRegistry
+
         self.models = ModelRegistry()
-        # heightmaps, read by the physics heightfields (the render terrain
-        # component is not ported)
+        self.materials = MaterialRegistry()
+        # heightmaps: the terrain component and the physics heightfields
         self.terrains = TerrainRegistry()
         self._baked = False
         # particle script sources: name -> (src, imports dict)
@@ -305,6 +395,9 @@ class RendererSystem(ISystem):
 
     def add_plugin(self, plugin) -> None:
         self.plugins.append(plugin)
+
+    def remove_plugin(self, plugin) -> None:
+        self.plugins.remove(plugin)
 
     def add_model(self, model: Model) -> int:
         self._baked = False
@@ -320,11 +413,12 @@ class RendererSystem(ISystem):
         """Register a .pat particle script (with its imported .pai sources)."""
         self.particle_scripts[name] = (src, imports or {})
 
-    def particle_system(self, script: str):
+    def particle_system(self, script: str, capacity_override=None):
         from lumixengine_tpu_torch.renderer.particle_system import ParticleSystem
 
         src, imports = self.particle_scripts[script]
-        return ParticleSystem.from_source(src, imports=imports)
+        return ParticleSystem.from_source(src, imports=imports,
+                                          capacity_override=capacity_override)
 
     def create_modules(self, world: World) -> RenderModule:
         caps = getattr(self.engine, "module_capacities", {})

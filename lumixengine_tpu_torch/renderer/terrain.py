@@ -1,8 +1,8 @@
-"""Terrain heightmaps (counterpart of ``lumixengine_tpu/renderer/terrain.py``),
-as far as physics needs them: the registry of heightmaps, their bank on a
-device and bilinear height and normal sampling, which the heightfield
-contacts and the character controllers read. Grass scattering and the LOD
-pick belong to the render ``terrain`` component, which is not ported.
+"""Terrain heightmaps (counterpart of ``lumixengine_tpu/renderer/terrain.py``):
+the registry of heightmaps, their bank on a device, bilinear height and
+normal sampling (read by the heightfield contacts, the character
+controllers and the render ``terrain`` component), the seeded grass
+scatter and the chunk LOD pick.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from lumixengine_tpu_torch.core import random as prng
 
 
 @dataclass
@@ -53,6 +55,32 @@ def sample_normal(bank: TerrainBank, tid: int, x, z, eps: float = 0.5):
     return n * torch.rsqrt(torch.clamp_min(torch.sum(n * n, dim=-2, keepdim=True), 1e-12))
 
 
+def scatter_grass(bank: TerrainBank, tid: int, density: float, extent_xz, key,
+                  max_instances: int = 4096, max_slope_y: float = 0.7):
+    """Grass instance transforms: a seeded uniform scatter over the extent,
+    snapped to the heightmap, masked by slope and by the density's count →
+    (pos [3, N], yaw [N], mask [N]). `key` is a threefry key; the draws are
+    the reference's (``jax.random.split(key, 3)``, then ``uniform``) bit for
+    bit."""
+    kx, kz, ka = prng.split(key, 3)
+    n = max_instances
+    x = prng.uniform(kx, (n,)) * extent_xz[0]
+    z = prng.uniform(kz, (n,)) * extent_xz[1]
+    y = sample_height(bank, tid, x, z)
+    nrm = sample_normal(bank, tid, x, z)
+    yaw = prng.uniform(ka, (n,)) * (2 * np.pi)
+    wanted = torch.arange(n, device=x.device) < int(np.int32(density * extent_xz[0] * extent_xz[1]))
+    mask = (nrm[1] > max_slope_y) & wanted
+    return torch.stack([x, y, z], dim=-2), yaw, mask
+
+
+def terrain_lod_levels(dist2: torch.Tensor, lod_distances) -> torch.Tensor:
+    """Chunk LOD by camera distance, the model LODs' rule: the number of
+    switch distances passed. dist2 [..., K], lod_distances [L] or [..., L, K]."""
+    lod = torch.as_tensor(lod_distances, dtype=dist2.dtype, device=dist2.device)
+    return torch.sum(dist2[..., None, :] > lod[..., :, None], dim=-2)
+
+
 class TerrainRegistry:
     """Host terrain store; `bank(device)` bakes it once a device."""
 
@@ -70,6 +98,9 @@ class TerrainRegistry:
         })
         self._banks = {}
         return len(self.terrains) - 1
+
+    def get(self, tid: int) -> dict:
+        return self.terrains[tid]
 
     def bank(self, device) -> TerrainBank:
         key = str(torch.device(device))

@@ -1,11 +1,14 @@
-"""The host-side native library of the navigation path (counterpart of
-``lumixengine_tpu/utils/native.py``): the grid A* of ``csrc/nav_astar.cpp``,
-shared with the JAX package as it is, built with ``g++`` at first use into
-``lumixengine_tpu_torch/_build/`` and bound with ``ctypes``.
+"""The host-side native libraries (counterpart of
+``lumixengine_tpu/utils/native.py``): the grid A* of ``csrc/nav_astar.cpp``
+(navigation) and the z-buffered triangle fill of ``csrc/soft_raster.cpp``
+(the software present's raster), both shared with the JAX package as they
+are, each built with ``g++`` at first use into ``lumixengine_tpu_torch/_build/``
+and bound with ``ctypes``.
 
-If ``g++`` or the build fails, ``available()`` is False and the caller
-(``NavZone.find_path``) runs its Python A*, which gives the same path.
-Nothing is built when this module is imported.
+If ``g++`` or a build fails, ``available()`` (the A*) or
+``raster_available()`` (the fill) is False and the caller runs its Python
+version, which gives the same result. Nothing is built when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -19,60 +22,79 @@ from pathlib import Path
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
-_SRC = _ROOT / "csrc" / "nav_astar.cpp"
-_OUT = Path(__file__).resolve().parent.parent / "_build" / "libnav_astar.so"
+_BUILD = Path(__file__).resolve().parent.parent / "_build"
 
 _lock = threading.Lock()
-_lib = None
-_tried = False
+_libs: dict = {}
 
 
-def _build() -> bool:
+def _bind_nav(lib) -> None:
+    lib.lxt_nav_astar.restype = ctypes.c_int
+    lib.lxt_nav_astar.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+    ]
+
+
+def _bind_raster(lib) -> None:
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.lxt_raster_tris.restype = ctypes.c_int
+    lib.lxt_raster_tris.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, fp, fp, fp, ctypes.c_int]
+
+
+# library name → (source under csrc/, binder)
+_SOURCES = {"nav_astar": ("nav_astar.cpp", _bind_nav),
+            "soft_raster": ("soft_raster.cpp", _bind_raster)}
+
+
+def _build(src: Path, out: Path) -> bool:
     try:
-        if _OUT.exists() and _OUT.stat().st_mtime >= _SRC.stat().st_mtime:
+        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
             return True
-        _OUT.parent.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         # build beside the target and rename: concurrent builders never load a partial file
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT.parent)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", tmp],
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o", tmp],
                        check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _OUT)
+        os.replace(tmp, out)
         return True
     except Exception:
         return False
 
 
-def _load():
-    global _lib, _tried
+def _load(name: str):
     with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        if not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(str(_OUT))
-            lib.lxt_nav_astar.restype = ctypes.c_int
-            lib.lxt_nav_astar.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
-            ]
-            _lib = lib
-        except OSError:
-            _lib = None
-        return _lib
+        if name in _libs:
+            return _libs[name]
+        src, bind = _SOURCES[name]
+        out = _BUILD / f"lib{name}.so"
+        lib = None
+        if _build(_ROOT / "csrc" / src, out):
+            try:
+                lib = ctypes.CDLL(str(out))
+                bind(lib)
+            except OSError:
+                lib = None
+        _libs[name] = lib
+        return lib
 
 
 def available() -> bool:
-    return _load() is not None
+    """The A* library built and loaded."""
+    return _load("nav_astar") is not None
+
+
+def raster_available() -> bool:
+    """The triangle-fill library built and loaded."""
+    return _load("soft_raster") is not None
 
 
 def nav_astar(walkable, sx: int, sz: int, gx: int, gz: int, max_cells: int = 65536):
     """Native grid A* (≙ Detour findPath). walkable: bool [H, W].
     Returns int32 [L, 2] (x, z) cells start→goal, or None."""
-    lib = _load()
+    lib = _load("nav_astar")
     if lib is None:
         raise RuntimeError("native pathfinder unavailable")
     w8 = np.ascontiguousarray(walkable, dtype=np.uint8)
@@ -83,3 +105,24 @@ def nav_astar(walkable, sx: int, sz: int, gx: int, gz: int, max_cells: int = 655
     if n < 0:
         return None
     return np.ctypeslib.as_array(out)[: 2 * n].reshape(n, 2).copy()
+
+
+def raster_tris(fb: np.ndarray, zb: np.ndarray, tv, tz, cols) -> int:
+    """Z-buffered fill of T screen-space triangles into fb [H, W, 3] and
+    zb [H, W] (float32, C-contiguous, mutated in place): tv [T, 3, 2]
+    screen xy, tz [T, 3] view depth, cols [T, 3] rgb. Returns the pixels
+    written."""
+    lib = _load("soft_raster")
+    if lib is None:
+        raise RuntimeError("native rasterizer unavailable")
+    if fb.dtype != np.float32 or zb.dtype != np.float32 \
+            or not (fb.flags.c_contiguous and zb.flags.c_contiguous):
+        raise ValueError("fb and zb must be C-contiguous float32")
+    h, w = zb.shape
+    tv = np.ascontiguousarray(tv, np.float32)
+    tz = np.ascontiguousarray(tz, np.float32)
+    cols = np.ascontiguousarray(cols, np.float32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    return lib.lxt_raster_tris(fb.ctypes.data_as(fp), zb.ctypes.data_as(fp), w, h,
+                               tv.ctypes.data_as(fp), tz.ctypes.data_as(fp),
+                               cols.ctypes.data_as(fp), len(tz))

@@ -722,3 +722,77 @@ def test_layered_crowd_on_the_card(cuda):
     for k in ("pose_pos", "pose_rot", "palette", "ctrl_clocks"):
         k = "modules.animation." + k
         assert abs(got[k] - ref[k]).max() <= 1e-5, k
+
+
+def _present_runner(dev, build):
+    from lumixengine_tpu_torch import app
+
+    engine, world, _r = build()
+    engine.device = dev
+    runner = app.Runner([], engine=engine)
+    runner.use_world(world)
+    runner.start()
+    return runner
+
+
+def _present_limits(got, ref):
+    """The card-vs-CPU limits of the on-device present (chip_smoke phase 11)."""
+    import numpy as np
+
+    rgb, depth, ov = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x) for x in got)
+    rrgb, rdepth, rov = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x) for x in ref)
+    assert int(ov) == int(rov)
+    hit, rhit = np.isfinite(depth), np.isfinite(rdepth)
+    assert (hit == rhit).mean() >= 0.999
+    both = hit & rhit
+    assert (np.abs(depth[both] - rdepth[both]) / rdepth[both]).max() <= 1e-5
+    diff = np.abs(rgb.astype(np.int32) - rrgb.astype(np.int32)).max(axis=-1)
+    assert (diff <= 1).mean() >= 0.999
+
+
+@pytest.mark.parametrize("scene", ["demo", "storm"])
+def test_present_tpu_repeats_itself_and_matches_cpu(cuda, scene):
+    """Two on-device presents of one state give identical bytes (the
+    particle splats' per-pixel sums included), and the card's present agrees
+    with the CPU port's from the same state at 240 x 136."""
+    from lumixengine_tpu_torch import app
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models import demo_scenes as ds
+    from lumixengine_tpu_torch.renderer import gpu_tpu
+
+    build = (lambda: ds.headless_demo_world(512)) if scene == "demo" \
+        else (lambda: ds.particle_stress_world(4096))
+    runner = _present_runner(cuda, build)
+    runner.run(12)
+    tp = gpu_tpu.TpuPresent(240, 136)
+    a, b = tp(runner), tp(runner)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and int(a[2]) == int(b[2])
+    if scene == "storm":
+        off = gpu_tpu.TpuPresent(240, 136, particles=False)(runner)
+        assert int((a[0] != off[0]).any(-1).sum()) > 20
+    cpu = app.Runner([], engine=runner.engine)
+    cpu.use_world(runner.world)
+    cpu.state = map_tensors(lambda x: x.cpu(), runner.state)
+    _present_limits(a, gpu_tpu.TpuPresent(240, 136)(cpu))
+
+
+def test_software_present_card_matches_cpu(cuda):
+    """present() with the builtin plugins: the card's passes against the
+    CPU's on one state, within 2 u8 levels."""
+    import numpy as np
+
+    from lumixengine_tpu_torch import app
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models import demo_scenes as ds
+    from lumixengine_tpu_torch.renderer import gpu_soft, plugins
+
+    runner = _present_runner(cuda, lambda: ds.headless_demo_world(256))
+    runner.run(3)
+    plugins.install_builtins(runner.world.modules["renderer"].system)
+    img, _ = gpu_soft.render_frame(runner, None, width=160, height=90)
+    cpu = app.Runner([], engine=runner.engine)
+    cpu.use_world(runner.world)
+    cpu.state = map_tensors(lambda x: x.cpu(), runner.state)
+    ref, _ = gpu_soft.render_frame(cpu, None, width=160, height=90)
+    assert np.abs(img.astype(np.int32) - ref.astype(np.int32)).max() <= 2
+    assert img.std() > 4.0

@@ -133,8 +133,8 @@ def test_runner_parts_not_ported_name_their_roadmap_item():
     runner = papp.Runner([], engine=papp.create_full_engine(device="cpu"))
     assert runner.device == torch.device("cpu")
     for call, item in ((lambda: runner.load_world("x.unv"), "item 7"),
-                       (runner.present, "item 6"), (runner.present_tpu, "item 6"),
-                       (runner.phase_metrics, "item 7")):
+                       (runner.phase_metrics, "item 7"),
+                       (lambda: papp._run_tui(runner, 1), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 

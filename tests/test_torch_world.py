@@ -112,14 +112,26 @@ def test_unported_arms_raise(kw):
 
 
 def test_unported_components_raise(worlds):
-    """The render terrain and decal components raise NotImplementedError;
-    property_animator is ported: it takes curves on its device rows and
-    raises KeyError, as the reference, for a property without one."""
-    _ref, (_pe, pw, _pr, _pp) = worlds
-    for ctype, props in (("terrain", dict(terrain=0)),
-                         ("decal", dict(half_extents=(1.0, 1.0, 1.0)))):
-        with pytest.raises(NotImplementedError):
-            pw.create_component(0, ctype, **props)
+    """The render terrain and decal components create and destroy with the
+    reference's stores, and a render component type the module does not
+    know raises KeyError, as in the reference; property_animator takes
+    curves on its device rows and raises KeyError, as the reference, for a
+    property without one."""
+    (_e, rw, _r, _p), (_pe, pw, _pr, _pp) = worlds
+    for ctype, store, props in (("terrain", "terrains", dict(terrain=0)),
+                                ("decal", "decals", dict(half_extents=(1.0, 2.0, 3.0)))):
+        for w in (rw, pw):
+            w.create_component(0, ctype, **props)
+        got, ref = getattr(pw.modules["renderer"], store), getattr(rw.modules["renderer"], store)
+        np.testing.assert_array_equal(got.entity, ref.entity)
+        for f in ref.data:
+            np.testing.assert_array_equal(got.data[f], ref.data[f], err_msg=f)
+        for w in (rw, pw):
+            w.destroy_component(0, ctype)
+        assert len(got) == len(ref) == 0
+    for module in (rw.modules["renderer"], pw.modules["renderer"]):
+        with pytest.raises(KeyError):
+            module.create_component(0, "no_such_component")
     with pytest.raises(KeyError, match="no device row"):
         pw.create_component(0, "property_animator", curves=[{
             "component": "point_light", "property": "color", "times": [0.0], "values": [1.0]}])
