@@ -160,6 +160,19 @@ Phases, each printed on its own line:
      (present_tpu: equal overflow, hit masks on 99.9% of the pixels, depth
      within 1e-5 relative, rgb within 1 level on 99.9%; present(): within
      2 u8 levels);
+  12. load and save (printed before phase 8's timings; alone: tools/host_tier.py):
+     the stress scene of models/host_scenes.py (2,048 entities in a
+     three-level hierarchy, 64 dynamic bodies over a static slab, lights, a
+     camera, animables, a nav zone on a packed .nav with agents, GUI rects
+     with a core signal, sounds, 8 Lua scripts, one spawning a model
+     instance) written as a .unv and loaded with Runner.load_world on the
+     card: load and start on the host's clock, 60 ticks (K1 and K2 once a
+     tick), the metrics(phases=True) model beside each phase's device time,
+     the same load and 3 ticks on the CPU against the card (state_gap,
+     explain_break), the world blob (codec lz4n) loaded into a fresh engine
+     to the same snapshot and 10 steps of both field by field, a
+     checkpoint at tick 30 resumed bit for bit, export_scene back to the
+     scene, K2 on the path's contact set;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -269,6 +282,9 @@ PRESENT_COVERAGE_MIN = 0.999   # share of pixels whose hit mask agrees, card vs 
 PRESENT_DEPTH_RTOL = 1e-5      # where both hit
 PRESENT_RGB_LEVELS, PRESENT_RGB_SHARE = 1, 0.999
 SOFT_LEVELS = 2                # the software present's u8 image, card vs CPU
+# phase 12, load and save: the stress scene's entities and bodies (models/host_scenes.py), the
+# ticks after the load, the tick a checkpoint is taken at, and the ticks after the reload
+HOST_ENTITIES, HOST_BODIES, HOST_TICKS, HOST_CKPT_AT, HOST_RELOAD_TICKS = 2048, 64, 60, 30, 10
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
@@ -521,6 +537,10 @@ def main() -> int:
     present = run_present(dev, card)
     mark("phase 11")
 
+    # 12. load and save: a .unv written, loaded, ticked, saved, reloaded, checkpointed
+    host = run_host_tier(dev, card)
+    mark("phase 12")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -573,6 +593,7 @@ def main() -> int:
     k1_paths["scripts"] = scripts["k1"]
     k1_paths["layered"] = sim["layered"]["k1"]
     k1_paths["present"] = present["k1"]
+    k1_paths["host_tier"] = host["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -592,6 +613,7 @@ def main() -> int:
                       for name, r in farms.items()})
     k2_shapes.update({kind: [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]] for kind, r in game.items()})
     k2_shapes["scripts (empty)"] = [scripts["k2"][k] for k in ("W", "NB", "C")]
+    k2_shapes["host tier"] = [host["k2"][k] for k in ("W", "NB", "C")]
     piles = sim["piles"]
     log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
         f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
@@ -623,6 +645,7 @@ def main() -> int:
          "launches_layered": sim["layered"]["launches"]["K1"],
          "launches_present": present["launches"]["K1"],
          "launches_present_views": present["view_launches"]["K1"],
+         "launches_host_tier": host["launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -645,12 +668,15 @@ def main() -> int:
          "launches_nav_width": nav_width["launches"]["K2"],
          "launches_sim_tier": {k: v["K2"] for k, v in sim_launches.items()},
          "launches_present": present["launches"]["K2"],
+         "launches_host_tier": host["launches"]["K2"],
+         "host_tier": host["k2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
          "launches_game": {**{kind: r["launches"]["K2"] for kind, r in game.items()},
                            "banded_props": banded_props["launches"]["K2"]},
          "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
+                            host["k2"]["max_abs_err"],
                             *(r["k2"]["max_abs_err"] for r in (*farms.values(),
                                                                *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
@@ -725,7 +751,7 @@ def run_present(dev, card):
     from lumixengine_tpu_torch.engine.world import map_tensors
     from lumixengine_tpu_torch.models.demo_scenes import headless_demo_world
     from lumixengine_tpu_torch.ops import culling as cull
-    from lumixengine_tpu_torch.renderer import gpu_soft, gpu_tpu, pipeline, plugins
+    from lumixengine_tpu_torch.renderer import gpu_soft, gpu_tpu, plugins
 
     engine, world, renderer = headless_demo_world(PRESENT_ENTITIES)
     engine.device = dev
@@ -746,17 +772,7 @@ def run_present(dev, card):
         raise AssertionError(f"present path: K1 launched {launches['K1']} times in "
                              f"{PRESENT_FRAMES} ticks")
     state = runner.state
-    rm = world.modules["renderer"]
-    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"], rm.statics())
-    centers, radii = centers[None].contiguous(), radii[None].contiguous()
-    bad, err, fracs = k1_check(centers, radii, (frustum.planes[None].contiguous(),
-                                                random_planes(1, dev)))
-    log(f"[11 present] K1 on the path's own operands {list(centers.shape)}, world camera and a "
-        f"random view: {bad} mismatches with the plain version (visible fractions "
-        f"{[round(f, 4) for f in fracs]})")
-    if bad:
-        raise AssertionError(f"K1 is not bit-exact on the present path: {bad} mismatches")
-    k1 = {"mismatches": bad, "max_abs_err": err, "shape": list(centers.shape)}
+    k1 = k1_on_state("11 present", world, state)
 
     plugins.install_builtins(renderer)
     out = {"k1": k1, "launches": launches, "tick_ms_host": wall / PRESENT_FRAMES * 1e3}
@@ -839,6 +855,323 @@ def run_present(dev, card):
         raise AssertionError(f"software present card vs CPU: {soft_gap} levels")
     out["gaps"] = gaps
     return out
+
+
+# -- 12. load and save: the world blob, checkpoints, the .unv importer and writer --------
+
+
+def _lua_slots(world):
+    """The device slots of the entities the scripts move (their Lua state
+    is in no world blob, in either package)."""
+    import numpy as np
+
+    sm = world.modules["script"]
+    ents = np.asarray(sorted(sm.lua_envs), np.int64)
+    return world.to_slots(ents) if len(ents) else ents
+
+
+def _branch(pm) -> str:
+    st = pm.statics()
+    return ("banded" if st.banded else "sap" if st.sap else "pruned" if st.pruned
+            else "all-pairs")
+
+
+def reload_gap(got, ref, lua_slots, mi_lua):
+    """Two states of one world (state_to_numpy dicts) field by field, the
+    entities the Lua scripts move left out of the transforms and of the
+    renderer's previous poses: {field: largest abs difference} of the fields
+    that differ."""
+    import numpy as np
+
+    gaps = {}
+    for k, r in ref.items():
+        if k.startswith("modules.script.") or k not in got:
+            continue
+        g = got[k]
+        if k.split(".")[0] in ("local", "world") and len(lua_slots):
+            keep = np.ones(g.shape[-1], bool)
+            keep[lua_slots] = False
+            g, r = g[..., keep], r[..., keep]
+        elif k in ("modules.renderer.prev_pos", "modules.renderer.prev_rot") and len(mi_lua):
+            keep = np.ones(g.shape[-1], bool)
+            keep[mi_lua] = False
+            g, r = g[..., keep], r[..., keep]
+        if g.shape != r.shape or not np.array_equal(g, r):
+            gaps[k] = (float(np.abs(g.astype(np.float64) - r.astype(np.float64)).max())
+                       if g.shape == r.shape else float("inf"))
+    return gaps
+
+
+def run_host_tier(dev, card):
+    """Phase 12: the stress scene (models/host_scenes.stress_scene: 2,048
+    entities in a three-level hierarchy, 64 dynamic boxes and spheres over
+    a static slab, 8 point lights and a camera, 16 animables, a nav zone
+    whose guid names a packed .nav and 32 agents, 4 GUI rects with a core
+    signal, 2 ambient sounds, 8 inline Lua scripts, one spawning a model
+    instance with createEntityEx) written with the port's write_unv, then:
+    Runner.load_world on the card and start (host clock); HOST_TICKS ticks
+    with the launch counts (K1 and K2 once a tick); the same load and 3
+    ticks on the CPU against the card (physics_scenes.state_gap,
+    explain_break); serialize_world → serialize.load_world into a fresh
+    engine (the scene's assets loaded), its snapshot bit for bit against
+    the original's and HOST_RELOAD_TICKS ticks of both, field by field; a
+    checkpoint at tick HOST_CKPT_AT resumed bit for bit; export_scene →
+    write_unv → parse_unv against the scene; metrics(phases=True) after the
+    ticks, beside each phase's device time; K2 against its plain version on
+    the path's contact set. Returns the launch counts, K1's check and K2's record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch import app, bridge
+    from lumixengine_tpu_torch.engine import serialize as ser
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.importers import instantiate as inst_mod
+    from lumixengine_tpu_torch.importers import unv as U
+    from lumixengine_tpu_torch.importers import unv_write as UW
+    from lumixengine_tpu_torch.models import host_scenes as H
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+    from lumixengine_tpu_torch.ops import hierarchy as hier
+
+    dev = torch.device(dev)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="host_tier_")
+    try:
+        scene = H.stress_scene(entities=HOST_ENTITIES, bodies=HOST_BODIES)
+        H.write_stress_nav(tmp)
+        path = os.path.join(tmp, "stress.unv")
+        t0 = time.perf_counter()
+        UW.save_unv(scene, path)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        # 1. the load and the start on the card
+        runner = app.Runner([], engine=app.create_full_engine(base_path=tmp, device=dev))
+        t0 = time.perf_counter()
+        runner.load_world(path)
+        load_s = time.perf_counter() - t0
+        world, pm = runner.world, runner.world.modules["physics"]
+        t0 = time.perf_counter()
+        runner.start()
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        zone = world.modules["navigation"].zone
+        log(f"[12 load] {card}: stress.unv ({size} bytes: {len(scene['entities'])} entities, "
+            f"{len(scene['renderer']['model_instances'])} model instances, "
+            f"{len(scene['physics']['actors'])} actors) written in {write_ms:.1f} ms; "
+            f"Runner.load_world on {runner.device} {load_s:.3f} s, start {start_s:.3f} s on the "
+            f"host's clock; {world.entity_count} entities after start; nav zone from the .nav "
+            f"{zone.from_navmesh} (walkable {float(zone.walkable.mean()):.4f}); physics branch "
+            f"{_branch(pm)}")
+        if not zone.from_navmesh or runner.engine.device != dev:
+            raise AssertionError(f"load: navmesh {zone.from_navmesh}, device {runner.engine.device}")
+        # 2. HOST_TICKS ticks, the launch counts set to 0 just before and read just after
+        states, tick_ms = [runner.state], []
+        torch.cuda.synchronize()
+        _zero_launches()
+        for i in range(HOST_TICKS):
+            t0 = time.perf_counter()
+            runner.tick()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if i < 3 or i + 1 == HOST_CKPT_AT:
+                states.append(runner.state)
+        launches = _launches()
+        ms = sorted(tick_ms[1:])
+        finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(runner.state))
+        contacts = int(runner.state.modules["physics"].counters["active_contacts"].sum())
+        log(f"[12 ticks] {card}: {HOST_TICKS} Runner ticks (host clock, a sync each tick): the "
+            f"first {tick_ms[0]:.3f} ms (it rebuilds the step after the spawn), the other "
+            f"{len(ms)} median {ms[len(ms) // 2]:.3f} ms a tick, spread {ms[-1] - ms[0]:.3f} ms "
+            f"(min {ms[0]:.3f}, max {ms[-1]:.3f}); launches {launches}, finite {finite}, active "
+            f"contacts at the end {contacts}")
+        if launches != {"K1": HOST_TICKS, "K2": HOST_TICKS} or not finite or contacts == 0:
+            raise AssertionError(f"host tier ticks: launches {launches}, finite {finite}, "
+                                 f"contacts {contacts}")
+        out.update(launches=launches, tick_ms=tick_ms, load_s=load_s, start_s=start_s)
+        # the phase model on the card (on the state after the ticks, the frame time their
+        # average) beside each phase's device time
+        t0 = time.perf_counter()
+        m = runner.metrics(phases=True)
+        prof_s = time.perf_counter() - t0
+        dt = torch.tensor(DT, dtype=torch.float32, device=dev)
+        st, rm = runner.state, world.modules["renderer"]
+        rows = []
+        for key, c in runner._phase_profile.items():
+            mname, phase = key.split(".")
+            if key == "world.propagate":
+                fn = (lambda: hier.propagate_plan(st.local, world.plan))
+            elif key == "extra.cull":
+                fn = (lambda: rm.cull_pass(st, dt))
+            else:
+                fn = (lambda f=getattr(world.modules[mname], phase): f(st, dt))
+            ev_ms, dev_ms = layer_time(fn, 5)
+            rows.append(f"{key} est {m.get(f'phase.{key}.est_ms', 0.0):.4f} ms (frac "
+                        f"{c['frac']:.4f}, {c['bytes']:.4g} B, {c['flops']:.4g} flop) | device "
+                        f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, events {ev_ms:.4f}")
+        fsum = sum(v for k, v in m.items() if k.endswith(".frac"))
+        log(f"[12 phases] {card}: metrics(phases=True) in {prof_s:.2f} s, frame_ms "
+            f"{m.get('frame_ms')}, fractions sum {fsum:.4f}; " + "; ".join(rows))
+        if abs(fsum - 1.0) > 1e-2:
+            raise AssertionError(f"phase fractions sum to {fsum}")
+        out["k1"] = k1_on_state("12 host tier", world, runner.state)
+        # 3. the same load and 3 ticks on the CPU, against the card's first 3
+        cpu = app.Runner([], engine=app.create_full_engine(base_path=tmp, device="cpu"))
+        cpu.load_world(path)
+        cpu.start()
+        cstates = [cpu.state]
+        for _ in range(3):
+            cpu.tick()
+            cstates.append(cpu.state)
+        cpm = cpu.world.modules["physics"]
+        errs, breaks = {}, []
+
+        def gap(got, ref):
+            return PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)[:2]
+
+        for f in range(1, 4):
+            got, ref = bridge.state_to_numpy(states[f]), bridge.state_to_numpy(cstates[f])
+            if set(got) != set(ref):
+                raise AssertionError(f"card and CPU states differ in fields: "
+                                     f"{sorted(set(got) ^ set(ref))}")
+            e, broke, woke = PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL,
+                                          sleep_flips=True)
+            if broke is not None:
+                prev = bridge.state_to_numpy(cstates[f - 1])
+                drift = max(gap(bridge.state_to_numpy(states[f - 1]), prev)[0].values())
+                cause, margin, e = PS.explain_break(
+                    runner.step, cstates[f - 1].to(dev), ref, gap, drift, pm,
+                    lambda c=cstates[f - 1]: cpm._contact_stage(c, DT).contacts)
+                breaks.append((f, f"{cause} ({broke})", float(f"{margin:.3g}")))
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            for k in got:
+                if k.startswith(("modules.navigation.agent_pos", "modules.navigation.agent_vel")):
+                    d = float(np.abs(got[k] - ref[k]).max())
+                    errs[k] = max(errs.get(k, 0.0), d)
+                    if not d <= NAV_ATOL:
+                        raise AssertionError(f"host tier card vs CPU: {k} {d}")
+        shown = {k: float(f"{v:.3g}") for k, v in errs.items() if v}
+        log(f"[12 cpu] the same load and 3 ticks on the CPU, card vs CPU: max abs err {shown} "
+            f"(bodies {BODY_POS_ATOL:g} m / {BODY_VEL_ATOL:g} m/s, transforms and agents "
+            f"{NAV_ATOL:g}); breaks explained {breaks}")
+        out["cpu"] = {"errs": shown, "breaks": breaks}
+        del cpu, cstates
+        # 4. the world blob: serialize, load into a fresh engine, snapshot, 10 ticks of both
+        t0 = time.perf_counter()
+        blob = ser.serialize_world(world)
+        ser_ms = (time.perf_counter() - t0) * 1e3
+        codec = ser.blob_codec(blob)
+        fresh = inst_mod.load_world(path, data_dirs=(tmp,), device=dev, base_path=tmp)
+        fresh.assets.model_id("models/spawned.fbx")   # the model the spawner registered
+        t0 = time.perf_counter()
+        world2 = ser.load_world(fresh.engine, blob)
+        de_ms = (time.perf_counter() - t0) * 1e3
+        runner2 = app.Runner([], engine=fresh.engine)
+        runner2.use_world(world2)
+        runner2.start()
+        snap1 = bridge.state_to_numpy(world.device_state(dev))
+        snap2 = bridge.state_to_numpy(runner2.state)
+        only1 = sorted(set(snap1) - set(snap2))
+        lua_slots = _lua_slots(world)
+        mi_lua = np.nonzero(np.isin(rm.model_instances.entity,
+                                    sorted(world.modules["script"].lua_envs)))[0]
+        snap_gap = reload_gap(snap2, snap1, [], [])
+        log(f"[12 blob] {card}: serialize_world {ser_ms:.1f} ms ({len(blob)} bytes, codec "
+            f"{codec}), serialize.load_world into a fresh engine {de_ms:.1f} ms; the snapshot "
+            f"against the original's: fields that differ {snap_gap}, fields only the original "
+            f"has {only1} (the Lua scripts' device rows: a world blob carries no Lua script, "
+            f"in either package)")
+        if codec != "lz4n" or snap_gap or any(not k.startswith("modules.script.") for k in only1):
+            raise AssertionError(f"blob reload: codec {codec}, gaps {snap_gap}, only {only1}")
+        step1 = runner.engine.build_step(world, dev, extra=rm.cull_pass)
+        s1, s2 = world.device_state(dev), runner2.state
+        for _ in range(HOST_RELOAD_TICKS):
+            s1, s2 = step1(s1, DT), runner2.step(s2, DT)
+        tick_gap = reload_gap(bridge.state_to_numpy(s2), bridge.state_to_numpy(s1),
+                              lua_slots, mi_lua)
+        # the audio listener is a module attribute, not a stored component: a world blob
+        # does not carry it (in either package), and the sounds' gains and pans follow it
+        listener = (world.modules["audio"].listener_entity,
+                    world2.modules["audio"].listener_entity)
+        unheld = {k: v for k, v in tick_gap.items()
+                  if k.startswith("modules.audio.") and listener[0] >= 0 > listener[1]}
+        held = {k: v for k, v in tick_gap.items() if k not in unheld}
+        log(f"[12 blob] {HOST_RELOAD_TICKS} steps of the original world and of the reloaded "
+            f"one from their snapshots, field by field (the {len(lua_slots)} entities the Lua "
+            f"scripts move left out): fields that differ {held} (held to {BODY_POS_ATOL:g}); "
+            f"not held, the audio listener (entity {listener[0]} before, {listener[1]} after "
+            f"the reload) not being in the blob: {unheld}")
+        if any(not v <= BODY_POS_ATOL for v in held.values()):
+            raise AssertionError(f"blob reload: after {HOST_RELOAD_TICKS} steps {held}")
+        out["blob"] = {"bytes": len(blob), "codec": codec, "serialize_ms": ser_ms,
+                       "load_ms": de_ms, "tick_gap": held, "unheld": unheld}
+        del runner2, world2, fresh
+        # 5. a checkpoint at tick HOST_CKPT_AT, resumed for HOST_CKPT_AT ticks from both
+        ckpt = os.path.join(tmp, "sim.ckpt")
+        t0 = time.perf_counter()
+        ser.save_checkpoint(states[-1], ckpt)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restored = ser.load_checkpoint(ckpt, world.device_state(dev))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        a, b = states[-1], restored
+        for _ in range(HOST_CKPT_AT):
+            a, b = runner.step(a, DT), runner.step(b, DT)
+        ga, gb = bridge.state_to_numpy(a), bridge.state_to_numpy(b)
+        unequal = sorted(k for k in ga if not np.array_equal(ga[k], gb[k]))
+        log(f"[12 checkpoint] {card}: save_checkpoint at tick {HOST_CKPT_AT} {save_ms:.1f} ms "
+            f"({os.path.getsize(ckpt)} bytes), load_checkpoint {load_ms:.1f} ms; "
+            f"{HOST_CKPT_AT} steps from the state and from the checkpoint: fields not bit-equal "
+            f"{unequal}")
+        if unequal:
+            raise AssertionError(f"checkpoint resume is not bit-equal: {unequal}")
+        out["checkpoint"] = {"save_ms": save_ms, "load_ms": load_ms}
+        # 6. export_scene → write_unv → parse_unv against the scene
+        fresh = inst_mod.load_world(path, data_dirs=(tmp,), device=dev, base_path=tmp)
+        t0 = time.perf_counter()
+        exported = inst_mod.export_scene(fresh)
+        exported.pop("_export_new_entities")
+        exported.pop("_export_new_components")
+        again = U.parse_unv(UW.write_unv(exported))
+        export_ms = (time.perf_counter() - t0) * 1e3
+        diff = H.scene_diff(again, U.parse_unv(UW.write_unv(scene)))
+        log(f"[12 export] {card}: export_scene → write_unv → parse_unv {export_ms:.1f} ms: "
+            f"first difference from the scene {diff}")
+        if diff is not None:
+            raise AssertionError(f"export: the scene comes back different at {diff}")
+        del fresh
+        # K2 on the path's own contact set, as a batch of one world
+        out["k2"] = k2_on_state(pm, map_tensors(lambda t: t[None], runner.state), "the host tier")
+        log(f"[12 K2] {card}: on the path's contact set W={out['k2']['W']} NB={out['k2']['NB']} "
+            f"C={out['k2']['C']} active {out['k2']['active']}: max abs err vs plain "
+            f"{out['k2']['max_abs_err']:.3e}, {out['k2']['ms']:.4f} ms (plain "
+            f"{out['k2']['plain_ms']:.4f} ms, bound {out['k2']['bound_ms']:.6f} ms over "
+            f"{out['k2']['bytes']} bytes, share {out['k2']['share_of_bound']:.4f})")
+        runner.shutdown()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k1_on_state(label, world, state):
+    """K1 against its plain version on a one-world state's cull operands
+    (the world camera and a random view), as the Runner's paths give them.
+    Raises on a mismatch."""
+    from lumixengine_tpu_torch.renderer import pipeline
+
+    rm = world.modules["renderer"]
+    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"], rm.statics())
+    centers, radii = centers[None].contiguous(), radii[None].contiguous()
+    bad, err, fracs = k1_check(centers, radii, (frustum.planes[None].contiguous(),
+                                                random_planes(1, centers.device)))
+    log(f"[{label}] K1 on the path's own operands {list(centers.shape)}: {bad} mismatches with "
+        f"the plain version (visible fractions {[round(f, 4) for f in fracs]})")
+    if bad:
+        raise AssertionError(f"K1 is not bit-exact on the {label} path: {bad} mismatches")
+    return {"mismatches": bad, "max_abs_err": err, "shape": list(centers.shape)}
 
 
 def _timed_frames(step, state, frames, warm):

@@ -10,6 +10,10 @@ the eight systems and the ``Runner``'s game loop, the flagship frame step
 with the frustum cull (kernel K1) and the fused contact solve (kernel K2),
 the PhysicsModule with its game content, the render views, the scripts (the
 Lua interpreter and its device fast path), navigation, GUI, audio and the
-core splines and signals. What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+core splines and signals, and the host tier that loads and saves worlds: the
+world blob, prefabs and checkpoints (``engine/serialize.py``), the ``.unv``
+importer and writer with ``importers/instantiate.py``, shipped navmeshes and
+the per-phase cost model. What is not ported yet (the FBX, ``.anm``,
+``.mat``, ``.meta`` and composite-texture codecs, the terminal UI, the
+editor) raises ``NotImplementedError`` naming its ROADMAP item.
 """

@@ -179,6 +179,8 @@ class AnimStatics:
 
 class AnimationModule(IModule):
     name = "animation"
+    # component type → its DenseStore attribute (the world blob's contract)
+    COMPONENT_STORES = {"animable": "animables", "animator": "animators"}
 
     def __init__(self, world: World, system: "AnimationSystem",
                  max_animables: int = 1024, max_animators: int = 256):
@@ -244,6 +246,27 @@ class AnimationModule(IModule):
         elif ctype == "property_animator":
             self.property_animators.pop(entity, None)
             self._curves.clear()
+
+    # -- serialization ------------------------------------------------------------
+
+    def serialize(self):
+        """The world blob's module section: each animator's controller
+        inputs, keyed by its entity."""
+        out = {}
+        for slot in range(self.animators.capacity):
+            e = int(self.animators.entity[slot])
+            if e >= 0:
+                out[str(e)] = self.default_inputs[:, slot].tolist()
+        return {"animator_inputs": out}
+
+    def deserialize(self, blob, emap):
+        for old_str, vals in blob.get("animator_inputs", {}).items():
+            new = emap.get(int(old_str))
+            if new < 0:
+                continue
+            slot = self.animators.slot_of(new)
+            if slot >= 0:
+                self.default_inputs[: len(vals), slot] = vals
 
     # -- statics / state --------------------------------------------------------
 

@@ -2,7 +2,9 @@
 src/app/main.cpp Runner).
 
 Boot: crash handler, settings and command line, an Engine with every
-built-in system. Load: a world the caller builds (``use_world``). Loop: the
+built-in system. Load: a world the caller builds (``use_world``), a world
+blob (``engine/serialize.py``) or a reference ``.unv`` world, which brings
+its own engine sized for the scene (``load_world``). Loop: the
 host frame (OS events, dt smoothing, scripts on the host interpreter, the
 scripts' pending writes flushed into the device state) then the device step
 (``Engine.build_step`` with the cull pass), then the GUI's button signals.
@@ -10,14 +12,16 @@ The step runs on the card unless the caller passes a CPU device. Present:
 ``present`` replays the frame's DrawStream through the software backend
 (host raster, postprocess passes on the card, TAA history kept across
 calls); ``present_tpu`` rasterizes on the card and returns the image, the
-depth and the overflow count. ``main`` boots the headless demo world, runs
-the frames and writes a screenshot:
+depth and the overflow count. ``metrics(phases=True)`` adds the per-phase
+cost model (``engine/phase_profile.py``). ``main`` boots the headless demo
+world, or the world given with ``--world`` (a blob or a .unv), runs the
+frames and writes a screenshot:
 
     python -m lumixengine_tpu_torch.app --frames 60 --screenshot out.png [--device cpu]
+    python -m lumixengine_tpu_torch.app --world maps/x.unv --frames 60 [--device cpu]
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: loading a serialized or .unv world, the per-phase cost model and the
-terminal UI (``--tui``), all of the host tier (Queue 1 item 7).
+Not ported yet: the terminal UI (``--tui``), which raises
+``NotImplementedError`` naming its ROADMAP item (Queue 1 item 7.5).
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from lumixengine_tpu_torch.core import config as cfg
 from lumixengine_tpu_torch.core import debug as dbg
 from lumixengine_tpu_torch.core import log, profiler
-from lumixengine_tpu_torch.engine import reflection
+from lumixengine_tpu_torch.engine import reflection, serialize
 from lumixengine_tpu_torch.engine.engine import Engine
 
 _NOT_PORTED = "{what} is not ported yet (ROADMAP Queue 1 item {item})"
@@ -96,6 +100,10 @@ class Runner:
         self._miss_warned = False
         self._present_backend = None
         self._present_tpu = None
+        self._extra = None
+        self._phase_profile = None
+        self._frame_ms_ema = None
+        self._last_tick_t = None
 
     # -- boot (≙ Runner::onInit) --------------------------------------------------
 
@@ -108,8 +116,24 @@ class Runner:
                 self.settings.set(k, v)
 
     def load_world(self, path_or_blob) -> None:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="loading a serialized or .unv world (engine/serialize.py, importers/)", item=7))
+        """Load this engine's world blob (bytes, or a path the engine's file
+        system reads) or a reference ``.unv`` world, told by its extension
+        or its 'LWRL' magic. A .unv goes through the importer, which builds
+        an engine sized for the scene's banks on this Runner's device, its
+        assets resolved against the engine's base path; the Runner adopts
+        that engine (state attached to the old one does not carry over)."""
+        if isinstance(path_or_blob, str) and _is_unv(path_or_blob):
+            from lumixengine_tpu_torch.importers.instantiate import load_world as load_unv_world
+
+            base = self.engine.fs.base_path
+            scene = load_unv_world(path_or_blob, data_dirs=(base,), device=self.device,
+                                   base_path=base)
+            self.engine = scene.engine
+            self.world = scene.world
+            return
+        blob = (self.engine.fs.read(path_or_blob) if isinstance(path_or_blob, str)
+                else path_or_blob)
+        self.world = serialize.load_world(self.engine, blob)
 
     def use_world(self, world) -> None:
         self.world = world
@@ -133,6 +157,9 @@ class Runner:
         self.step = self.engine.build_step(self.world, self.device, extra=extra)
         self.state = self.world.device_state(self.device)
         self._state_perm = self.world._slot_of.copy()
+        self._extra = extra
+        self._phase_profile = None     # the per-phase cost shares, built lazily
+        self._frame_ms_ema = None      # tick-to-tick wall time, EMA
 
     def _rebuild_after_structure_change(self, skip_entities) -> None:
         """Script structural edits (spawn/destroy) rebuild the step: the
@@ -147,6 +174,12 @@ class Runner:
 
     def tick(self, dt_raw: Optional[float] = None) -> None:
         dt_raw = self._fixed_dt if dt_raw is None else dt_raw
+        now = time.perf_counter()
+        if self._last_tick_t is not None:
+            ms = (now - self._last_tick_t) * 1e3
+            ema = self._frame_ms_ema
+            self._frame_ms_ema = ms if ema is None else 0.9 * ema + 0.1 * ms
+        self._last_tick_t = now
         with profiler.block("frame"):
             self.os.process_events(self.engine.input)
             rsys = getattr(self.world.modules.get("renderer"), "system", None)
@@ -256,8 +289,27 @@ class Runner:
         return out
 
     def phase_metrics(self) -> dict:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="the per-phase cost model (engine/phase_profile.py)", item=7))
+        """The tick-to-tick frame time split across the module phases by
+        each phase's modelled roofline cost (engine/phase_profile.py):
+        ``phase.<k>.frac``, ``phase.<k>.est_ms`` (a model, not a
+        measurement) and ``frame_ms``. The profile is taken once per step
+        build, on the current state."""
+        from lumixengine_tpu_torch.engine import phase_profile as pp
+
+        if self._phase_profile is None:
+            self._phase_profile = pp.profile_phases(
+                self.world, self.state, dt=self._fixed_dt or 1.0 / 60.0, extra=self._extra)
+        out = {}
+        frame_ms = self._frame_ms_ema
+        for k, c in self._phase_profile.items():
+            out[f"phase.{k}.frac"] = round(c["frac"], 4)
+            if frame_ms is not None:
+                v = c["frac"] * frame_ms
+                out[f"phase.{k}.est_ms"] = round(v, 4)
+                profiler.push_counter(f"phase.{k}.est_ms", v)
+        if frame_ms is not None:
+            out["frame_ms"] = round(frame_ms, 4)
+        return out
 
     def shutdown(self, trace_path: Optional[str] = None) -> None:
         self.engine.stop_game(self.world)
@@ -265,16 +317,28 @@ class Runner:
             profiler.export_chrome_trace(trace_path)
 
 
+def _is_unv(path: str) -> bool:
+    """A reference world file: the .unv extension, or the 'LWRL' magic
+    (b"LRWL" on disk, little-endian)."""
+    if path.endswith(".unv"):
+        return True
+    try:
+        with open(path, "rb") as f:
+            return f.read(4) == b"LRWL"
+    except OSError:
+        return False
+
+
 def _run_tui(runner: "Runner", frames: int) -> None:
     raise NotImplementedError(_NOT_PORTED.format(
-        what="the terminal UI (core/os_terminal.py)", item=7))
+        what="the terminal UI (core/os_terminal.py)", item="7.5"))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """Boot the headless demo world (2,048 entities) on `--device` (the card
-    unless `cpu` is given), run `--frames` frames (300), then present a
-    `--screenshot` PNG through the software present with the builtin
-    plugins, and print the metrics."""
+    """Boot the `--world` (a world blob or a .unv), else the headless demo
+    world (2,048 entities), on `--device` (the card unless `cpu` is given),
+    run `--frames` frames (300), then present a `--screenshot` PNG through
+    the software present with the builtin plugins, and print the metrics."""
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)

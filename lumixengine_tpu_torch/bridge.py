@@ -46,24 +46,29 @@ def is_skipped(name: str) -> bool:
     return any(name.startswith(prefix) for prefix, _ in SKIPPED)
 
 
-def _flatten(prefix: str, x, out: Dict[str, np.ndarray]) -> None:
+def _flatten(prefix: str, x, out: Dict[str, np.ndarray], sort_keys: bool) -> None:
     if isinstance(x, torch.Tensor):
         out[prefix] = x.detach().cpu().numpy()
     elif x is None or x == ():
         pass                        # a module without device state
     elif isinstance(x, dict):
-        for k, v in x.items():
-            _flatten(f"{prefix}.{k}", v, out)
+        for k in (sorted(x) if sort_keys else x):
+            _flatten(f"{prefix}.{k}", x[k], out, sort_keys)
     elif dataclasses.is_dataclass(x):
         for f in dataclasses.fields(x):
-            _flatten(f"{prefix}.{f.name}" if prefix else f.name, getattr(x, f.name), out)
+            _flatten(f"{prefix}.{f.name}" if prefix else f.name, getattr(x, f.name), out,
+                     sort_keys)
     else:
         raise TypeError(f"{prefix}: cannot flatten {type(x).__name__}")
 
 
-def state_to_numpy(state: WorldState) -> Dict[str, np.ndarray]:
+def state_to_numpy(state: WorldState, sort_keys: bool = False) -> Dict[str, np.ndarray]:
+    """Dotted name → array, dataclass fields in declaration order and dict
+    entries in insertion order, or with `sort_keys` in sorted key order:
+    then the order is the leaf order ``jax.tree_util.tree_flatten`` gives
+    the reference's state (engine/serialize.py's checkpoints rely on it)."""
     out: Dict[str, np.ndarray] = {}
-    _flatten("", state, out)
+    _flatten("", state, out, sort_keys)
     return out
 
 

@@ -4,7 +4,7 @@ functions ``WorldState -> WorldState`` on tensors; its state lives in
 ``state.modules[self.name]``."""
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from lumixengine_tpu_torch.engine.world import World, WorldState
 
@@ -35,6 +35,16 @@ class IModule:
 
     def load_state(self, module_state: Any) -> None:
         """Optional: copy a device snapshot back into host stores."""
+
+    # serialization (≙ IModule::serialize/deserialize + getVersion): the
+    # world blob's module-level section (engine/serialize.py)
+    VERSION: int = 0
+
+    def serialize(self) -> Dict[str, Any]:
+        return {}
+
+    def deserialize(self, blob: Dict[str, Any], entity_map) -> None:
+        pass
 
     def end_frame(self, state: WorldState, dt) -> WorldState:
         return state

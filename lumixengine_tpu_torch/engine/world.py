@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -145,6 +145,9 @@ class World:
     def entity_count(self) -> int:
         return self._count
 
+    def is_alive(self, e: int) -> bool:
+        return 0 <= e < self.capacity and bool(self.alive[e])
+
     # -- hierarchy --------------------------------------------------------------
 
     def set_parent(self, child: int, parent: int) -> None:
@@ -167,6 +170,9 @@ class World:
 
     def get_parent(self, e: int) -> int:
         return int(self.parent[e])
+
+    def children_of(self, e: int) -> List[int]:
+        return [int(c) for c in np.nonzero(self.parent == e)[0]]
 
     def _refresh_levels(self) -> None:
         if not self._levels_dirty:
@@ -218,6 +224,9 @@ class World:
         return np.where(e >= 0, self._slot_of[np.maximum(e, 0)], -1).astype(np.int32)
 
     # -- transforms (host path) ---------------------------------------------------
+
+    def get_local_transform(self, e: int):
+        return self.local_pos[e].copy(), self.local_rot[e].copy(), self.local_scale[e].copy()
 
     def set_local_transform(self, e: int, position=None, rotation=None, scale=None) -> None:
         if position is not None:

@@ -24,9 +24,10 @@ Zone serialization = the grid + params (".nav" analog).
 The port's counterpart of ``lumixengine_tpu/navigation/module.py``: the zone,
 the A* and the stores are the same host code; the step works on tensors with
 an optional leading world axis, with the reference's stable x-sort
-(``argsort(stable=True)``) and its scatter back to agent order. The shipped
-navmesh import (``nav_zone`` with a guid) needs the host tier's importers and
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+(``argsort(stable=True)``) and its scatter back to agent order. A
+``nav_zone`` with a guid loads ``navzones/<guid>.nav`` from the component's
+``nav_dirs``, else the engine's ``nav_search_dirs``, else its base path
+(``importers/navmesh.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lumixengine_tpu_torch.core import log
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.utils.store import DenseStore
@@ -233,9 +235,22 @@ class NavigationModule(IModule):
             # polygon set replaces the all-walkable default; the physics
             # re-bake at start_game then only ADDS obstacles on top
             if self.zone.guid:
-                raise NotImplementedError(
-                    f"nav_zone guid {self.zone.guid}: the shipped navmesh import needs the "
-                    "host tier's importers (ROADMAP Queue 1 item 7)")
+                from lumixengine_tpu_torch.importers import navmesh as nvm
+
+                engine = self.system.engine
+                dirs = (props.get("nav_dirs") or getattr(engine, "nav_search_dirs", ())
+                        or (engine.fs.base_path,))
+                try:
+                    nav = nvm.load_nav_zone(self.zone.guid, dirs)
+                except Exception as exc:   # a corrupt zone file: the all-walkable default
+                    log.log_warning("navigation", f"navzone {self.zone.guid}: {exc}")
+                    nav = None
+                if nav is not None:
+                    self.zone.walkable = nvm.rasterize_walkable(
+                        nav, tuple(self.zone.origin),
+                        (self.zone.w * self.zone.cell, self.zone.h * self.zone.cell),
+                        self.zone.cell)
+                    self.zone.from_navmesh = True
         else:
             raise KeyError(ctype)
 

@@ -469,6 +469,11 @@ def _scatter(x, idx, nb: int):
 
 class PhysicsModule(IModule):
     name = "physics"
+    # component type → its DenseStore attribute (the world blob's contract;
+    # every joint of the store is written as a distance_joint, as in the reference)
+    COMPONENT_STORES = {"rigid_actor": "actors", "distance_joint": "joints",
+                        "physics_controller": "controllers",
+                        "heightfield": "heightfields"}
 
     def __init__(self, world: World, system: "PhysicsSystem", max_actors: int = 256,
                  max_joints: int = 64, points_per_pair: int = 4, ground_slots_per_body: int = 4,
@@ -706,6 +711,66 @@ class PhysicsModule(IModule):
             rest_rel_rot=np.asarray(hm.quat_mul(hm.quat_conjugate(ra), rb), np.float32),
             d6_linear=np.asarray(props.get("linear_motion", (1, 1, 1)), np.int32),
             d6_angular=np.asarray(props.get("angular_motion", (0, 0, 0)), np.int32))
+
+    def destroy_component(self, entity: int, ctype: str) -> None:
+        self.invalidate_statics()
+        if ctype == "rigid_actor":
+            self.actors.remove(entity)
+        elif ctype in ("distance_joint", "spherical_joint", "hinge_joint", "d6_joint"):
+            self.joints.remove(entity)
+        elif ctype == "physics_controller":
+            self.controllers.remove(entity)
+        elif ctype == "heightfield":
+            self.heightfields.remove(entity)
+        elif ctype == "vehicle":
+            self.vehicles.remove(entity)
+        elif ctype == "wheel":
+            self.wheels.remove(entity)
+        elif ctype == "mesh_collider":
+            self.mesh_colliders.remove(entity)
+        elif ctype == "instanced_cube":
+            self.instanced_cubes.pop(entity, None)
+        elif ctype == "instanced_mesh":
+            self.instanced_meshes.pop(entity, None)
+
+    def serialize(self):
+        """The world blob's module section: the collision layer matrix, each
+        row packed as a bit mask, and the layer names where the system has
+        them, so layer edits persist through a save and a load."""
+        sys = self.system
+        out = {}
+        if sys is not None:
+            bits = (np.asarray(sys.layer_matrix, bool)
+                    @ (1 << np.arange(sys.layer_matrix.shape[1], dtype=np.int64))).tolist()
+            out["layer_matrix_rows"] = bits
+            if hasattr(sys, "layer_names"):
+                out["layer_names"] = list(sys.layer_names)
+        return out
+
+    def deserialize(self, blob, entity_map) -> None:
+        sys = self.system
+        rows = (blob or {}).get("layer_matrix_rows")
+        if sys is None or not rows:
+            return
+        n = sys.layer_matrix.shape[1]
+        m = np.zeros_like(sys.layer_matrix)
+        for r, bits in enumerate(rows[:m.shape[0]]):
+            m[r] = (int(bits) >> np.arange(n)) & 1
+        sys.layer_matrix = m.astype(bool)
+        if "layer_names" in blob:
+            sys.layer_names = list(blob["layer_names"])
+        self.invalidate_statics()
+
+    def serialize_components(self):
+        from lumixengine_tpu_torch.utils.store import dump_stores
+
+        out = dump_stores(self)
+        for e, r in self.instanced_cubes.items():
+            out.append({"type": "instanced_cube", "entity": e, "props": {
+                "half_extents": r["half_extents"].tolist(), "layer": r["layer"]}})
+        for e, r in self.instanced_meshes.items():
+            out.append({"type": "instanced_mesh", "entity": e, "props": dict(r)})
+        return out
 
     def _expand_instanced(self):
         """The instanced statics: for each instanced_cube or instanced_mesh

@@ -81,9 +81,21 @@ def sample_nearest_clamped(img: torch.Tensor, coords):
 
 
 def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """[H0, W0] or [H0, W0, C] → [h, w(, C)], half-pixel centres."""
+    """[H0, W0] or [H0, W0, C] → [h, w(, C)], half-pixel centres, as
+    ``jax.image.resize(..., "bilinear")``: an axis that shrinks is
+    antialiased (the triangle kernel widened by the scale), an axis that
+    grows is not. An upscale is one plain bilinear call; otherwise each axis
+    is its own 1-D resize, antialiased only where it shrinks."""
     x = img[None, None] if img.dim() == 2 else img.permute(2, 0, 1)[None]
-    y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=False)
+    h0, w0 = x.shape[-2:]
+    if h >= h0 and w >= w0:
+        y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=False)
+    else:
+        y = x
+        for size, shrinks in (((h, w0), h < h0), ((h, w), w < w0)):
+            if tuple(y.shape[-2:]) != size:
+                y = F.interpolate(y, size=size, mode="bilinear", align_corners=False,
+                                  antialias=shrinks)
     return y[0, 0] if img.dim() == 2 else y[0].permute(1, 2, 0)
 
 

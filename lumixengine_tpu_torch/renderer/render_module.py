@@ -31,10 +31,9 @@ from lumixengine_tpu_torch.renderer.model import Model, ModelRegistry
 from lumixengine_tpu_torch.renderer.terrain import TerrainRegistry
 from lumixengine_tpu_torch.utils.store import DenseStore
 
-# component type → its DenseStore attribute, for the stores destroy_component empties
-_STORES = {"terrain": "terrains", "decal": "decals", "curve_decal": "curve_decals",
-           "reflection_probe": "reflection_probes", "environment_probe": "environment_probes",
-           "bone_attachment": "bone_attachments"}
+# the stores destroy_component empties and nothing else tracks
+_PLAIN_STORES = ("terrain", "decal", "curve_decal", "reflection_probe", "environment_probe",
+                 "bone_attachment")
 
 
 @dataclass
@@ -71,6 +70,13 @@ class RenderState:
 
 class RenderModule(IModule):
     name = "renderer"
+    # component type → its DenseStore attribute (the world blob's contract)
+    COMPONENT_STORES = {"model_instance": "model_instances", "camera": "cameras",
+                        "point_light": "point_lights", "decal": "decals",
+                        "curve_decal": "curve_decals", "terrain": "terrains",
+                        "reflection_probe": "reflection_probes",
+                        "environment_probe": "environment_probes",
+                        "bone_attachment": "bone_attachments"}
 
     def __init__(self, world: World, system: "RendererSystem", max_model_instances: int = 4096,
                  max_cameras: int = 4, max_point_lights: int = 256):
@@ -237,8 +243,8 @@ class RenderModule(IModule):
         self._statics = None
         if ctype == "particle_emitter":
             self.particle_emitters.pop(f"pe{entity}", None)
-        elif ctype in _STORES:
-            getattr(self, _STORES[ctype]).remove(entity)
+        elif ctype in _PLAIN_STORES:
+            getattr(self, self.COMPONENT_STORES[ctype]).remove(entity)
         elif ctype == "instanced_model":
             self.instanced_models.pop(entity, None)
         elif ctype == "procedural_geometry":
@@ -252,6 +258,44 @@ class RenderModule(IModule):
             self.point_lights.remove(entity)
         elif ctype == "environment":
             self.env_entity = -1
+
+    # -- serialization (≙ RenderModule::serialize blob) ---------------------------
+
+    def serialize_components(self):
+        from lumixengine_tpu_torch.utils.store import dump_stores
+
+        out = dump_stores(self)
+        if self.env_entity >= 0:
+            out.append({"type": "environment", "entity": self.env_entity,
+                        "props": {"color": self.env_color.tolist(),
+                                  "intensity": float(self.env_intensity)}})
+        for key, (entity, ps) in self.particle_emitters.items():
+            out.append({"type": "particle_emitter", "entity": entity,
+                        "props": {"script": getattr(ps, "script_name", None)
+                                  or self._script_of(ps)}})
+        for e, im in self.instanced_models.items():
+            out.append({"type": "instanced_model", "entity": e, "props": {
+                "model": im["model"], "count": len(im["pos"]),
+                "positions": im["pos"].tolist(), "rotations": im["rot"].tolist(),
+                "scales": im["scale"].tolist()}})
+        for e, pg in self.procedural_geometries.items():
+            out.append({"type": "procedural_geometry", "entity": e, "props": {
+                "vertices": pg["vertices"].tolist(), "material": pg["material"]}})
+        return out
+
+    def _script_of(self, ps) -> str:
+        """The particle script an emitter instance was built from: its
+        name, else the registered script with the same emitter set."""
+        for name in self.system.particle_scripts:
+            if getattr(ps, "script_name", None) == name:
+                return name
+        for name in self.system.particle_scripts:
+            try:
+                if set(self.system.particle_system(name).emitters) == set(ps.emitters):
+                    return name
+            except Exception:
+                continue
+        raise ValueError("cannot identify particle script for serialization")
 
     def set_particle_global(self, entity: int, name: str, value) -> None:
         """Set a script `global` of this entity's emitter; the next frame's

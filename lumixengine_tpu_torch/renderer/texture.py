@@ -73,14 +73,17 @@ def load_raw(blob: bytes, name: str = "raw") -> Texture:
 
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # color type → samples a pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # color type → samples a pixel
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG scanline filters → uint8 [h, stride]."""
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int, pos: int = 0) -> np.ndarray:
+    """Undo the five PNG scanline filters of `h` lines of `stride` bytes
+    from `raw[pos:]` → uint8 [h, stride]."""
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
-    pos = 0
     for y in range(h):
         ft = raw[pos]
         line = np.frombuffer(raw, np.uint8, count=stride, offset=pos + 1).astype(np.int32)
@@ -110,34 +113,92 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(raw: bytes, pos: int, h: int, w: int, ch: int, depth: int) -> np.ndarray:
+    """One (sub-)image's filtered lines from `raw[pos:]` → its samples
+    [h, w, ch] (uint16 at depth 16, else uint8 holding 0 .. 2^depth - 1)."""
+    stride = (w * ch * depth + 7) // 8
+    rows = _unfilter(raw, h, stride, max(1, ch * depth // 8), pos)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, stride * 8 // depth, depth)
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+    return vals[:, :w * ch].reshape(h, w, ch)
+
+
 def decode_png(blob: bytes) -> np.ndarray:
-    """8-bit, non-interlaced PNG (gray, gray+alpha, RGB, RGBA) → uint8 RGBA
-    [H, W, 4]."""
+    """Any PNG (gray, gray+alpha, RGB, RGBA and palette at every legal bit
+    depth, Adam7-interlaced or not, tRNS transparency) → uint8 RGBA
+    [H, W, 4], equal to PIL's ``Image.open(...).convert("RGBA")``: 1-, 2-
+    and 4-bit gray scaled to 0 .. 255; 16-bit gray clipped to 255 (PIL's
+    I;16) with its tRNS ignored; 16-bit gray+alpha, RGB and RGBA by their
+    high bytes, a 16-bit RGB tRNS compared with the high bytes; palette
+    alpha from tRNS (255 past its end)."""
     if blob[:8] != _PNG_MAGIC:
         raise ValueError("png: bad signature")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
     while pos < len(blob):
         n, kind = pystruct.unpack_from(">I4s", blob, pos)
         body = blob[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             hdr = pystruct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     w, h, depth, ctype, _comp, _filt, interlace = hdr
-    if depth != 8 or interlace or ctype not in _PNG_CHANNELS:
+    legal = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+    if depth not in legal.get(ctype, ()) or interlace not in (0, 1) \
+            or (ctype == 3 and plte is None):
         raise ValueError(f"png: unsupported (depth {depth}, color type {ctype}, "
                          f"interlace {interlace})")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
-    if ch == 1:
-        return np.concatenate([np.repeat(px, 3, -1), np.full((h, w, 1), 255, np.uint8)], -1)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for r0, c0, dr, dc in _ADAM7:
+            ph, pw = (h - r0 + dr - 1) // dr, (w - c0 + dc - 1) // dc
+            if ph <= 0 or pw <= 0:
+                continue
+            px[r0::dr, c0::dc] = _samples(raw, pos, ph, pw, ch, depth)
+            pos += ph * (1 + (pw * ch * depth + 7) // 8)
+    else:
+        px = _samples(raw, 0, h, w, ch, depth)
+    opaque = np.full((h, w, 1), 255, np.uint8)
+    if ctype == 3:
+        alpha = np.full(256, 255, np.uint8)
+        if trns is not None:
+            alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte
+        idx = px[..., 0]
+        return np.concatenate([pal[idx], alpha[idx][..., None]], -1)
+    if ctype == 0:
+        if depth == 16:
+            return np.concatenate([np.repeat(np.minimum(px, 255).astype(np.uint8), 3, -1),
+                                   opaque], -1)
+        g = (px.astype(np.int32) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+        if trns is not None:
+            key = pystruct.unpack(">H", trns[:2])[0]
+            key = (255 if key else 0) if depth == 1 else key
+            opaque = np.where(g == key, 0, 255).astype(np.uint8)
+        return np.concatenate([np.repeat(g, 3, -1), opaque], -1)
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
     if ch == 2:
         return np.concatenate([np.repeat(px[..., :1], 3, -1), px[..., 1:]], -1)
     if ch == 3:
-        return np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], -1)
+        if trns is not None:
+            key = np.asarray(pystruct.unpack(">HHH", trns[:6]))
+            opaque = np.where((px == key).all(-1, keepdims=True), 0, 255).astype(np.uint8)
+        return np.concatenate([px, opaque], -1)
     return np.ascontiguousarray(px)
 
 

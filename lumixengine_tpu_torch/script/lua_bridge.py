@@ -690,11 +690,27 @@ class ScriptRuntime:
             log.log_error("lua", f"createEntityEx: {kind}: {ex}")
 
     def load_additive(self, path: str, cb) -> None:
-        """≙ World::load additive partition load: needs the host tier's .unv
-        importer, which the port does not have yet."""
-        raise NotImplementedError(
-            f"world:load({path!r}): instantiate_additive needs the host tier's importers "
-            "(ROADMAP Queue 1 item 7)")
+        """≙ World::load additive partition load (world.cpp; the main-menu
+        flow loads a map into a new partition on a key press): instantiate
+        the .unv into THIS world (importers.instantiate_additive), mark the
+        structure dirty so the Runner rebuilds the step, then call `cb`."""
+        from lumixengine_tpu_torch.importers.instantiate import instantiate_additive
+
+        bank = self.module.asset_bank()
+        full = bank.find_file(path) if bank is not None else None
+        if full is None:
+            log.log_error("lua", f"world:load({path!r}): file not found in search dirs")
+        else:
+            engine = self.module.system.engine
+            try:
+                emap = instantiate_additive(engine, self.world, full, data_dirs=bank.data_dirs)
+                self.structure_dirty = True
+                log.log_info("lua", f"world:load({path!r}): +{len(emap)} entities (partition "
+                                    f"{self.active_partition})")
+            except Exception as exc:
+                log.log_error("lua", f"world:load({path!r}) failed: {exc}")
+        if cb is not None:
+            self.interp.call_value(cb, [])
 
     # -- animator ---------------------------------------------------------------------------
 

@@ -19,9 +19,9 @@ the reference).
 The port's counterpart of ``lumixengine_tpu/script/module.py``: the host
 side is the same code; the device side (the compiled ``update`` groups,
 ``apply_pending``) works on tensors, a leading world axis standing in for
-``vmap``. Prefab instantiation and the asset bank need the host tier's
-importers and serializer and raise ``NotImplementedError`` (ROADMAP Queue 1
-item 7).
+``vmap``. Prefabs instantiate through ``engine/serialize.py``; the asset
+bank is the importers' ``SceneAssets`` (``importers/instantiate.py``), built
+lazily on the script search dirs, else the engine's base path.
 """
 from __future__ import annotations
 
@@ -35,10 +35,6 @@ from lumixengine_tpu_torch.core import log
 from lumixengine_tpu_torch.engine import reflection
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World
-
-
-_NO_HOST_TIER = ("{what} needs the host tier's importers and serializer, which the port "
-                 "does not have yet (ROADMAP Queue 1 item 7)")
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -120,7 +116,10 @@ class ScriptEnv:
             return EntityHandle(w, w.create_entity(**kw))
 
         def instantiate_prefab(blob, position=None):
-            raise NotImplementedError(_NO_HOST_TIER.format(what="instantiate_prefab"))
+            from lumixengine_tpu_torch.engine import serialize as ser
+
+            roots = ser.instantiate_prefab(w, blob, position=position)
+            return [EntityHandle(w, e) for e in roots]
 
         self.globals: Dict[str, Any] = {
             "this": EntityHandle(w, entity),
@@ -302,8 +301,18 @@ class ScriptModule(IModule):
         self._asset_bank = bank
 
     def asset_bank(self):
+        """The scene's asset resolver (≙ the engine's resource managers):
+        the one the world was instantiated with, else a SceneAssets on the
+        renderer and animation systems over the script search dirs (the
+        engine's base path when there are none)."""
         if self._asset_bank is None:
-            raise NotImplementedError(_NO_HOST_TIER.format(what="the asset bank"))
+            from lumixengine_tpu_torch.importers.instantiate import SceneAssets
+
+            engine = self.system.engine
+            renderer = engine.system_manager.get_system("renderer_system")
+            anim = engine.system_manager.get_system("animation_system")
+            dirs = tuple(self.lua_search_dirs) or (engine.fs.base_path,)
+            self._asset_bank = SceneAssets(renderer, anim=anim, data_dirs=dirs)
         return self._asset_bank
 
     def read_lua_source(self, path: str) -> Optional[str]:

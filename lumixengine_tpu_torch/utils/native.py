@@ -1,14 +1,18 @@
 """The host-side native libraries (counterpart of
-``lumixengine_tpu/utils/native.py``): the grid A* of ``csrc/nav_astar.cpp``
-(navigation) and the z-buffered triangle fill of ``csrc/soft_raster.cpp``
-(the software present's raster), both shared with the JAX package as they
-are, each built with ``g++`` at first use into ``lumixengine_tpu_torch/_build/``
-and bound with ``ctypes``.
+``lumixengine_tpu/utils/native.py``): the LZ4 block codec of
+``csrc/lz4_codec.cpp`` (world blobs, checkpoints, ``.unv`` bodies and
+``.nav`` tiles), the grid A* of ``csrc/nav_astar.cpp`` (navigation) and the
+z-buffered triangle fill of ``csrc/soft_raster.cpp`` (the software present's
+raster), all shared with the JAX package as they are, each built with
+``g++`` at first use into ``lumixengine_tpu_torch/_build/`` and bound with
+``ctypes``.
 
-If ``g++`` or a build fails, ``available()`` (the A*) or
-``raster_available()`` (the fill) is False and the caller runs its Python
-version, which gives the same result. Nothing is built when this module is
-imported.
+If ``g++`` or a build fails, ``lz4_available()`` (the codec),
+``available()`` (the A*) or ``raster_available()`` (the fill) is False: the
+world blob then names ``zlib`` as its codec (the reference's own rule), and
+the A* and the fill run their Python versions, which give the same result.
+A ``.unv`` body or a ``.nav`` tile is LZ4 by format and cannot be read
+without the codec. Nothing is built when this module is imported.
 """
 from __future__ import annotations
 
@@ -43,8 +47,17 @@ def _bind_raster(lib) -> None:
     lib.lxt_raster_tris.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, fp, fp, fp, ctypes.c_int]
 
 
+def _bind_lz4(lib) -> None:
+    lib.lxt_lz4_bound.restype = ctypes.c_int
+    lib.lxt_lz4_bound.argtypes = [ctypes.c_int]
+    for fn in (lib.lxt_lz4_compress, lib.lxt_lz4_decompress):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+
+
 # library name → (source under csrc/, binder)
-_SOURCES = {"nav_astar": ("nav_astar.cpp", _bind_nav),
+_SOURCES = {"lz4_codec": ("lz4_codec.cpp", _bind_lz4),
+            "nav_astar": ("nav_astar.cpp", _bind_nav),
             "soft_raster": ("soft_raster.cpp", _bind_raster)}
 
 
@@ -79,6 +92,36 @@ def _load(name: str):
                 lib = None
         _libs[name] = lib
         return lib
+
+
+def lz4_available() -> bool:
+    """The LZ4 codec library built and loaded."""
+    return _load("lz4_codec") is not None
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """One LZ4 block of `data` (the reference's world-blob codec)."""
+    lib = _load("lz4_codec")
+    if lib is None:
+        raise RuntimeError("native codec unavailable")
+    bound = lib.lxt_lz4_bound(len(data))
+    out = ctypes.create_string_buffer(bound)
+    n = lib.lxt_lz4_compress(data, len(data), out, bound)
+    if n < 0:
+        raise RuntimeError("lz4 compress failed")
+    return out.raw[:n]
+
+
+def lz4_decompress(data: bytes, raw_size: int) -> bytes:
+    """The `raw_size` bytes of one LZ4 block."""
+    lib = _load("lz4_codec")
+    if lib is None:
+        raise RuntimeError("native codec unavailable")
+    out = ctypes.create_string_buffer(raw_size)
+    n = lib.lxt_lz4_decompress(data, len(data), out, raw_size)
+    if n != raw_size:
+        raise RuntimeError(f"lz4 decompress failed ({n} != {raw_size})")
+    return out.raw
 
 
 def available() -> bool:

@@ -86,3 +86,19 @@ class DenseStore:
         for name, arr in self.data.items():
             out[name] = torch.as_tensor(arr, device=device)
         return out
+
+
+def dump_stores(module) -> list:
+    """Every component of a module's COMPONENT_STORES mapping as
+    {"type", "entity", "props"} records, in store and slot order — the world
+    blob's component section (engine/serialize.py)."""
+    out = []
+    for ctype, attr in getattr(module, "COMPONENT_STORES", {}).items():
+        store = getattr(module, attr)
+        for slot in range(store.capacity):
+            e = int(store.entity[slot])
+            if e < 0:
+                continue
+            props = {k: np.asarray(v[slot]).tolist() for k, v in store.data.items()}
+            out.append({"type": ctype, "entity": e, "props": props})
+    return out

@@ -128,15 +128,26 @@ def test_full_engine_registers_the_eight_systems_in_the_reference_order():
     assert papp.create_full_engine().device.type == "cuda"   # the card by default
 
 
-def test_runner_parts_not_ported_name_their_roadmap_item():
+def test_runner_parts_not_ported_name_their_roadmap_item(tmp_path):
+    """What is still not ported raises naming its ROADMAP item: the
+    terminal UI (Queue 1 item 7.5) and an FBX file a scene names and the
+    data dirs hold (the codecs, item 7.4). Loading a world is ported: a
+    missing .unv is an OSError, not NotImplementedError."""
     _, papp = _pkg("app")
     runner = papp.Runner([], engine=papp.create_full_engine(device="cpu"))
     assert runner.device == torch.device("cpu")
-    for call, item in ((lambda: runner.load_world("x.unv"), "item 7"),
-                       (runner.phase_metrics, "item 7"),
-                       (lambda: papp._run_tui(runner, 1), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 7.5"):
+        papp._run_tui(runner, 1)
+    with pytest.raises(OSError):
+        runner.load_world(str(tmp_path / "x.unv"))
+    _, pinst = _pkg("importers.instantiate")
+    (tmp_path / "models").mkdir()
+    (tmp_path / "models" / "a.fbx").write_bytes(b"Kaydara FBX Binary  \0")
+    renderer = runner.engine.system_manager.get_system("renderer_system")
+    assets = pinst.SceneAssets(renderer, data_dirs=(str(tmp_path),))
+    with pytest.raises(NotImplementedError, match="item 7.4"):
+        assets.model_id("models/a.fbx")
+    assert assets.model_id("models/absent.fbx") >= 0
 
 
 # -- navigation -------------------------------------------------------------------------------
@@ -351,12 +362,30 @@ def test_set_destination_fills_every_world_and_astar_matches():
         assert torch.equal(many.waypoints[w], one.waypoints)
 
 
-def test_shipped_navmesh_import_raises():
-    _, pnav = _pkg("navigation.module")
-    engine, world, _ = _nav_engine(1, {"nav_agents": 8}, 8)
-    e = world.create_entity()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        world.create_component(e, "nav_zone", guid=7470683995146639429)
+def test_shipped_navmesh_import_raises(tmp_path):
+    """A nav_zone with a guid no longer raises: it loads navzones/<guid>.nav
+    from its nav_dirs (the packed zone here, equal to the JAX module's
+    grid), and keeps the all-walkable default where no file is found."""
+    from lumixengine_tpu_torch.models import host_scenes as H
+
+    guid = 7470683995146639429
+    d = tmp_path / "navzones"
+    d.mkdir()
+    (d / f"{guid}.nav").write_bytes(H.nav_blob(H.ring_zone_polys(8.0, 2.0),
+                                               origin=(-8.0, 0.0, -8.0)))
+    zones = []
+    for side in (0, 1):
+        engine, world, _ = _nav_engine(side, {"nav_agents": 8}, 8)
+        e = world.create_entity()
+        world.create_component(e, "nav_zone", origin=(-8.0, -8.0), size=(16.0, 16.0), cell=0.5,
+                               guid=guid, nav_dirs=(str(tmp_path),))
+        zones.append(world.modules["navigation"].zone)
+        e2 = world.create_entity()
+        world.create_component(e2, "nav_zone", guid=guid + 1, nav_dirs=(str(tmp_path),))
+        assert not world.modules["navigation"].zone.from_navmesh
+        assert world.modules["navigation"].zone.walkable.all()
+    assert zones[1].from_navmesh and 0 < zones[1].walkable.mean() < 1
+    np.testing.assert_array_equal(zones[1].walkable, zones[0].walkable)
 
 
 # -- GUI --------------------------------------------------------------------------------------

@@ -13,6 +13,7 @@ PKG = ROOT / "lumixengine_tpu_torch"
 # _build/ holds build outputs (git ignores it), not sources of the package
 SOURCES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts)
 SOURCES.append(ROOT / "chip_smoke.py")
+SOURCES.append(ROOT / "tools" / "host_tier.py")
 
 
 def _imported_roots(path: Path):
@@ -32,6 +33,9 @@ def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "lumixengine_tpu_torch/ops/solver.py" in names
     assert "lumixengine_tpu_torch/ops/culling.py" in names
+    assert "lumixengine_tpu_torch/importers/instantiate.py" in names
+    assert "lumixengine_tpu_torch/engine/serialize.py" in names
+    assert "tools/host_tier.py" in names
     assert len(names) >= 20
 
 

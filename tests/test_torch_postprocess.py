@@ -82,6 +82,22 @@ def test_resize_matches_jax_image_resize(kind, shape):
     close(fn(t(img[..., 0]), *shape), ref2, atol=2e-6)
 
 
+@pytest.mark.parametrize("size", [0.75, 0.5, (300, 400), 1.5, (200, 600)],
+                         ids=["0.75", "0.5", "300x400", "1.5", "200x600"])
+def test_fsr_upscale_matches_reference_when_it_shrinks(size):
+    """fsr_upscale (and resize_bilinear under it) at an FSR3Plugin scale
+    below 1, at one axis up and one down, and at an upscale, from a seeded
+    270x480 colour: within COLOR_ATOL of the reference, whose
+    jax.image.resize antialiases each axis that shrinks."""
+    rng = np.random.default_rng(11)
+    img = rng.uniform(0.0, 2.0, (270, 480, 3)).astype(np.float32)
+    h, w = size if isinstance(size, tuple) else (int(270 * size), int(480 * size))
+    close(pp.fsr_upscale(t(img), h, w, 0.4), rpp.fsr_upscale(jnp.asarray(img), h, w, 0.4),
+          label=f"fsr_upscale {h}x{w}")
+    close(pp.resize_bilinear(t(img[..., 0]), h, w),
+          jax.image.resize(jnp.asarray(img[..., 0]), (h, w), "bilinear"), label="resize")
+
+
 def test_bilinear_clamped_is_map_coordinates_order1_nearest():
     rng = np.random.default_rng(4)
     img = rng.uniform(0, 5, (9, 13)).astype(np.float32)
@@ -486,6 +502,91 @@ def test_texture_loaders_and_sampler():
         close(pt.sample_bilinear(t(data), t(u), t(v), wrap),
               rt.sample_bilinear(jnp.asarray(data), jnp.asarray(u), jnp.asarray(v), wrap),
               atol=1e-3, label=wrap)
+
+
+def _png(w, h, depth, ctype, samples, extra=b"", interlace=False):
+    """A PNG of `samples` [h, w, ch] (uint16 at depth 16) with filter 0
+    lines, Adam7-interlaced when asked; `extra` chunks go before IDAT."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    def lines(px):
+        out = b""
+        for row in px:
+            if depth == 16:
+                out += b"\0" + row.astype(">u2").tobytes()
+            elif depth == 8:
+                out += b"\0" + row.astype(np.uint8).tobytes()
+            else:
+                bits = ((row.reshape(-1, 1) >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+                out += b"\0" + np.packbits(bits.reshape(-1)).tobytes()
+        return out
+
+    if interlace:
+        from lumixengine_tpu_torch.renderer.texture import _ADAM7
+        raw = b"".join(lines(samples[r0::dr, c0::dc]) for r0, c0, dr, dc in _ADAM7
+                       if samples[r0::dr, c0::dc].size)
+    else:
+        raw = lines(samples)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+            + extra + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+_PNG_FORMS = [("gray16", 16, 0), ("gray_alpha16", 16, 4), ("rgb16", 16, 2), ("rgba16", 16, 6),
+              ("palette1", 1, 3), ("palette2", 2, 3), ("palette4", 4, 3), ("palette8", 8, 3),
+              ("gray1", 1, 0), ("gray2", 2, 0), ("gray4", 4, 0), ("gray8_trns", 8, 0),
+              ("rgb8_trns", 8, 2), ("rgb16_trns", 16, 2), ("rgba8_interlaced", 8, 6),
+              ("palette4_interlaced", 4, 3), ("gray16_interlaced", 16, 0)]
+
+
+@pytest.mark.parametrize("form,depth,ctype", _PNG_FORMS, ids=[f[0] for f in _PNG_FORMS])
+def test_png_forms_equal_pil(form, depth, ctype):
+    """The stdlib PNG decoder against the reference's loader (PIL's
+    Image.open(...).convert("RGBA")) array for array: palettes with tRNS
+    alpha, every gray depth, 16-bit samples above 255 in each colour type,
+    tRNS keys, Adam7 interlacing; a 13x7 image, odd so that lines end
+    inside a byte."""
+    import struct
+
+    from lumixengine_tpu.renderer import texture as rt
+    from lumixengine_tpu_torch.renderer import texture as pt
+
+    rng = np.random.default_rng(depth * 10 + ctype)
+    w, h = 13, 7
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    top = (1 << depth) if ctype != 3 else min(1 << depth, 12)
+    samples = rng.integers(0, top, (h, w, ch)).astype(np.uint16 if depth == 16 else np.uint8)
+    extra = b""
+    if depth == 16:
+        samples[0, :4] = np.array([0x1234, 0x00FF, 0x0010, 0xABCD])[:, None]
+        assert (samples > 255).any()
+    if ctype == 3:
+        pal = rng.integers(0, 256, (12, 3)).astype(np.uint8).tobytes()
+        extra = _chunk(b"PLTE", pal) + _chunk(b"tRNS", bytes([0, 90, 200, 17]))
+    if form.endswith("_trns"):
+        key = samples[1, 2].copy()
+        if depth == 16:      # PIL holds the 16-bit key to the pixels' high bytes
+            key = key >> 8
+            samples[2, 3] = key << 8
+        extra = _chunk(b"tRNS", struct.pack(">" + "H" * ch, *(int(v) for v in key)))
+    blob = _png(w, h, depth, ctype, samples, extra, interlace=form.endswith("_interlaced"))
+    ref = rt.load_image(blob).data
+    got = pt.load_texture("x.png", blob).data
+    assert got.dtype == np.uint8 and got.shape == (h, w, 4)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _chunk(kind, body):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
 def test_material_bank_and_textured_triangle_colors():
