@@ -138,7 +138,7 @@ Phases, each printed on its own line:
      320 steps (its gates, certificates summed: 0, exact_window_miss of
      the banded end state: 0, 3 steps card vs CPU at W=2 on a 512-box
      pile), make_banded_world_step on box_drop_pile(10_000) at window 40
-     for 60 steps (certificate and exact_window_miss: 0); the banded farm,
+     for 40 steps (certificate and exact_window_miss: 0); the banded farm,
      mixed_pile(512) under `auto` at W=1 and W=64 for 60 steps (ops/step
      equal within 2% across the widths, certificate 0, the blow-up gates,
      3 frames card vs CPU); the layered crowd, demo_scenes.layered_crowd_world(128) at
@@ -173,6 +173,27 @@ Phases, each printed on its own line:
      to the same snapshot and 10 steps of both field by field, a
      checkpoint at tick 30 resumed bit for bit, export_scene back to the
      scene, K2 on the path's contact set;
+  13. real assets and the terminal (printed before phase 8's timings;
+     alone: tools/asset_tier.py): the assets of models/asset_scenes.py (a
+     skinned FBX character at the size of the reference's "Y bot", 52
+     bones, with a 1 s take; an FBX box, sphere and rock with .fbx.meta
+     sidecars; a .mat; an .ltc graph; the take as an .anm) and phase 12's
+     stress scene on them, written as a .unv; each FBX parsed on the host's
+     clock; the rock with its .meta (convex hull), the .anm, the .mat and
+     the .ltc compiled through the AssetCompiler attached to the engine, a
+     rewritten .mat recompiled by one Engine.update_host; Runner.load_world
+     on the card with every FBX path a real model and the take a real clip
+     (no placeholder), the .anm's clip bound to an animable; 60 ticks (K1
+     and K2 once a tick) and the frame's device-busy share; the same load
+     and 3 ticks on the CPU against the card (poses and palettes
+     included); present_tpu at 480x270 from the scene's camera and from a
+     close view of a character, the close view card vs CPU; the game
+     view's play, 30 tick_frames and stop, the restored snapshot bit for
+     bit outside what a blob does not carry; the animation graph editor's
+     preview on an .act of the take, the particle editor's preview on the
+     card and on the CPU (equal live counts), the voxelizer on the
+     character; app.main --world --tui with its output in a buffer, on the
+     card; K2 on the path's contact set;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -220,7 +241,7 @@ BOX_REFERENCE_END = {"ke_end": 0.0, "sleeping_end": 9887}
 # the PhysicsModule beyond the flagship: the goldens at W=1, two of them as a world farm,
 # and a block of boxes on the banded branch (bench.py's grid, 10240 actor slots)
 FARM_GOLDENS, FARM_WORLDS, FARM_FRAMES = ("hinge_pendulum", "capsule_stack"), 4096, 100
-BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 60   # 120 before, 300 before that
+BANDED_BOXES, BANDED_CAPACITY, BANDED_STEPS = 10_000, 10_240, 40   # 60 before phase 13, 120, 300
 # the sweep window (sap_neighbors) of the banded block: over 300 steps of the 10k block the
 # card's window certificate summed 1,602,273 at the module's default 16, 4,318 at 32 and 0 at
 # 40 and 48 (tools/banded_window.py; at 1,000 boxes the JAX package on the CPU summed 8,206 at
@@ -232,7 +253,7 @@ SANE_SPEED = 50.0        # m/s and rad/s: K2 is held to plain on farm worlds bel
 # the elongated pile and on the 10k boxes; the banded farm's widths and steps; the layered
 # crowd
 SAP_WORLDS, SAP_STEPS = 16, 120
-PILE_BOXES, BANDED10K_BOXES, BANDED10K_STEPS = 4096, 10_000, 60   # 120 before phase 11
+PILE_BOXES, BANDED10K_BOXES, BANDED10K_STEPS = 4096, 10_000, 40   # 60 before phase 13, 120
 PILE_COMPARE_BOXES, PILE_COMPARE_AT = 512, 40   # the stand-alone steps' card-vs-CPU pile
 FARM_WIDTHS, BANDED_FARM_STEPS = (1, 64), 60
 LAYERED_CHARACTERS, LAYERED_WORLDS, LAYERED_FRAMES = 128, 1024, 30
@@ -248,7 +269,7 @@ BANDED_PROPS_UNSETTLED = 3 * BANDED_PROPS_HULLS // 256
 # the card-vs-CPU compare: hulls (4 of the level's stacks, all on the slab), actor slots, steps
 # before its 3 steps, when the stacks are falling onto each other
 BANDED_PROPS_COMPARE = (20, 300, 60)
-LAYER_REPS = 20
+LAYER_REPS = 10          # 20 before phase 13
 # the headless demo tick (bench.py --config demo at headless_demo_world's default, ~2k entities;
 # bench.py's CLI default would build 10,240) at bench.py's default world count
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
@@ -285,6 +306,15 @@ SOFT_LEVELS = 2                # the software present's u8 image, card vs CPU
 # phase 12, load and save: the stress scene's entities and bodies (models/host_scenes.py), the
 # ticks after the load, the tick a checkpoint is taken at, and the ticks after the reload
 HOST_ENTITIES, HOST_BODIES, HOST_TICKS, HOST_CKPT_AT, HOST_RELOAD_TICKS = 2048, 64, 60, 30, 10
+# phase 13, real assets: the stress scene on the written FBX assets (models/asset_scenes.py), its
+# ticks, the on-device present's size, the frames of the game view and the editors' previews,
+# the TUI's frames. The game view's restore is held bit for bit outside what a world blob does
+# not carry, in either package: the Lua scripts' rows, and the free slots of the model-instance
+# store (a blob carries the live instances; a free slot comes back at the store's default)
+ASSET_ENTITIES, ASSET_BODIES, ASSET_TICKS = 2048, 64, 60
+ASSET_PRESENT, ASSET_EDITOR_FRAMES, TUI_FRAMES = (480, 270), 30, 5
+BLOB_UNCARRIED = ("modules.script.",)
+INSTANCE_ROWS = ("modules.renderer.mi_", "modules.renderer.culling.", "modules.renderer.prev_")
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
@@ -541,6 +571,10 @@ def main() -> int:
     host = run_host_tier(dev, card)
     mark("phase 12")
 
+    # 13. real assets: the codecs, the asset compiler, the editor's views, the terminal
+    assets = run_asset_tier(dev, card)
+    mark("phase 13")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -594,6 +628,7 @@ def main() -> int:
     k1_paths["layered"] = sim["layered"]["k1"]
     k1_paths["present"] = present["k1"]
     k1_paths["host_tier"] = host["k1"]
+    k1_paths["asset_tier"] = assets["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -614,6 +649,7 @@ def main() -> int:
     k2_shapes.update({kind: [r["k2"]["W"], r["k2"]["NB"], r["k2"]["C"]] for kind, r in game.items()})
     k2_shapes["scripts (empty)"] = [scripts["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["host tier"] = [host["k2"][k] for k in ("W", "NB", "C")]
+    k2_shapes["asset tier"] = [assets["k2"][k] for k in ("W", "NB", "C")]
     piles = sim["piles"]
     log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
         f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
@@ -646,6 +682,7 @@ def main() -> int:
          "launches_present": present["launches"]["K1"],
          "launches_present_views": present["view_launches"]["K1"],
          "launches_host_tier": host["launches"]["K1"],
+         "launches_asset_tier": assets["launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -670,13 +707,15 @@ def main() -> int:
          "launches_present": present["launches"]["K2"],
          "launches_host_tier": host["launches"]["K2"],
          "host_tier": host["k2"],
+         "launches_asset_tier": assets["launches"]["K2"],
+         "asset_tier": assets["k2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
          "launches_game": {**{kind: r["launches"]["K2"] for kind, r in game.items()},
                            "banded_props": banded_props["launches"]["K2"]},
          "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
-                            host["k2"]["max_abs_err"],
+                            host["k2"]["max_abs_err"], assets["k2"]["max_abs_err"],
                             *(r["k2"]["max_abs_err"] for r in (*farms.values(),
                                                                *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
@@ -932,7 +971,6 @@ def run_host_tier(dev, card):
     from lumixengine_tpu_torch.importers import unv as U
     from lumixengine_tpu_torch.importers import unv_write as UW
     from lumixengine_tpu_torch.models import host_scenes as H
-    from lumixengine_tpu_torch.models import physics_scenes as PS
     from lumixengine_tpu_torch.ops import hierarchy as hier
 
     dev = torch.device(dev)
@@ -1024,34 +1062,8 @@ def run_host_tier(dev, card):
         for _ in range(3):
             cpu.tick()
             cstates.append(cpu.state)
-        cpm = cpu.world.modules["physics"]
-        errs, breaks = {}, []
-
-        def gap(got, ref):
-            return PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)[:2]
-
-        for f in range(1, 4):
-            got, ref = bridge.state_to_numpy(states[f]), bridge.state_to_numpy(cstates[f])
-            if set(got) != set(ref):
-                raise AssertionError(f"card and CPU states differ in fields: "
-                                     f"{sorted(set(got) ^ set(ref))}")
-            e, broke, woke = PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL,
-                                          sleep_flips=True)
-            if broke is not None:
-                prev = bridge.state_to_numpy(cstates[f - 1])
-                drift = max(gap(bridge.state_to_numpy(states[f - 1]), prev)[0].values())
-                cause, margin, e = PS.explain_break(
-                    runner.step, cstates[f - 1].to(dev), ref, gap, drift, pm,
-                    lambda c=cstates[f - 1]: cpm._contact_stage(c, DT).contacts)
-                breaks.append((f, f"{cause} ({broke})", float(f"{margin:.3g}")))
-            for k, v in e.items():
-                errs[k] = max(errs.get(k, 0.0), v)
-            for k in got:
-                if k.startswith(("modules.navigation.agent_pos", "modules.navigation.agent_vel")):
-                    d = float(np.abs(got[k] - ref[k]).max())
-                    errs[k] = max(errs.get(k, 0.0), d)
-                    if not d <= NAV_ATOL:
-                        raise AssertionError(f"host tier card vs CPU: {k} {d}")
+        errs, breaks = card_vs_cpu(runner, pm, cpu.world.modules["physics"], states, cstates,
+                                   dev, "host tier")
         shown = {k: float(f"{v:.3g}") for k, v in errs.items() if v}
         log(f"[12 cpu] the same load and 3 ticks on the CPU, card vs CPU: max abs err {shown} "
             f"(bodies {BODY_POS_ATOL:g} m / {BODY_VEL_ATOL:g} m/s, transforms and agents "
@@ -1156,6 +1168,457 @@ def run_host_tier(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def card_vs_cpu(runner, pm, cpm, states, cstates, dev, label):
+    """The card's states after each tick against the CPU's from one load
+    (states[0] and cstates[0] the started states; as many ticks as the CPU
+    ran): the bodies within
+    BODY_POS_ATOL and BODY_VEL_ATOL with a break explained at its contact
+    decision (physics_scenes.state_gap, explain_break), the agents within
+    NAV_ATOL, the skinned poses and palettes within POSE_ATOL. Returns
+    ({field: largest abs difference}, [(tick, cause, margin)])."""
+    import numpy as np
+
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    errs, breaks = {}, []
+
+    def gap(got, ref):
+        return PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)[:2]
+
+    held = {"modules.navigation.agent_pos": NAV_ATOL, "modules.navigation.agent_vel": NAV_ATOL,
+            "modules.animation.pose_pos": POSE_ATOL, "modules.animation.pose_rot": POSE_ATOL,
+            "modules.animation.palette": POSE_ATOL}
+    for f in range(1, len(cstates)):
+        got, ref = bridge.state_to_numpy(states[f]), bridge.state_to_numpy(cstates[f])
+        if set(got) != set(ref):
+            raise AssertionError(f"card and CPU states differ in fields: "
+                                 f"{sorted(set(got) ^ set(ref))}")
+        e, broke, _ = PS.state_gap(got, ref, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)
+        if broke is not None:
+            prev = bridge.state_to_numpy(cstates[f - 1])
+            drift = max(gap(bridge.state_to_numpy(states[f - 1]), prev)[0].values())
+            cause, margin, e = PS.explain_break(
+                runner.step, cstates[f - 1].to(dev), ref, gap, drift, pm,
+                lambda c=cstates[f - 1]: cpm._contact_stage(c, DT).contacts)
+            breaks.append((f, f"{cause} ({broke})", float(f"{margin:.3g}")))
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        for k, atol in held.items():
+            if k in got and got[k].size:
+                d = float(np.abs(got[k].astype(np.float64) - ref[k].astype(np.float64)).max())
+                errs[k] = max(errs.get(k, 0.0), d)
+                if not d <= atol:
+                    raise AssertionError(f"{label} card vs CPU: {k} {d} (limit {atol})")
+    return errs, breaks
+
+
+# -- 13. real assets and the terminal: the codecs, the asset compiler, the editor's views ----
+
+
+def _bind_anm(runner, blob):
+    """The compiled take (an .anm blob) decoded onto the loaded character's
+    skeleton, added to the clip bank and bound to the first animable, before
+    the Runner starts. Returns (clip id, the animable's entity)."""
+    import numpy as np
+
+    from lumixengine_tpu_torch.importers import anm
+    from lumixengine_tpu_torch.models import asset_scenes as A
+
+    world = runner.world
+    models = world.modules["renderer"].system.models
+    sk = models.get(models.get_id(A.CHARACTER)).skeleton
+    am = world.modules["animation"]
+    cid = am.system.add_clip(anm.load_clip(blob, sk.bone_names, sk.bind_pos, sk.bind_rot,
+                                           name=A.ANM))
+    e = int(am.animables.entity[np.nonzero(am.animables.entity >= 0)[0][0]])
+    world.destroy_component(e, "animable")
+    world.create_component(e, "animable", clip=cid)
+    return cid, e
+
+
+def _close_view(runner, entity, back=4.0, up=1.0):
+    """The runner's state with its camera (which looks down -z, as the
+    scene's does) `back` m in front of and `up` m above `entity`, stepped
+    once at dt 0 so that the transforms and the cull output follow it."""
+    import torch
+
+    st = runner.state
+    cam = int(runner.world.modules["renderer"].statics().cam_slots[0])
+    e = int(runner.world.to_slots([entity])[0])
+    pos = st.local.pos.clone()
+    pos[:, cam] = st.world.pos[:, e] + torch.tensor([0.0, up, back], device=pos.device)
+    moved = st.replace(local=st.local.replace(pos=pos))
+    return runner.step(moved, torch.zeros((), dtype=torch.float32, device=pos.device))
+
+
+def run_asset_tier(dev, card):
+    """Phase 13: the assets of models/asset_scenes.py (the skinned character
+    at the reference's "Y bot" size with its 1 s take, a box, a sphere and a
+    rock with their .fbx.meta sidecars, a .mat, an .ltc graph, the take as
+    an .anm) and asset_stress_scene (phase 12's stress scene on them)
+    written into a temporary data dir, then: each FBX parsed (load_fbx,
+    to_model, to_clip) on the host's clock; the .fbx with its .meta, the
+    .anm, the .mat and the .ltc compiled through an AssetCompiler attached
+    to the engine, the .mat rewritten and recompiled by one
+    Engine.update_host; Runner.load_world on the card with every FBX path a
+    real model and the take a real clip (no placeholder), the .anm's clip
+    bound to one animable; ASSET_TICKS ticks with K1 and K2 counted and the
+    device-busy share; 3 ticks card vs CPU from one load (the skinned poses
+    and palettes included); present_tpu at ASSET_PRESENT with the FBX
+    meshes skinned on the card, card vs CPU; the game view (play,
+    ASSET_EDITOR_FRAMES tick_frames, stop) restoring the world bit for bit
+    outside the rows a blob does not carry; the animation graph editor's
+    preview on an .act of the take, the particle editor's preview on the
+    card and on the CPU (equal live counts), the voxelizer on the
+    character; app.main --tui on the .unv with its output in a buffer.
+    Returns the launch counts, K1's check and K2's record."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch import app, bridge
+    from lumixengine_tpu_torch.editor.anim_editor import AnimGraphEditor
+    from lumixengine_tpu_torch.editor.asset_compiler import AssetCompiler
+    from lumixengine_tpu_torch.editor.game_view import GameView
+    from lumixengine_tpu_torch.editor.particle_editor import ParticleEditor
+    from lumixengine_tpu_torch.editor.voxelizer_ui import VoxelizerUI
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.importers import anm
+    from lumixengine_tpu_torch.importers import composite_texture as CT
+    from lumixengine_tpu_torch.importers import fbx
+    from lumixengine_tpu_torch.importers import instantiate as inst_mod
+    from lumixengine_tpu_torch.importers import mat, model_meta
+    from lumixengine_tpu_torch.importers import unv_write as UW
+    from lumixengine_tpu_torch.models import asset_scenes as A
+    from lumixengine_tpu_torch.models import host_scenes as H
+    from lumixengine_tpu_torch.renderer import gpu_tpu
+
+    dev = torch.device(dev)
+    out = {}
+    steps = [("start", time.perf_counter())]   # each step's end on the host's clock
+    tmp = tempfile.mkdtemp(prefix="asset_tier_")
+    try:
+        # 1. write the assets and the scene
+        t0 = time.perf_counter()
+        files = A.write_assets(tmp)
+        H.write_stress_nav(tmp)
+        act_rel = "anims/character.act"
+        os.makedirs(os.path.join(tmp, "anims"))
+        with open(os.path.join(tmp, act_rel), "wb") as f:
+            f.write(A.act_bytes(A.CHARACTER, f".ani:{A.CHARACTER}"))
+        scene = A.asset_stress_scene(entities=ASSET_ENTITIES, bodies=ASSET_BODIES)
+        path = os.path.join(tmp, "assets.unv")
+        UW.save_unv(scene, path)
+        write_s = time.perf_counter() - t0
+        full = {k: os.path.join(tmp, v) for k, v in files.items()}
+        named = {mi["model"] for mi in scene["renderer"]["model_instances"]}
+        log(f"[13 write] assets and scene written in {write_s:.2f} s (host clock): "
+            f"{A.CHARACTER} {os.path.getsize(full['character'])} bytes, {A.ANM} "
+            f"{os.path.getsize(full['anm'])} bytes, assets.unv {os.path.getsize(path)} bytes "
+            f"({len(scene['entities'])} entities, {len(scene['renderer']['model_instances'])} "
+            f"model instances on {len(named)} FBX files, {len(scene['physics']['actors'])} "
+            f"actors)")
+        steps.append(("write", time.perf_counter()))
+        # 2. parse each FBX on the host's clock
+        parsed = []
+        for key in ("character", "box", "sphere", "rock"):
+            t0 = time.perf_counter()
+            doc = fbx.load_fbx(full[key])
+            t1 = time.perf_counter()
+            model = fbx.to_model(doc, name=files[key])
+            t2 = time.perf_counter()
+            row = (f"{key} load_fbx {(t1 - t0) * 1e3:.1f} ms, to_model {(t2 - t1) * 1e3:.1f} ms "
+                   f"({len(model.vertex_positions)} vertices, {len(model.vertex_triangles)} "
+                   f"triangles)")
+            if key == "character":
+                t0 = time.perf_counter()
+                take = fbx.to_clip(doc, model.skeleton, name=files[key])
+                clip_ms = (time.perf_counter() - t0) * 1e3
+                sk = model.skeleton
+                row += (f", to_clip {clip_ms:.1f} ms ({take.pos.shape[0]} frames at "
+                        f"{take.fps:g} fps); "
+                        f"{sk.bone_count} bones from {sk.bone_names[0]}")
+                if sk.bone_count != 52 or len(model.vertex_positions) < 20_000:
+                    raise AssertionError(f"character: {sk.bone_count} bones, "
+                                         f"{len(model.vertex_positions)} vertices")
+            parsed.append(row)
+        log("[13 parse] " + "; ".join(parsed))
+        steps.append(("parse", time.perf_counter()))
+        # 3. the asset compiler attached to the engine
+        runner = app.Runner([], engine=app.create_full_engine(base_path=tmp, device=dev))
+        t0 = time.perf_counter()
+        runner.load_world(path)
+        load_s = time.perf_counter() - t0
+        ac = AssetCompiler()
+        model_meta.register(ac)
+        mat.register(ac)
+        CT.register(ac, load_texture=A.texture_loader())
+        ac.add_plugin("anm", lambda p, src: anm.decode_anm(src))
+        runner.engine.asset_compiler = ac
+        comp = {}
+        for key in ("rock", "anm", "mat", "ltc"):
+            t0 = time.perf_counter()
+            comp[key] = ac.compile(full[key])
+            comp[key + "_ms"] = (time.perf_counter() - t0) * 1e3
+        takes = AssetCompiler()    # the take's plugin also keys on .fbx
+        anm.register(takes)
+        with open(full["anm"], "rb") as f:
+            anm_blob = f.read()
+        fresh_take = anm.decode_anm(takes.compile(full["character"])["character"])
+        written = comp["anm"]
+        same_anm = all(getattr(fresh_take, k) == getattr(written, k) for k in (
+            "samples", "translation_stream", "rotation_stream"))
+        hull = comp["rock"]["physics"]
+        v0 = ac.version(full["mat"])
+        with open(full["mat"], "w") as f:
+            f.write(A.MAT_TEXT.replace('"Metallic", 0.125', '"Metallic", 0.25'))
+        st = os.stat(full["mat"])
+        os.utime(full["mat"], (st.st_atime, st.st_mtime + 1.0))
+        runner.engine.update_host(DT)
+        v1 = ac.version(full["mat"])
+        recompiled = mat.parse_mat(ac.get(full["mat"]))
+        log(f"[13 compile] {A.PROPS['rock']} with its .meta {comp['rock_ms']:.1f} ms (origin "
+            f"{comp['rock']['meta'].origin}, {comp['rock']['meta'].lod_count} LODs, physics "
+            f"{hull[0]}: {hull[1].n_verts} hull vertices, {hull[1].n_faces} face axes), "
+            f"{A.ANM} {comp['anm_ms']:.1f} ms "
+            f"({comp['anm'].samples} samples), {A.MAT} {comp['mat_ms']:.1f} ms, {A.LTC} "
+            f"{comp['ltc_ms']:.1f} ms ({len(comp['ltc']['layers'])} layers); the take compiled "
+            f"from the .fbx by the .anm plugin has the written .anm's bit-packed tracks: "
+            f"{same_anm}; the .mat rewritten: "
+            f"one Engine.update_host recompiled it, version {v0} -> {v1}, Metallic "
+            f"{recompiled.uniforms.get('Metallic')}")
+        if (v1 != v0 + 1 or recompiled.uniforms.get("Metallic") != 0.25 or not same_anm
+                or hull[0] != "convex"):
+            raise AssertionError(f"asset compiler: version {v0} -> {v1}, .anm equal {same_anm}, "
+                                 f"physics {hull[0]}")
+        steps.append(("load and compile", time.perf_counter()))
+        # 4. the load on the card: no placeholder
+        rep = dict(runner.world.modules["script"].asset_bank().report)
+        log(f"[13 load] {card}: Runner.load_world on {runner.device} {load_s:.3f} s (host clock); "
+            f"assets {rep}")
+        if (rep.get("model_fbx") != len(named) or rep.get("clip_fbx", 0) < 1
+                or rep.get("model_placeholder", 0) or rep.get("clip_placeholder", 0)):
+            raise AssertionError(f"asset tier load: {rep} for {len(named)} FBX paths")
+        cid, bound_e = _bind_anm(runner, anm_blob)
+        t0 = time.perf_counter()
+        runner.start()
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        steps.append(("bind and start", time.perf_counter()))
+        # 5. ASSET_TICKS ticks, the launch counts set to 0 just before and read just after
+        states, tick_ms = [runner.state], []
+        torch.cuda.synchronize()
+        _zero_launches()
+        for i in range(ASSET_TICKS):
+            t0 = time.perf_counter()
+            runner.tick()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if i < 3:
+                states.append(runner.state)
+        launches = _launches()
+        ms = sorted(tick_ms[1:])
+        world, pm = runner.world, runner.world.modules["physics"]
+        st = runner.state
+        finite = all(bool(torch.isfinite(t).all()) for t in _float_tensors(st))
+        log(f"[13 ticks] {card}: start {start_s:.3f} s; {ASSET_TICKS} Runner ticks (host clock, a "
+            f"sync each tick): the first {tick_ms[0]:.3f} ms, the other {len(ms)} median "
+            f"{ms[len(ms) // 2]:.3f} ms a tick, spread {ms[-1] - ms[0]:.3f} ms (min {ms[0]:.3f}, "
+            f"max {ms[-1]:.3f}); launches {launches}, finite {finite}; the .anm clip {cid} on "
+            f"entity {bound_e}")
+        if launches != {"K1": ASSET_TICKS, "K2": ASSET_TICKS} or not finite:
+            raise AssertionError(f"asset tier ticks: launches {launches}, finite {finite}")
+        # the frame alone: phase 12 times each module phase of the same scene
+        busy = device_busy(runner.step, st, {}, label="13 device")
+        out.update(launches=launches, tick_ms=tick_ms, load_s=load_s, start_s=start_s, busy=busy)
+        out["k1"] = k1_on_state("13 asset tier", world, st)
+        steps.append(("ticks", time.perf_counter()))
+        # 6. the same load and 3 ticks on the CPU, against the card's first 3
+        cpu = app.Runner([], engine=app.create_full_engine(base_path=tmp, device="cpu"))
+        cpu.load_world(path)
+        _bind_anm(cpu, anm_blob)
+        cpu.start()
+        cstates = [cpu.state]
+        for _ in range(3):
+            cpu.tick()
+            cstates.append(cpu.state)
+        errs, breaks = card_vs_cpu(runner, pm, cpu.world.modules["physics"], states, cstates,
+                                   dev, "asset tier")
+        shown = {k: float(f"{v:.3g}") for k, v in errs.items() if v}
+        log(f"[13 cpu] the same load and 3 ticks on the CPU, card vs CPU: max abs err {shown} "
+            f"(bodies {BODY_POS_ATOL:g} m / {BODY_VEL_ATOL:g} m/s, agents {NAV_ATOL:g}, poses "
+            f"and palettes {POSE_ATOL:g}); breaks explained {breaks}")
+        out["cpu"] = {"errs": shown, "breaks": breaks}
+        del cpu, cstates
+        steps.append(("cpu", time.perf_counter()))
+        # 7. the on-device present of the FBX meshes from the scene's camera and from a close
+        # view of the character the .anm drives (one soup, baked once), the close view card vs
+        # CPU: it covers a quarter of the image, the scene's camera a thousandth
+        w, h = ASSET_PRESENT
+        out["present"] = {}
+        tp = gpu_tpu.TpuPresent(w, h)
+        shown = app.Runner([], engine=runner.engine)
+        shown.use_world(world)
+        for view, vstate in (("world camera", st), ("close", _close_view(runner, bound_e))):
+            shown.state = vstate
+            rgb, depth, ov = tp(shown)
+            p_ms, p_spread = event_times(lambda: tp(shown), PRESENT_WARM, PRESENT_REPS)
+            fill = float(torch.isfinite(depth).float().mean())
+            row = (f"[13 present] {card}: present_tpu {w}x{h}, {view}, of the FBX meshes "
+                   f"({len(tp.soup.tri)} soup triangles, the characters skinned on the card): "
+                   f"{p_ms:.3f} ms a present (CUDA events, median of {PRESENT_REPS} after "
+                   f"{PRESENT_WARM} warm, spread {p_spread:.3f} ms), overflow {int(ov)}, "
+                   f"{fill:.4f} of the pixels hit")
+            out["present"][view] = {"ms": p_ms, "spread": p_spread, "overflow": int(ov),
+                                    "soup_tris": len(tp.soup.tri), "hit": fill}
+            if view == "close":
+                shown.state = map_tensors(lambda x: x.cpu(), vstate)
+                fig, ok = present_gap((rgb.cpu().numpy(), depth.cpu().numpy(), int(ov)),
+                                      gpu_tpu.TpuPresent(w, h)(shown))
+                row += (f"; card vs CPU: overflow {fig['overflow']}, hit masks agree on "
+                        f"{fig['coverage']:.6f} (limit {PRESENT_COVERAGE_MIN}), depth "
+                        f"{fig['depth_rel']:.3e} relative (limit {PRESENT_DEPTH_RTOL:g}), rgb "
+                        f"within {PRESENT_RGB_LEVELS} level on {fig['rgb_share']:.6f} (limit "
+                        f"{PRESENT_RGB_SHARE}), largest rgb gap {fig['rgb_max']}")
+                out["present"][view]["gap"] = fig
+                if not ok:
+                    raise AssertionError(f"asset present, {view}, card vs CPU: {fig}")
+            log(row)
+            if not fill > 0:
+                raise AssertionError(f"asset present, {view}: no pixel hit")
+        del shown, tp
+        runner.shutdown()
+        steps.append(("present", time.perf_counter()))
+        # 8. the game view on a fresh load: play, tick_frame, stop
+        fresh = inst_mod.load_world(path, data_dirs=(tmp,), device=dev, base_path=tmp)
+        replaced = []
+        gv = GameView(fresh.engine, fresh.world, replaced.append)
+        before = bridge.state_to_numpy(fresh.world.device_state(dev))
+        gv.toggle_play()
+        t0 = time.perf_counter()
+        for _ in range(ASSET_EDITOR_FRAMES):
+            gv.tick_frame()
+        torch.cuda.synchronize()
+        play_ms = (time.perf_counter() - t0) * 1e3 / ASSET_EDITOR_FRAMES
+        played = bridge.state_to_numpy(gv.runner().state)
+        gv.toggle_play()
+        after = bridge.state_to_numpy(gv.world.device_state(dev))
+        moved = int(played["frame"]) == ASSET_EDITOR_FRAMES
+        unheld = sorted(k for k in set(before) | set(after) if k.startswith(BLOB_UNCARRIED))
+        live = before["modules.renderer.mi_entity"] >= 0
+
+        def held(snap):
+            return {k: v[..., live] if k.startswith(INSTANCE_ROWS) else v
+                    for k, v in snap.items() if k not in unheld}
+
+        gaps = reload_gap(held(after), held(before), [], [])
+        if not np.array_equal(after["modules.renderer.mi_entity"],
+                              before["modules.renderer.mi_entity"]):
+            gaps["modules.renderer.mi_entity"] = float("inf")
+        only = sorted((set(before) ^ set(after)) - set(unheld))
+        log(f"[13 game view] {card}: play, {ASSET_EDITOR_FRAMES} tick_frames "
+            f"{play_ms:.3f} ms a frame (host clock), the game at frame {int(played['frame'])}, "
+            f"stop: on_world_replaced {len(replaced)}, restored snapshot against the pre-play one: "
+            f"fields that differ {gaps}, fields in one only {only}; not held, the rows a world "
+            f"blob does not carry ({', '.join(BLOB_UNCARRIED)}): {len(unheld)} fields, and the "
+            f"{int((~live).sum())} free model-instance slots")
+        if gaps or only or len(replaced) != 1 or not moved:
+            raise AssertionError(f"game view restore: gaps {gaps}, only {only}, replaced "
+                                 f"{len(replaced)}, frame {int(played['frame'])}")
+        out["game_view"] = {"ms": play_ms}
+        steps.append(("game view", time.perf_counter()))
+        # 9. the editors: the animation graph, the particle script, the voxelizer
+        ctrl_id = fresh.assets.controller_id(act_rel, A.CHARACTER)
+        if fresh.assets.report["controller_act"] != 1:
+            raise AssertionError(f"the take's .act did not load: {dict(fresh.assets.report)}")
+        ed = AnimGraphEditor(fresh.assets.anim.controllers[ctrl_id], device=dev)
+        t0 = time.perf_counter()
+        for _ in range(ASSET_EDITOR_FRAMES):
+            ed.step_preview()
+        anim_ms = (time.perf_counter() - t0) * 1e3 / ASSET_EDITOR_FRAMES
+        pat = os.path.join(tmp, "particles", "sparks.pat")
+        os.makedirs(os.path.dirname(pat))
+        with open(pat, "w") as f:
+            f.write(A.PAT_TEXT)
+        pe, pe_cpu = ParticleEditor(pat, device=dev), ParticleEditor(pat, device="cpu")
+        t0 = time.perf_counter()
+        pe.step_preview(ASSET_EDITOR_FRAMES)
+        torch.cuda.synchronize()
+        pat_ms = (time.perf_counter() - t0) * 1e3 / ASSET_EDITOR_FRAMES
+        pe_cpu.step_preview(ASSET_EDITOR_FRAMES)
+        t0 = time.perf_counter()
+        vox = VoxelizerUI(model_path=full["character"])
+        vox.compute_ao()
+        vox.blur_ao()
+        vox_ms = (time.perf_counter() - t0) * 1e3
+        live = {n: hist[-1] for n, hist in pe.history.items()}
+        log(f"[13 editors] {card}: AnimGraphEditor.step_preview on {act_rel} "
+            f"{anim_ms:.3f} ms a frame (the first of {len(ed._last_slots)} slots "
+            f"{ed._last_slots[0]}); ParticleEditor.step_preview({ASSET_EDITOR_FRAMES}) "
+            f"{pat_ms:.3f} ms a frame, live at the end {live}, the same "
+            f"preview on the CPU equal frame by frame {pe.history == pe_cpu.history}; VoxelizerUI "
+            f"on the character (voxelize, AO, blur) {vox_ms:.1f} ms: {int(vox.grid.sum())} cells "
+            f"at {vox.resolution}^3, AO mean {float(vox.ao.mean()):.4f}")
+        if (pe.history != pe_cpu.history or not max(live.values()) > 0 or pe.error
+                or not vox.grid.any() or not np.isfinite(ed.clocks).all()):
+            raise AssertionError(f"editors: particle histories {pe.history} vs "
+                                 f"{pe_cpu.history}, error {pe.error}, voxels "
+                                 f"{int(vox.grid.sum())}, clocks {ed.clocks}")
+        out["editors"] = {"anim_ms": anim_ms, "particle_ms": pat_ms, "voxel_ms": vox_ms}
+        del fresh, gv, ed, pe, pe_cpu
+        steps.append(("editors", time.perf_counter()))
+        # 10. app.main --tui on the .unv, its output in a buffer (no tty)
+        seen = {}
+        run_tui = app._run_tui
+
+        def timed_tui(r, frames):
+            seen["device"] = r.device
+            t = time.perf_counter()
+            run_tui(r, frames)
+            seen["ms"] = (time.perf_counter() - t) * 1e3 / frames
+
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        app._run_tui = timed_tui
+        try:
+            os.chdir(tmp)    # app.main's engine resolves assets against its base path, "."
+            with contextlib.redirect_stdout(buf):
+                rc = app.main(["--world", path, "--tui", "--frames", str(TUI_FRAMES)])
+        finally:
+            app._run_tui = run_tui
+            os.chdir(cwd)
+        text = buf.getvalue()
+        ansi = text[text.find("\x1b[?1049h"):text.find("\x1b[?1049l") + len("\x1b[?1049l")]
+        frames = ansi.count("\x1b[H")
+        log(f"[13 tui] {card}: app.main --world assets.unv --tui --frames {TUI_FRAMES}: rc {rc}, "
+            f"{frames} frames presented, {seen.get('ms', float('nan')):.1f} ms a TUI frame (host "
+            f"clock: tick, present() at 320x180, ANSI), {len(ansi.encode())} bytes of ANSI, the "
+            f"Runner on {seen.get('device')}")
+        if rc != 0 or frames != TUI_FRAMES or getattr(seen.get("device"), "type", None) != dev.type:
+            raise AssertionError(f"tui: rc {rc}, {frames} frames, device {seen.get('device')}")
+        out["tui"] = {"ms": seen["ms"], "bytes": len(ansi.encode())}
+        steps.append(("tui", time.perf_counter()))
+        # K2 on the path's own contact set, as a batch of one world
+        out["k2"] = k2_on_state(pm, map_tensors(lambda t: t[None], st), "the asset tier")
+        log(f"[13 K2] {card}: on the path's contact set W={out['k2']['W']} NB={out['k2']['NB']} "
+            f"C={out['k2']['C']} active {out['k2']['active']}: max abs err vs plain "
+            f"{out['k2']['max_abs_err']:.3e}, {out['k2']['ms']:.4f} ms (plain "
+            f"{out['k2']['plain_ms']:.4f} ms, bound {out['k2']['bound_ms']:.6f} ms over "
+            f"{out['k2']['bytes']} bytes, share {out['k2']['share_of_bound']:.4f})")
+        steps.append(("K2", time.perf_counter()))
+        out["steps_s"] = {name: t - steps[k][1] for k, (name, t) in enumerate(steps[1:])}
+        log(f"[13 time] the steps on the host's clock, s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in out["steps_s"].items()))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def k1_on_state(label, world, state):
     """K1 against its plain version on a one-world state's cull operands
     (the world camera and a random view), as the Runner's paths give them.
@@ -1194,11 +1657,11 @@ def _timed_frames(step, state, frames, warm):
     return state, ev0.elapsed_time(ev1) / (frames - warm), wall, _launches()
 
 
-def device_busy(step, state, layers):
+def device_busy(step, state, layers, label="9 device"):
     """One frame of `step` on `state` and each of `layers` (name -> fn(dt)):
     ms on CUDA events beside the device time of their kernels
     (torch.profiler, layer_time); the frame's busy share is the second over
-    the first. Printed; returns {name: (ms, device ms)}."""
+    the first. Printed under `label`; returns {name: (ms, device ms)}."""
     import torch
 
     dt = torch.tensor(DT, dtype=torch.float32, device=state.local.pos.device)
@@ -1206,7 +1669,7 @@ def device_busy(step, state, layers):
     out.update({name: layer_time(lambda f=fn: f(dt)) for name, fn in layers.items()})
     frame_ms, frame_dev = out["frame"]
     share = f"{frame_dev / frame_ms:.4f}" if frame_dev else "not measured"
-    log("[9 device] " + "; ".join(f"{k} {ms:.4f} ms on events, {dv if dv is None else round(dv, 4)}"
+    log(f"[{label}] " + "; ".join(f"{k} {ms:.4f} ms on events, {dv if dv is None else round(dv, 4)}"
                                   f" ms of kernels" for k, (ms, dv) in out.items())
         + f"; the frame's device-busy share {share}")
     return out

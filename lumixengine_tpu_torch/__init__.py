@@ -13,7 +13,9 @@ Lua interpreter and its device fast path), navigation, GUI, audio and the
 core splines and signals, and the host tier that loads and saves worlds: the
 world blob, prefabs and checkpoints (``engine/serialize.py``), the ``.unv``
 importer and writer with ``importers/instantiate.py``, shipped navmeshes and
-the per-phase cost model. What is not ported yet (the FBX, ``.anm``,
-``.mat``, ``.meta`` and composite-texture codecs, the terminal UI, the
-editor) raises ``NotImplementedError`` naming its ROADMAP item.
+the per-phase cost model; the asset codecs (FBX with its ``.meta`` sidecar,
+``.anm``, ``.mat``, composite textures) and the asset compiler, the terminal
+UI (``app.main --tui``), and the editor's views that drive the device (game
+view, animation graph, particle script, voxelizer). The editor's host-only
+views and its app are not ported yet (ROADMAP Queue 1 item 7.6).
 """

@@ -15,13 +15,12 @@ calls); ``present_tpu`` rasterizes on the card and returns the image, the
 depth and the overflow count. ``metrics(phases=True)`` adds the per-phase
 cost model (``engine/phase_profile.py``). ``main`` boots the headless demo
 world, or the world given with ``--world`` (a blob or a .unv), runs the
-frames and writes a screenshot:
+frames, in the terminal with ``--tui`` (``core/os_terminal.py``: keys in,
+each frame presented as ANSI half-blocks), and writes a screenshot:
 
     python -m lumixengine_tpu_torch.app --frames 60 --screenshot out.png [--device cpu]
     python -m lumixengine_tpu_torch.app --world maps/x.unv --frames 60 [--device cpu]
-
-Not ported yet: the terminal UI (``--tui``), which raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1 item 7.5).
+    python -m lumixengine_tpu_torch.app --tui --frames 600 [--device cpu]
 """
 from __future__ import annotations
 
@@ -37,7 +36,6 @@ from lumixengine_tpu_torch.core import log, profiler
 from lumixengine_tpu_torch.engine import reflection, serialize
 from lumixengine_tpu_torch.engine.engine import Engine
 
-_NOT_PORTED = "{what} is not ported yet (ROADMAP Queue 1 item {item})"
 
 
 def create_full_engine(base_path: str = ".", device="cuda", **caps) -> Engine:
@@ -330,8 +328,29 @@ def _is_unv(path: str) -> bool:
 
 
 def _run_tui(runner: "Runner", frames: int) -> None:
-    raise NotImplementedError(_NOT_PORTED.format(
-        what="the terminal UI (core/os_terminal.py)", item="7.5"))
+    """Interactive terminal session: the TerminalWindowBackend pumps raw
+    keyboard input into the InputSystem and each frame presents through the
+    software present at 320x180 as ANSI half-blocks (≙ the platform main
+    loop: processEvents → update → Pipeline::render → swap), at most
+    `fps_cap` frames a second. Ctrl-C quits."""
+    from lumixengine_tpu_torch.core.os_terminal import TerminalWindowBackend
+    from lumixengine_tpu_torch.renderer.plugins import install_builtins
+
+    install_builtins(runner.world.modules["renderer"].system)
+    backend = TerminalWindowBackend()
+    runner.os.backend = backend
+    cap = float(runner.settings.get("fps_cap") or 30.0)
+    with backend:
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            runner.tick()
+            img = runner.present(width=320, height=180)
+            backend.present(img)
+            if runner.os.quit_requested:
+                break
+            left = 1.0 / cap - (time.perf_counter() - t0)
+            if left > 0:
+                time.sleep(left)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -360,7 +379,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.perf_counter()
     if runner.settings.get("tui"):
         _run_tui(runner, frames)
-    runner.run(frames)
+    else:
+        runner.run(frames)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     el = time.perf_counter() - t0

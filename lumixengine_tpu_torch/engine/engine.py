@@ -92,8 +92,10 @@ class Engine:
 
     def update_host(self, dt_raw: float) -> float:
         """Host side of the frame: dt smoothing (0 while paused, unless one
-        frame was asked for), the systems' host updates, the input drain and
-        the file system's callbacks. Returns the dt to feed the step."""
+        frame was asked for), the systems' host updates, the input drain, the
+        file system's callbacks and, when one is attached, the asset
+        compiler's watch (a changed source recompiles). Returns the dt to
+        feed the step."""
         if self.paused and not self._next_frame_paused:
             dt = 0.0
         else:
@@ -102,6 +104,9 @@ class Engine:
         self.system_manager.update(dt)
         self.input.update()
         self.fs.process_callbacks()
+        ac = getattr(self, "asset_compiler", None)
+        if ac is not None:
+            ac.poll()
         return dt
 
     def build_step(

@@ -7,14 +7,14 @@ unless the caller passes a CPU device).
 
 Asset references (.fbx models, .ani clips, .act controllers, .pat particle
 scripts, heightmaps) resolve through ``SceneAssets`` against ``data_dirs``,
-which the caller passes (default: the engine's base path): a file that is
-not found becomes a placeholder resource, counted in the report, as in the
-reference. The port has no FBX codec yet: an FBX file that IS found raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 7.4 (where the reference
-would build the real model, and read the model's ``.meta`` sidecar). The
-placeholder skeletons and clips are seeded with ``abs(hash(path))`` as in the
-reference; Python salts ``str`` hashes per process, so the two packages'
-placeholders agree only within one process.
+which the caller passes (default: the engine's base path): an FBX file that
+is found is parsed (``importers/fbx.py``) into the model, with its ``.meta``
+sidecar applied (``importers/model_meta.py``), or into the clip of its take;
+a file that is not found, or does not parse, becomes a placeholder resource,
+counted in the report, as in the reference. The placeholder skeletons and
+clips are seeded with ``abs(hash(path))`` as in the reference; Python salts
+``str`` hashes per process, so the two packages' placeholders agree only
+within one process.
 
 Entity ids are remapped via an EntityMap like the reference's additive load
 (world.h:35-44): scene entity id -> our World entity id.
@@ -29,9 +29,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from lumixengine_tpu_torch.core import host_math as hm
-
-_NO_FBX = ("{path}: the FBX codec (and the model .meta sidecar it reads) is not ported yet "
-           "(ROADMAP Queue 1 item 7.4)")
 
 
 def _u32_color(c: int) -> Tuple[float, float, float, float]:
@@ -56,6 +53,7 @@ class SceneAssets:
         self._ctrl_ids: Dict[str, int] = {}
         self._audio_ids: Dict[str, int] = {}
         self._skinned_paths: set = set()
+        self._fbx_cache: Dict[str, Any] = {}
 
     def find_file(self, path: str) -> Optional[str]:
         # "engine/" is a mount onto the engine data dir (≙ FileSystem mounts)
@@ -74,26 +72,50 @@ class SceneAssets:
 
     # -- models ---------------------------------------------------------------
 
-    def _require_no_fbx(self, path: str) -> None:
-        """The reference hands a found file to its FBX codec (the
-        placeholder only stands in for a file that is absent); the port has
-        no FBX codec yet, so a found file raises."""
-        if self.find_file(path) is not None:
-            raise NotImplementedError(_NO_FBX.format(path=path))
+    def _load_fbx(self, path: str):
+        """Parsed FBX document cache (None if unavailable/unparseable)."""
+        if path in self._fbx_cache:
+            return self._fbx_cache[path]
+        doc = None
+        real = self.find_file(path)
+        if real is not None:
+            try:
+                from lumixengine_tpu_torch.importers import fbx
+
+                doc = fbx.load_fbx(real)
+            except Exception:
+                doc = None
+        self._fbx_cache[path] = doc
+        return doc
 
     def model_id(self, path: str) -> int:
         if path in self._model_ids:
             return self._model_ids[path]
         from lumixengine_tpu_torch.renderer.model import Model, make_humanoid_skeleton
 
-        self._require_no_fbx(path)
-        skeleton = None
-        if path in self._skinned_paths:
-            skeleton = make_humanoid_skeleton(32, seed=abs(hash(path)) % 2**31)
-        base = os.path.basename(path).lower()
-        radius = {"cube.fbx": 0.87, "plane.fbx": 100.0, "sphere.fbx": 0.5}.get(base, 1.2)
-        model = Model(name=path, bounding_radius=radius, skeleton=skeleton)
-        self.report["model_placeholder"] += 1
+        model = None
+        doc = self._load_fbx(path)
+        if doc is not None:
+            try:
+                from lumixengine_tpu_torch.importers import fbx
+                from lumixengine_tpu_torch.importers import model_meta as MM
+
+                model = fbx.to_model(doc, name=path)
+                # the .meta sidecar: import scale, origin, culling scale, LODs
+                real = self.find_file(path)
+                if real is not None:
+                    MM.apply_meta(model, MM.load_meta_for(real))
+                self.report["model_fbx"] += 1
+            except Exception:
+                model = None
+        if model is None:
+            skeleton = None
+            if path in self._skinned_paths:
+                skeleton = make_humanoid_skeleton(32, seed=abs(hash(path)) % 2**31)
+            base = os.path.basename(path).lower()
+            radius = {"cube.fbx": 0.87, "plane.fbx": 100.0, "sphere.fbx": 0.5}.get(base, 1.2)
+            model = Model(name=path, bounding_radius=radius, skeleton=skeleton)
+            self.report["model_placeholder"] += 1
         self._model_ids[path] = self.renderer.add_model(model)
         return self._model_ids[path]
 
@@ -114,12 +136,23 @@ class SceneAssets:
             from lumixengine_tpu_torch.renderer.model import make_humanoid_skeleton
 
             sk = make_humanoid_skeleton(32, seed=3)
-        self._require_no_fbx(anim_path.split(":", 1)[1] if ":" in anim_path else anim_path)
-        from lumixengine_tpu_torch.animation.animation import make_walk_clip
+        fbx_path = anim_path.split(":", 1)[1] if ":" in anim_path else anim_path
+        clip = None
+        doc = self._load_fbx(fbx_path)
+        if doc is not None:
+            try:
+                from lumixengine_tpu_torch.importers import fbx
 
-        clip = make_walk_clip(sk, anim_path, frames=25, fps=30.0,
-                              amplitude=0.3, seed=abs(hash(anim_path)) % 2**31)
-        self.report["clip_placeholder"] += 1
+                clip = fbx.to_clip(doc, sk, name=anim_path)
+                self.report["clip_fbx"] += 1
+            except Exception:
+                clip = None
+        if clip is None:
+            from lumixengine_tpu_torch.animation.animation import make_walk_clip
+
+            clip = make_walk_clip(sk, anim_path, frames=25, fps=30.0,
+                                  amplitude=0.3, seed=abs(hash(anim_path)) % 2**31)
+            self.report["clip_placeholder"] += 1
         self._clip_ids[key] = self.anim.add_clip(clip)
         return self._clip_ids[key]
 
@@ -136,8 +169,6 @@ class SceneAssets:
 
                 cid = act.load_controller(real, self, model_path)
                 self.report["controller_act"] += 1
-            except NotImplementedError:
-                raise       # a clip the port cannot decode is not a placeholder's case
             except Exception:
                 cid = None
         if cid is None:

@@ -10,6 +10,7 @@ viewer and tests.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -29,14 +30,20 @@ class Glyph:
 
 
 class Font:
-    """One (face, size) — atlas of ASCII glyphs + metrics."""
+    """One (face, size) — atlas of ASCII glyphs + metrics. `path` None is
+    the default face: DEFAULT_FONT, or on a host that lacks it the FreeType
+    face PIL ships (``ImageFont.load_default``)."""
 
-    def __init__(self, path: str = DEFAULT_FONT, size: int = 24):
+    def __init__(self, path: Optional[str] = None, size: int = 24):
         from PIL import ImageFont
 
-        self.path = path
         self.size = int(size)
-        self._pil = ImageFont.truetype(path, self.size)
+        if path is None and not os.path.exists(DEFAULT_FONT):
+            self.path = None
+            self._pil = ImageFont.load_default(self.size)
+        else:
+            self.path = path or DEFAULT_FONT
+            self._pil = ImageFont.truetype(self.path, self.size)
         ascent, descent = self._pil.getmetrics()
         self.ascent = float(ascent)
         self.descent = float(descent)
@@ -141,9 +148,9 @@ class FontSystem:
     fonts are immutable once baked, so sharing is safe."""
 
     def __init__(self):
-        self._fonts: Dict[Tuple[str, int], Font] = {}
+        self._fonts: Dict[Tuple[Optional[str], int], Font] = {}
 
-    def load(self, path: str = DEFAULT_FONT, size: int = 24) -> Font:
+    def load(self, path: Optional[str] = None, size: int = 24) -> Font:
         key = (path, int(size))
         if key not in self._fonts:
             self._fonts[key] = Font(path, size)

@@ -73,6 +73,7 @@ class Model:
     vertex_triangles: Optional[np.ndarray] = None  # int32 [T,3] (the presents' meshes)
     vertex_weights: Optional[np.ndarray] = None    # f32 [V,4] skin weights
     vertex_bones4: Optional[np.ndarray] = None     # int32 [V,4] skin bone ids
+    vertex_bone: Optional[np.ndarray] = None       # int32 [V] dominant bone (the FBX importer's)
 
     def __post_init__(self):
         if self.lod_distances is None:

@@ -777,10 +777,12 @@ class CompiledEmitter:
                 for n, w in self.outs}
 
 
-def compile_source(src: str, imports: Optional[Dict[str, str]] = None
+def compile_source(src: str, imports: Optional[Dict[str, str]] = None,
+                   resolve: Optional[Callable[[str], str]] = None
                    ) -> Dict[str, CompiledEmitter]:
     """Compile a .pat source (plus imported .pai libraries) → emitters.
-    `imports` maps import paths to sources."""
+    `imports` maps import paths to sources; `resolve` loads an import that
+    `imports` does not hold (a path → its source)."""
     prog = Parser(src).parse_program()
     seen = set()
     frontier = list(prog.imports)
@@ -799,6 +801,8 @@ def compile_source(src: str, imports: Optional[Dict[str, str]] = None
                 if cand in imports:
                     isrc = imports[cand]
                     break
+        if isrc is None and resolve is not None:
+            isrc = resolve(path)
         if isrc is None:
             raise CompileError(f"unresolved import {path!r}")
         sub = Parser(isrc).parse_program()

@@ -281,3 +281,7 @@ class ParticleSystem:
                 overflow=st.overflow + overflow,
             )
         return new_states
+
+    def alive_counts(self, states: Dict[str, EmitterState]) -> Dict[str, torch.Tensor]:
+        """Live particles of each emitter (int32, per world)."""
+        return {n: torch.sum(s.alive, dim=-1, dtype=torch.int32) for n, s in states.items()}

@@ -381,33 +381,33 @@ def test_lua_create_entity_ex_with_a_model_instance_matches_reference():
 
 
 def test_an_fbx_file_that_exists_raises_naming_the_roadmap_item(tmp_path):
-    """Where the reference would decode a found FBX, the port raises (and
-    the raise is not swallowed by a controller's fallback); a missing file
-    is the reference's placeholder."""
-    from lumixengine_tpu_torch.importers import instantiate as pi
+    """An FBX file the data dirs hold is decoded, in the port as in the
+    reference (the name dates from before the port had the codec, when such
+    a file raised): a file that is the FBX magic alone does not parse and
+    becomes the placeholder, as a model instance's model and as the clips of
+    a controller's entries; a written FBX is a real model. Both packages
+    give equal worlds."""
+    from lumixengine_tpu_torch.models import asset_scenes as A
 
     d = tmp_path / "data"
     (d / "models").mkdir(parents=True)
     (d / "models" / "hero.fbx").write_bytes(b"Kaydara FBX Binary  \0")
+    (d / "models" / "box.fbx").write_bytes(A.box_fbx(0))
     (d / "anims").mkdir()
-    (d / "anims" / "hero.act").write_bytes(
-        b"CAL_" + (6).to_bytes(4, "little") + (1).to_bytes(4, "little") + b"models/hero.fbx\0"
-        + (0).to_bytes(4, "little") + (1).to_bytes(4, "little") + b"walk forward\0"
-        + (1).to_bytes(4, "little") + (0).to_bytes(4, "little") * 2
-        + b".ani:models/hero.fbx\0")
+    (d / "anims" / "hero.act").write_bytes(A.act_bytes("models/hero.fbx", ".ani:models/hero.fbx"))
     scene = H.empty_scene(("renderer", "animation"))
     e = H.add_entity(scene, (0, 0, 0))
     H.model_instance(scene, e, "models/hero.fbx")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
-        pi.instantiate_scene(scene, data_dirs=(str(d),), device="cpu")
-    scene["renderer"]["model_instances"][0]["model"] = "models/absent.fbx"
+    H.model_instance(scene, H.add_entity(scene, (2, 0, 0)), "models/box.fbx")
     scene["animation"]["animators"].append({"default_set": 0, "entity": e, "flags": 0,
                                             "controller": "anims/hero.act"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
-        pi.instantiate_scene(scene, data_dirs=(str(d),), device="cpu")
-    scene["animation"]["animators"] = []
-    inst = pi.instantiate_scene(scene, data_dirs=(str(d),), device="cpu")
-    assert inst.report["model_placeholder"] == 1
+    rinst, pinst = instantiate("jax", scene, (str(d),)), instantiate("torch", scene, (str(d),))
+    assert_instances_equal(rinst, pinst)
+    rep = pinst.report
+    assert (rep["model_placeholder"], rep["model_fbx"]) == (1, 1)
+    assert (rep["controller_act"], rep["clip_placeholder"], rep["clip_fbx"]) == (1, 1, 0)
+    models = pinst.world.modules["renderer"].system.models
+    assert models.get(models.get_id("models/box.fbx")).vertex_triangles.shape == (12, 3)
 
 
 # -- the Runner: load_world, app.main --world, phase_metrics ---------------------------

@@ -843,3 +843,58 @@ def test_loaded_world_runs_both_kernels_and_resumes_a_checkpoint(cuda, tmp_path)
     s2 = bridge.state_to_numpy(world2.device_state(cuda))
     assert sorted(set(s1) - set(s2)) == [k for k in sorted(s1) if k.startswith("modules.script.")]
     assert [k for k in s2 if not np.array_equal(s1[k], s2[k])] == []
+
+
+@pytest.mark.parametrize("entities, bodies", [(512, 32), (2048, 64)])
+def test_asset_world_kernels_on_the_card(cuda, tmp_path, entities, bodies):
+    """Phase 13's path: the asset stress scene (models/asset_scenes.py: the
+    FBX character and props, their .meta) written as a .unv and loaded on
+    the card with no placeholder, 12 ticks with K1 and K2 once a tick, then
+    K1 bit for bit and K2 within K2_PLAIN_ATOL of their plain versions on
+    the path's own operands (at full size [1, 3, 2390] and about (1, 69,
+    1812)), and the on-device present of the FBX meshes against the CPU."""
+    from lumixengine_tpu_torch import app
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.importers.unv_write import save_unv
+    from lumixengine_tpu_torch.models import asset_scenes as A
+    from lumixengine_tpu_torch.models import host_scenes as H
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import solver as S
+    from lumixengine_tpu_torch.renderer import gpu_tpu, pipeline
+
+    data = str(tmp_path)
+    A.write_assets(data)
+    H.write_stress_nav(data)
+    path = str(tmp_path / "assets.unv")
+    save_unv(A.asset_stress_scene(entities=entities, bodies=bodies), path)
+    runner = app.Runner([], engine=app.create_full_engine(base_path=data, device=cuda))
+    runner.load_world(path)
+    rep = runner.world.modules["script"].asset_bank().report
+    assert (rep["model_fbx"], rep["clip_fbx"]) == (4, 1)
+    assert rep["model_placeholder"] == rep["clip_placeholder"] == 0
+    runner.start()
+    k1, k2 = cull.frustum_cull_cuda.launches, S.solve_cuda.launches
+    runner.run(12)
+    torch.cuda.synchronize()
+    assert (cull.frustum_cull_cuda.launches - k1, S.solve_cuda.launches - k2) == (12, 12)
+    state = runner.state
+    rm = runner.world.modules["renderer"]
+    frustum, centers, radii = pipeline.cull_operands(state, state.modules["renderer"],
+                                                     rm.statics())
+    centers, radii, planes = centers[None].contiguous(), radii[None].contiguous(), \
+        frustum.planes[None].contiguous()
+    assert torch.equal(cull.frustum_cull_cuda(centers, radii, planes),
+                       cull.frustum_cull_plain(centers, radii, planes))
+    prob = runner.world.modules["physics"].solver_problem(map_tensors(lambda t: t[None], state),
+                                                          1 / 60)
+    assert int(prob.act.sum()) > 0
+    got, ref = S.solve_cuda(prob, 10, 3), S.solve_plain(prob, 10, 3)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, ref)) <= S.K2_PLAIN_ATOL
+    if entities == 512:
+        tp = gpu_tpu.TpuPresent(240, 136)
+        out = tp(runner)
+        assert bool(torch.isfinite(out[1]).any())
+        cpu = app.Runner([], engine=runner.engine)
+        cpu.use_world(runner.world)
+        cpu.state = map_tensors(lambda x: x.cpu(), state)
+        _present_limits(out, gpu_tpu.TpuPresent(240, 136)(cpu))

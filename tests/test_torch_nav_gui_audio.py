@@ -129,25 +129,44 @@ def test_full_engine_registers_the_eight_systems_in_the_reference_order():
 
 
 def test_runner_parts_not_ported_name_their_roadmap_item(tmp_path):
-    """What is still not ported raises naming its ROADMAP item: the
-    terminal UI (Queue 1 item 7.5) and an FBX file a scene names and the
-    data dirs hold (the codecs, item 7.4). Loading a world is ported: a
-    missing .unv is an OSError, not NotImplementedError."""
+    """The parts this test once found not ported now run (the name dates
+    from then): the terminal UI presents each frame into its output, and
+    an FBX file a scene names is decoded in both packages (one that does
+    not parse is the placeholder). A missing .unv is an OSError."""
+    import contextlib
+    import io
+
+    from lumixengine_tpu_torch.models import asset_scenes as A
+
     _, papp = _pkg("app")
-    runner = papp.Runner([], engine=papp.create_full_engine(device="cpu"))
+    _, pdemo = _pkg("models.demo_scenes")
+    engine, world, _ = pdemo.headless_demo_world(num_entities=64)
+    engine.device = torch.device("cpu")
+    runner = papp.Runner([], engine=engine)
+    runner.use_world(world)
+    runner.start()
     assert runner.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        papp._run_tui(runner, 1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        papp._run_tui(runner, 2)
+    text = out.getvalue()
+    assert text.count("\x1b[H") == 2 and "\x1b[?1049h" in text and "\x1b[?1049l" in text
+    assert int(bridge.state_to_numpy(runner.state)["frame"]) == 2
     with pytest.raises(OSError):
-        runner.load_world(str(tmp_path / "x.unv"))
-    _, pinst = _pkg("importers.instantiate")
+        papp.Runner([], engine=papp.create_full_engine(device="cpu")).load_world(
+            str(tmp_path / "x.unv"))
     (tmp_path / "models").mkdir()
     (tmp_path / "models" / "a.fbx").write_bytes(b"Kaydara FBX Binary  \0")
-    renderer = runner.engine.system_manager.get_system("renderer_system")
-    assets = pinst.SceneAssets(renderer, data_dirs=(str(tmp_path),))
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        assets.model_id("models/a.fbx")
-    assert assets.model_id("models/absent.fbx") >= 0
+    (tmp_path / "models" / "b.fbx").write_bytes(A.sphere_fbx(0))
+    for eng_mod, inst_mod in zip(_pkg("app"), _pkg("importers.instantiate")):
+        eng = (eng_mod.create_full_engine(device="cpu") if eng_mod is papp
+               else eng_mod.create_full_engine())
+        renderer = eng.system_manager.get_system("renderer_system")
+        assets = inst_mod.SceneAssets(renderer, data_dirs=(str(tmp_path),))
+        a, b = assets.model_id("models/a.fbx"), assets.model_id("models/b.fbx")
+        assert assets.model_id("models/absent.fbx") >= 0
+        assert dict(assets.report) == {"model_placeholder": 2, "model_fbx": 1}
+        assert renderer.models.get(b).vertex_positions.shape == (482, 3) and a != b
 
 
 # -- navigation -------------------------------------------------------------------------------
@@ -487,6 +506,23 @@ def test_gui_draw_list_and_input_field_match_reference():
     got, ref = gm.draw_list(p.ps), rgm.draw_list(p.rs)
     assert got == ref
     assert got[0]["text"] == "Hello" and got[0]["color"] == [1, 0, 0, 1]
+
+
+def test_gui_text_lays_out_on_a_host_without_the_default_font(monkeypatch, tmp_path):
+    """The GUI's text asks for the default face. Where DEFAULT_FONT is
+    installed that is DejaVu Sans (the reference's face); on a host without
+    it the port takes the FreeType face PIL ships, so a GUI world still
+    presents there. An explicit path that does not exist still raises."""
+    from lumixengine_tpu_torch.renderer import font
+
+    assert font.FontSystem().load(size=24).path == font.DEFAULT_FONT
+    monkeypatch.setattr(font, "DEFAULT_FONT", str(tmp_path / "absent.ttf"))
+    f = font.FontSystem().load(size=24)
+    assert f.path is None and f.line_height > 0
+    w, h = f.text_extents("Hello")
+    assert w > 0 and h > 0 and f.rasterize_text("Hello").max() > 0
+    with pytest.raises(OSError):
+        font.Font(str(tmp_path / "absent.ttf"), 24)
 
 
 SIGNAL_LUA = """

@@ -14,6 +14,7 @@ PKG = ROOT / "lumixengine_tpu_torch"
 SOURCES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts)
 SOURCES.append(ROOT / "chip_smoke.py")
 SOURCES.append(ROOT / "tools" / "host_tier.py")
+SOURCES.append(ROOT / "tools" / "asset_tier.py")
 
 
 def _imported_roots(path: Path):
@@ -36,6 +37,10 @@ def test_the_scan_sees_the_package():
     assert "lumixengine_tpu_torch/importers/instantiate.py" in names
     assert "lumixengine_tpu_torch/engine/serialize.py" in names
     assert "tools/host_tier.py" in names
+    assert "tools/asset_tier.py" in names
+    assert "lumixengine_tpu_torch/importers/fbx.py" in names
+    assert "lumixengine_tpu_torch/core/os_terminal.py" in names
+    assert "lumixengine_tpu_torch/editor/game_view.py" in names
     assert len(names) >= 20
 
 

@@ -449,7 +449,9 @@ def test_present_tpu_refuses_a_world_batch():
 
 def test_app_main_writes_the_screenshot(tmp_path, capsys):
     """app.main boots headless_demo_world(2048), runs the frames and writes
-    the software present with the builtin plugins as a PNG."""
+    the software present with the builtin plugins as a PNG; with --tui it
+    presents each frame to the terminal as ANSI half-blocks (before the port
+    had the terminal UI, this test held its raise)."""
     from lumixengine_tpu_torch import app
     from lumixengine_tpu_torch.renderer.texture import decode_png
 
@@ -458,8 +460,10 @@ def test_app_main_writes_the_screenshot(tmp_path, capsys):
     img = decode_png(shot.read_bytes())
     assert img.shape == (270, 480, 4) and img[..., :3].std() > 4.0
     assert "'frame': 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        app.main(["--frames", "1", "--tui", "--device", "cpu"])
+    assert app.main(["--frames", "1", "--tui", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("\x1b[H") == 1 and "\x1b[?1049h" in out and "\x1b[?1049l" in out
+    assert "'frame': 1" in out
 
 
 def _skinned_scene(root):
