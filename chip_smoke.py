@@ -106,10 +106,11 @@ Phases, each printed on its own line:
      heightfield, vehicles, queries) and 3 frames card vs CPU; and the
      banded props level, 1,024 random hulls in the JAX pile test's stacks
      of five over an SDF slab and the ground at 1,024 actor slots (`auto`
-     picks the banded branch), BANDED_PROPS_STEPS steps at W=1 with every
-     step's window certificate printed, that test's settle bounds hull by
-     hull (at most BANDED_PROPS_UNSETTLED hulls outside them), and 3 steps
-     card vs CPU on 4 of its stacks;
+     picks the banded branch), BANDED_PROPS_STEPS_CUT (60) steps at W=1
+     with every step's window certificate printed and that test's settle
+     readings hull by hull (the bounds, at most BANDED_PROPS_UNSETTLED hulls
+     outside them, are held after the full 360 steps by tools/sim_tier.py
+     --only props), and 3 steps card vs CPU on 4 of its stacks;
   9. the full engine (each path with the launch counts set to 0 just
      before it and read just after): the scripts config, bench.py --config
      scripts, script_stress_world(64) at W=4096 (every mover's Lua update()
@@ -135,11 +136,12 @@ Phases, each printed on its own line:
      device-busy share, 3 frames card vs CPU at W=4); make_big_world_step and make_banded_world_step (4
      sweeps, warm start) on the elongated 4,096-box pile of
      tests/test_parity.py::test_box_drop_statistics at its settings for
-     320 steps (its gates, certificates summed: 0, exact_window_miss of
-     the banded end state: 0, 3 steps card vs CPU at W=2 on a 512-box
-     pile), make_banded_world_step on box_drop_pile(10_000) at window 40
+     60 steps (20 falling, PILE_SETTLE_STEPS_CUT settling; the free-fall
+     gate, certificates summed: 0, exact_window_miss of the banded end
+     state: 0, 3 steps card vs CPU at W=2 on a 512-box pile; the settle
+     gates after the full 320 steps in tools/sim_tier.py), make_banded_world_step on box_drop_pile(10_000) at window 40
      for 40 steps (certificate and exact_window_miss: 0); the banded farm,
-     mixed_pile(512) under `auto` at W=1 and W=64 for 60 steps (ops/step
+     mixed_pile(512) under `auto` at W=1 and W=64 for 40 steps (60 alone; ops/step
      equal within 2% across the widths, certificate 0, the blow-up gates,
      3 frames card vs CPU); the layered crowd, demo_scenes.layered_crowd_world(128) at
      W=1024 for 30 frames with the cull pass (K1 once a frame and bit for
@@ -194,6 +196,25 @@ Phases, each printed on its own line:
      card and on the CPU (equal live counts), the voxelizer on the
      character; app.main --world --tui with its output in a buffer, on the
      card; K2 on the path's contact set;
+  14. the editor (printed before phase 8's timings; alone: tools/editor_tier.py):
+     phase 12's stress scene written as a .unv beside the assets of phase
+     13 and opened by EditorApp on the card as `python -m
+     lumixengine_tpu_torch.editor.app --world` opens it; a fixed key
+     script through EditorApp.handle_key (a transform and a reflected
+     property edited, an entity created and destroyed, each undone and
+     redone; the log, asset browser, model-meta, profiler, scene, physics,
+     material, settings and spline views and the docked panes; the scene
+     view's frames at 160x90 paused (the dt = 0 step) and playing, before
+     and after a layer edit in the physics view) with the launch counts set
+     to 0 just before and read just after; ms a render_text, a scene view
+     frame, a command, an undo and a redo, on the host's clock; the same
+     script on the CPU: equal screens and host rows, the paused images
+     within 2 u8 levels, the scene view's states within phase 12's
+     tolerances; the world saved as .unv and reloaded (export equal); K1
+     and K2 against their plain versions on the path's operands once the
+     bodies rest; parallel/dryrun.py with 2 shards on the card (the card
+     repeated on one card), its summed visible_total equal to the unsharded
+     step's and its position gap;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -270,6 +291,15 @@ BANDED_PROPS_UNSETTLED = 3 * BANDED_PROPS_HULLS // 256
 # before its 3 steps, when the stacks are falling onto each other
 BANDED_PROPS_COMPARE = (20, 300, 60)
 LAYER_REPS = 10          # 20 before phase 13
+# The whole script runs three host-bound paths at a cut depth, to make room for phase 14: the
+# elongated piles' settle and the banded farm (phase 10), and the banded props level (phase 7).
+# At the cut depth it reads every certificate, the blow-up and fall gates and the readings; the
+# settle gates need the full counts, which the tools that run the paths alone set (FULL_DEPTH:
+# tools/sim_tier.py, its "props" run the banded props level)
+FULL_DEPTH = False
+PILE_SETTLE_STEPS_CUT = 40       # of physics_scenes.PILE_SETTLE_STEPS, 300
+BANDED_PROPS_STEPS_CUT = 60      # of physics_scenes.BANDED_PROPS_STEPS, 360
+BANDED_FARM_STEPS_CUT = 40       # of BANDED_FARM_STEPS
 # the headless demo tick (bench.py --config demo at headless_demo_world's default, ~2k entities;
 # bench.py's CLI default would build 10,240) at bench.py's default world count
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
@@ -313,6 +343,12 @@ HOST_ENTITIES, HOST_BODIES, HOST_TICKS, HOST_CKPT_AT, HOST_RELOAD_TICKS = 2048, 
 # store (a blob carries the live instances; a free slot comes back at the store's default)
 ASSET_ENTITIES, ASSET_BODIES, ASSET_TICKS = 2048, 64, 60
 ASSET_PRESENT, ASSET_EDITOR_FRAMES, TUI_FRAMES = (480, 270), 30, 5
+# phase 14, the editor: the stress scene's entities and bodies, the scene view's render_text
+# size (a 160x90 image, SceneView's own), its playing frames before and after the layer edit,
+# the Runner ticks after the script (the bodies land, for K2's operands), the dry run's shards
+EDITOR_ENTITIES, EDITOR_BODIES = 2048, 64
+EDITOR_SCENE_TEXT, EDITOR_PLAY_FRAMES, EDITOR_LAND_FRAMES = (160, 47), 2, 60
+EDITOR_DRYRUN_SHARDS = 2
 BLOB_UNCARRIED = ("modules.script.",)
 INSTANCE_ROWS = ("modules.renderer.mi_", "modules.renderer.culling.", "modules.renderer.prev_")
 DEVICE = "cuda:0"
@@ -575,6 +611,10 @@ def main() -> int:
     assets = run_asset_tier(dev, card)
     mark("phase 13")
 
+    # 14. the editor: EditorApp's key script and views on the card, card vs CPU, the dry run
+    editor = run_editor_tier(dev, card)
+    mark("phase 14")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -629,6 +669,7 @@ def main() -> int:
     k1_paths["present"] = present["k1"]
     k1_paths["host_tier"] = host["k1"]
     k1_paths["asset_tier"] = assets["k1"]
+    k1_paths["editor_tier"] = editor["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -650,6 +691,7 @@ def main() -> int:
     k2_shapes["scripts (empty)"] = [scripts["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["host tier"] = [host["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["asset tier"] = [assets["k2"][k] for k in ("W", "NB", "C")]
+    k2_shapes["editor tier"] = [editor["k2"][k] for k in ("W", "NB", "C")]
     piles = sim["piles"]
     log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
         f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
@@ -683,6 +725,8 @@ def main() -> int:
          "launches_present_views": present["view_launches"]["K1"],
          "launches_host_tier": host["launches"]["K1"],
          "launches_asset_tier": assets["launches"]["K1"],
+         "launches_editor_tier": editor["launches"]["K1"],
+         "launches_dryrun": editor["dryrun"]["launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -709,6 +753,9 @@ def main() -> int:
          "host_tier": host["k2"],
          "launches_asset_tier": assets["launches"]["K2"],
          "asset_tier": assets["k2"],
+         "launches_editor_tier": editor["launches"]["K2"],
+         "launches_dryrun": editor["dryrun"]["launches"]["K2"],
+         "editor_tier": editor["k2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -716,6 +763,7 @@ def main() -> int:
                            "banded_props": banded_props["launches"]["K2"]},
          "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
                             host["k2"]["max_abs_err"], assets["k2"]["max_abs_err"],
+                            editor["k2"]["max_abs_err"],
                             *(r["k2"]["max_abs_err"] for r in (*farms.values(),
                                                                *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
@@ -1614,6 +1662,351 @@ def run_asset_tier(dev, card):
         out["steps_s"] = {name: t - steps[k][1] for k, (name, t) in enumerate(steps[1:])}
         log(f"[13 time] the steps on the host's clock, s: "
             + ", ".join(f"{k} {v:.2f}" for k, v in out["steps_s"].items()))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- 14. the editor: EditorApp on the stress scene, its views, the scene view's frames, the
+# sharded step's dry run --
+
+
+def editor_rows(world):
+    """The host world as the editor edits it: entity rows, names and each
+    module's component records."""
+    import numpy as np
+
+    from lumixengine_tpu_torch.engine import serialize as ser
+
+    rows = {k: np.asarray(getattr(world, k)).copy()
+            for k in ("alive", "parent", "local_pos", "local_rot", "local_scale")}
+    rows["names"] = dict(world.names)
+    rows["components"] = {n: ser._dump_module_components(m) for n, m in world.modules.items()}
+    return rows
+
+
+def editor_script(path, data_dir, dev, ini):
+    """Phase 14's fixed key script through EditorApp.handle_key on the
+    .unv at `path`, opened as `python -m lumixengine_tpu_torch.editor.app
+    --world` opens it, on `dev`. Returns (app, record, times): `record` what
+    the card and the CPU must agree on (screens, host rows, the scene view's
+    states and paused images), `times` on the host's clock (ms)."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch import bridge
+    from lumixengine_tpu_torch.editor import app as editor_app
+    from lumixengine_tpu_torch.editor.commands import AddComponentCommand
+
+    UP, DOWN, LEFT, TAB, ENTER, ESC = 0x26, 0x28, 0x25, 9, 13, 27
+    rec = {"screens": [], "states": [], "images": []}
+    times = {"command": [], "undo": [], "redo": [], "render_text": [], "scene_frame": []}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def press(*keys, kind=None):
+        t0 = time.perf_counter()
+        for k in keys:
+            if isinstance(k, int):
+                app.handle_key(k)
+            else:
+                for ch in k:
+                    app.handle_key(0, ch)
+        sync()
+        if kind:
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+
+    def screen(label, width=100, height=28, keep=True):
+        t0 = time.perf_counter()
+        text = app.render_text(width, height)
+        sync()
+        times["render_text"].append((time.perf_counter() - t0) * 1e3)
+        if keep:
+            rec["screens"].append((label, text))
+        return text
+
+    def scene_frame(label):
+        """A scene view frame through render_text at the view's 160x90, its
+        state kept; a paused frame presented again for its image."""
+        sv = app.scene_view()
+        t0 = time.perf_counter()
+        app.render_text(EDITOR_SCENE_TEXT[0], EDITOR_SCENE_TEXT[1])
+        sync()
+        times["scene_frame"].append((time.perf_counter() - t0) * 1e3)
+        rec["states"].append((label, sv.runner().state))
+        if not sv.playing:
+            rec["images"].append((label, sv.frame()))
+
+    t0 = time.perf_counter()
+    app = editor_app.open_world(path, dev, settings_path=ini, data_dirs=(data_dir,))
+    times["open_s"] = time.perf_counter() - t0
+    world = app.world
+    screen("opened")
+    # select, a transform edit and a reflected property, a new entity destroyed
+    press(DOWN, DOWN, DOWN)
+    press(TAB, ENTER, "12.5", ENTER, kind="command")
+    press(TAB)
+    ents = app.entities()
+    app.sel = next(i for i, (e, _) in enumerate(ents) if world.get_entity_name(e) == "light0")
+    rows = app.prop_rows(app.selected_entity())
+    app.panel = "props"
+    app.prop_sel = next(i for i, (c, p, _v) in enumerate(rows) if (c, p) == ("point_light",
+                                                                              "intensity"))
+    press(ENTER, "3.5", ENTER, kind="command")
+    press(TAB)
+    press("n", kind="command")
+    app.sel = next(i for i, (e, _) in enumerate(app.entities())
+                   if world.get_entity_name(e) == "new entity")
+    press("x", kind="command")
+    screen("edited")
+    rec["rows_edited"] = editor_rows(world)
+    for _ in range(4):
+        press("u", kind="undo")
+    screen("undone")
+    for _ in range(4):
+        press("y", kind="redo")
+    screen("redone")
+    # a spline on the slab through the command stack, for the spline view
+    slab = world.find_by_name("slab")
+    app.stack.execute(AddComponentCommand(slab, "spline", points=[[0, 1, 0], [4, 1, 0],
+                                                                  [8, 2, 2]]))
+    # the views: 1 log, 2 assets, 3 profiler, 4 scene, 7 physics, 9 material, @ meta,
+    # , settings, . spline, D dock
+    press("1")
+    screen("log", keep=False)
+    press(ESC, "2")
+    screen("assets")
+    ab = app.asset_browser()
+    ab.filter = "box.fbx"
+    ab.sel = 0
+    press("@")
+    screen("meta")
+    press(ESC, ESC, "3")
+    screen("profiler", keep=False)
+    press(ESC, "4")
+    scene_frame("scene opened")
+    press("w", "w", "a", LEFT)
+    scene_frame("scene flown (dt = 0 step)")
+    press("g")
+    for i in range(EDITOR_PLAY_FRAMES):
+        scene_frame(f"playing {i + 1}")
+    press("g", ESC, "7")
+    screen("physics joints")
+    press("m", " ")           # the cursor's pair, layer 0 with layer 0: off
+    screen("physics layers")
+    press(ESC, "4", "g")
+    for i in range(EDITOR_PLAY_FRAMES):
+        scene_frame(f"playing after the layer edit {i + 1}")
+    press("g", ESC, "9")
+    screen("material")
+    press(ESC, ",")
+    screen("settings")
+    press(ESC, ".")
+    screen("spline")
+    press("a", "l", "l")
+    screen("spline edited")
+    press(ESC, "D")
+    screen("docked log", keep=False)
+    press("D", "D")
+    t0 = time.perf_counter()
+    app.render_text(100, 40)            # the scene docked under the main view
+    sync()
+    times["render_text"].append((time.perf_counter() - t0) * 1e3)
+    press("D")
+    screen("dock closed")
+    rec["rows"] = editor_rows(world)
+    rec["states"] = [(label, bridge.state_to_numpy(s)) for label, s in rec["states"]]
+    rec["layer_matrix"] = np.asarray(world.modules["physics"].system.layer_matrix).copy()
+    return app, rec, times
+
+
+def editor_gap(got, ref):
+    """Card (`got`) against CPU (`ref`) records of editor_script: the
+    screens equal, the host rows equal (their floats within BODY_POS_ATOL:
+    the bodies' rows come back from the device when the scene view rebuilds
+    its step), the paused images within SOFT_LEVELS, the
+    scene view's states within phase 12's tolerances (state_gap: bodies
+    BODY_POS_ATOL and BODY_VEL_ATOL, its exact fields equal). Returns the
+    readings; raises on a difference."""
+    import numpy as np
+
+    from lumixengine_tpu_torch.models import physics_scenes as PS
+
+    if [s for s, _t in got["screens"]] != [s for s, _t in ref["screens"]]:
+        raise AssertionError("editor: the screens' sequence differs")
+    unequal = [label for (label, a), (_l, b) in zip(got["screens"], ref["screens"]) if a != b]
+    rows, row_err = [], 0.0
+    for key in ("rows_edited", "rows"):
+        for k, a in ref[key].items():
+            b = got[key][k]
+            if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+                # the bodies' rows come back from the device when the step is rebuilt
+                d = float(np.abs(a - b).max(initial=0.0))
+                row_err = max(row_err, d)
+                same = d <= BODY_POS_ATOL
+            else:
+                same = (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+            if not same:
+                rows.append(f"{key}.{k}")
+    img = max((int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+               for (_l, a), (_m, b) in zip(got["images"], ref["images"])), default=0)
+    errs, breaks = {}, []
+    for (label, g), (_l, r) in zip(got["states"], ref["states"]):
+        e, broke, _woke = PS.state_gap(g, r, BODY_POS_ATOL, BODY_VEL_ATOL, sleep_flips=True)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        if broke is not None:
+            breaks.append((label, broke))
+    if not np.array_equal(got["layer_matrix"], ref["layer_matrix"]):
+        rows.append("layer_matrix")
+    out = {"screens": len(got["screens"]), "screens_unequal": unequal, "rows_unequal": rows,
+           "row_err": row_err,
+           "images": len(got["images"]), "image_gap": img, "states": len(got["states"]),
+           "errs": {k: float(f"{v:.3g}") for k, v in errs.items() if v}, "breaks": breaks}
+    if unequal or rows or img > SOFT_LEVELS or breaks:
+        raise AssertionError(f"editor, card vs CPU: {out}")
+    return out
+
+
+def run_editor_tier(dev, card):
+    """Phase 14: phase 12's stress scene (models/host_scenes.py, EDITOR_ENTITIES
+    entities, EDITOR_BODIES bodies, the pruned branch) written as a .unv
+    beside the assets phase 13 writes, opened by the editor as
+    `python -m lumixengine_tpu_torch.editor.app --world` opens it, on the
+    card; editor_script's keys (edits, create, destroy, undo and redo each,
+    every view, the scene view's paused dt = 0 frame and playing frames, a
+    physics-view layer edit then play, docking), the launch counts set to 0
+    just before and read just after; the world saved back as .unv and
+    reloaded (its export equal to the edited world's); the same script on
+    the CPU against the card (editor_gap); EDITOR_LAND_FRAMES more ticks on
+    the card so that the bodies rest, then K1 and K2 against their plain
+    versions on the path's own operands; and parallel/dryrun.py with
+    EDITOR_DRYRUN_SHARDS shards on the card with its gap. Returns the
+    launch counts, K1's check, K2's record and the dry run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lumixengine_tpu_torch.editor import app as editor_app
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.importers import instantiate as inst_mod
+    from lumixengine_tpu_torch.importers import unv_write as UW
+    from lumixengine_tpu_torch.models import asset_scenes as A
+    from lumixengine_tpu_torch.models import host_scenes as H
+    from lumixengine_tpu_torch.parallel import dryrun
+
+    dev = torch.device(dev)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="editor_tier_")
+    try:
+        A.write_assets(tmp)
+        H.write_stress_nav(tmp)
+        path = os.path.join(tmp, "stress.unv")
+        UW.save_unv(H.stress_scene(entities=EDITOR_ENTITIES, bodies=EDITOR_BODIES), path)
+        # 1. the key script on the card
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        ini = os.path.join(tmp, "editor.ini")       # read if present; the script writes none
+        app, rec, times = editor_script(path, tmp, dev, ini)
+        script_s = time.perf_counter() - t0
+        launches = _launches()
+        world, pm = app.world, app.world.modules["physics"]
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in _float_tensors(app.scene_view().runner().state))
+
+        def med(xs):
+            xs = sorted(xs)
+            return f"{xs[len(xs) // 2]:.3f} (min {xs[0]:.3f}, max {xs[-1]:.3f}, n {len(xs)})"
+
+        # 2. the same script on the CPU, against the card (before anything is written
+        # into the data dir the asset browser lists)
+        t0 = time.perf_counter()
+        _capp, crec, _ctimes = editor_script(path, tmp, torch.device("cpu"), ini)
+        cpu_s = time.perf_counter() - t0
+        gap = editor_gap(rec, crec)
+        log(f"[14 cpu] the same key script on the CPU ({cpu_s:.2f} s): {gap['screens']} screens "
+            f"equal string for string, host rows equal (floats within {gap['row_err']:.3g}), "
+            f"{gap['images']} paused images within "
+            f"{gap['image_gap']} u8 levels (limit {SOFT_LEVELS}), {gap['states']} scene view "
+            f"states: max abs err {gap['errs']} (bodies {BODY_POS_ATOL:g} m / "
+            f"{BODY_VEL_ATOL:g} m/s)")
+        out["cpu"] = gap
+        del _capp, crec
+        # 3. save back as .unv and reload it
+        app.save_path = os.path.join(tmp, "edited.unv")
+        t0 = time.perf_counter()
+        app.handle_key(0, "s")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = editor_app.open_world(app.save_path, dev, settings_path=os.path.join(tmp, "r.ini"),
+                                      data_dirs=(tmp,))
+        reload_s = time.perf_counter() - t0
+        exports = []
+        for inst in (app.scene_inst, again.scene_inst):
+            sc = inst_mod.export_scene(inst)
+            sc.pop("_export_new_entities")
+            sc.pop("_export_new_components")
+            exports.append(sc)
+        diff = H.scene_diff(exports[1], exports[0])
+        counts = (world.entity_count, again.world.entity_count)
+        names = sorted(world.names.values()) == sorted(again.world.names.values())
+        # the bodies come to rest (the Runner's ticks, no present), for K2's operands
+        r = app.scene_view().runner()
+        _zero_launches()
+        for _ in range(EDITOR_LAND_FRAMES):
+            r.tick()
+        torch.cuda.synchronize()
+        land = _launches()
+        launches = {k: v + land[k] for k, v in launches.items()}
+        log(f"[14 editor] {card}: EditorApp on stress.unv ({EDITOR_ENTITIES} entities, "
+            f"{EDITOR_BODIES} bodies) on {app.device}: opened in {times['open_s']:.3f} s; the key "
+            f"script in {script_s:.2f} s (host clock, a sync after each key): render_text "
+            f"{med(times['render_text'])} ms; scene view frame() at "
+            f"{EDITOR_SCENE_TEXT[0]}x{2 * (EDITOR_SCENE_TEXT[1] - 2)} {med(times['scene_frame'])} "
+            f"ms; a command {med(times['command'])} ms, an undo {med(times['undo'])} ms, a redo "
+            f"{med(times['redo'])} ms; saved as .unv in {save_s:.3f} s "
+            f"({os.path.getsize(app.save_path)} bytes), reloaded in {reload_s:.3f} s: export "
+            f"against the edited world's, first difference {diff}, entities {counts[0]} and "
+            f"{counts[1]}, names equal {names}; then {EDITOR_LAND_FRAMES} Runner ticks; launches over the phase "
+            f"{launches}; finite {finite}; status '{app.status}'")
+        if diff is not None or counts[0] != counts[1] or not names or not finite or not (launches["K1"] > 0
+                                                              and launches["K2"] > 0):
+            raise AssertionError(f"editor tier: export diff {diff}, entities {counts}, finite "
+                                 f"{finite}, launches {launches}")
+        out.update(launches=launches, save_s=save_s, reload_s=reload_s, times=times,
+                   script_s=script_s)
+        del again
+        # 4. K1 and K2 on the path's own operands
+        st = r.state
+        out["k1"] = k1_on_state("14 editor tier", world, st)
+        out["k2"] = k2_on_state(pm, map_tensors(lambda t: t[None], st), "the editor tier")
+        log(f"[14 K2] {card}: on the path's contact set W={out['k2']['W']} NB={out['k2']['NB']} "
+            f"C={out['k2']['C']} active {out['k2']['active']}: max abs err vs plain "
+            f"{out['k2']['max_abs_err']:.3e}, {out['k2']['ms']:.4f} ms (plain "
+            f"{out['k2']['plain_ms']:.4f} ms, bound {out['k2']['bound_ms']:.6f} ms over "
+            f"{out['k2']['bytes']} bytes, share {out['k2']['share_of_bound']:.4f})")
+        del app, r
+        # 5. the sharded step's dry run on the card
+        torch.cuda.synchronize()
+        _zero_launches()
+        dry = {}
+        t0 = time.perf_counter()
+        rc = dryrun.main(EDITOR_DRYRUN_SHARDS, dev, out=dry)
+        torch.cuda.synchronize()
+        dry.update(s=time.perf_counter() - t0, launches=_launches())
+        log(f"[14 dryrun] {card}: parallel/dryrun.py with {EDITOR_DRYRUN_SHARDS} shards over "
+            f"{dry['devices']} ({torch.cuda.device_count()} card(s): "
+            f"{'the card repeated' if torch.cuda.device_count() < EDITOR_DRYRUN_SHARDS else 'a card each'}"
+            f") in {dry['s']:.2f} s: rc {rc}, visible_total {dry['visible_total']} equal to the "
+            f"unsharded step's, position gap {dry['pos_gap']:.3e} (limit "
+            f"{dryrun.CARD_POS_ATOL:g}); launches {dry['launches']}")
+        if rc != 0:
+            raise AssertionError(f"dry run rc {rc}")
+        out["dryrun"] = dry
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2872,8 +3265,9 @@ def _runs(xs):
 def run_banded_props(dev, card):
     """The banded props level: BANDED_PROPS_HULLS random hulls over the SDF
     slab and the ground at as many actor slots (`auto` picks the banded
-    branch), BANDED_PROPS_STEPS steps at W=1 with the window certificate of
-    every step, then the JAX pile test's bounds hull by hull
+    branch), BANDED_PROPS_STEPS steps at W=1 (BANDED_PROPS_STEPS_CUT in the
+    whole script) with the window certificate of every step, then the JAX
+    pile test's bounds hull by hull (read at the cut depth, held at the full)
     (physics_scenes.check_banded_props: at most BANDED_PROPS_UNSETTLED
     hulls with a velocity component of 0.8 m/s or a vertex 2 cm deep in the
     ground or the slab), the device time of the banded polytope SAT and
@@ -2893,12 +3287,13 @@ def run_banded_props(dev, card):
         raise AssertionError("the banded props level did not take the banded branch")
     step = sc.engine.build_step(sc.world, dev)
     state = PS.start_state(sc, dev)
+    n_steps = PS.BANDED_PROPS_STEPS if FULL_DEPTH else BANDED_PROPS_STEPS_CUT
     misses = []
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     _zero_launches()
     t0 = time.perf_counter()
-    for i in range(PS.BANDED_PROPS_STEPS):
+    for i in range(n_steps):
         if i == WARM_FRAMES:
             ev0.record()
         state = step(state, DT)
@@ -2906,7 +3301,7 @@ def run_banded_props(dev, card):
     ev1.record()
     torch.cuda.synchronize()
     wall, launches = time.perf_counter() - t0, _launches()
-    ms = ev0.elapsed_time(ev1) / (PS.BANDED_PROPS_STEPS - WARM_FRAMES)
+    ms = ev0.elapsed_time(ev1) / (n_steps - WARM_FRAMES)
     misses = torch.stack(misses).cpu().tolist()
     phys = state.modules["physics"]
     d = st.on(dev, pm.system)
@@ -2927,14 +3322,17 @@ def run_banded_props(dev, card):
         rk(phys.pos), rk(phys.rot), rk(d.poly_verts), rk(d.poly_axes), rk(d.poly_rad), K, k)),
         "SDF streams": layer_time(lambda: pm._sdf_streams(st, d, phys.pos, phys.rot))}
     log(f"[7 banded props] {card}: {BANDED_PROPS_HULLS} hulls at {st.nb} actor slots over the SDF "
-        f"slab, window {PS.BANDED_PROPS_WINDOW}, {PS.BANDED_PROPS_STEPS} steps at W=1 in {wall:.2f} s "
+        f"slab, window {PS.BANDED_PROPS_WINDOW}, {n_steps} steps at W=1 in {wall:.2f} s "
         f"({ms:.3f} ms/step = {BANDED_PROPS_HULLS / (ms / 1e3):.4g} body-steps/s), {n_ops} torch "
         f"ops/step, launches {launches}; the JAX test's bounds hull by hull: {checks} (at most "
-        f"{BANDED_PROPS_UNSETTLED} unsettled)")
+        f"{BANDED_PROPS_UNSETTLED} unsettled"
+        + (")" if FULL_DEPTH else f" after {PS.BANDED_PROPS_STEPS} steps, held by "
+           f"tools/sim_tier.py; here the readings at the cut depth)"))
     log(f"[7 banded props] window certificate (sap_window_miss) of each step: {_runs(misses)}; "
         f"summed {sum(misses)}")
     log(f"[7 banded props] {card}: {_show_layers(layers)}")
-    PS.check_banded_props(sc, pos, vel, pen, unsettled_max=BANDED_PROPS_UNSETTLED)
+    if FULL_DEPTH:
+        PS.check_banded_props(sc, pos, vel, pen, unsettled_max=BANDED_PROPS_UNSETTLED)
     if launches != {"K1": 0, "K2": 0}:
         raise AssertionError(f"the banded branch launched {launches}")
 
@@ -3097,10 +3495,11 @@ def run_pile_steps(dev, card):
     """The stand-alone steps on the elongated pile (physics_scenes.elongated_pile
     at PILE_BOXES boxes): make_big_world_step and make_banded_world_step
     (4 sweeps, warm start) at test_box_drop_statistics's settings for
-    PILE_FALL_STEPS + PILE_SETTLE_STEPS steps, each step's window
-    certificate summed on the card, that test's gates
-    (physics_scenes.check_box_drop), exact_window_miss on the banded end
-    state (0); then make_banded_world_step on box_drop_pile(10_000) at
+    PILE_FALL_STEPS + PILE_SETTLE_STEPS steps (PILE_SETTLE_STEPS_CUT settle
+    steps in the whole script), each step's window certificate summed on
+    the card, that test's gates (physics_scenes.check_box_drop; the free-fall
+    gate alone at the cut depth), exact_window_miss on the banded end state
+    (0); then make_banded_world_step on box_drop_pile(10_000) at
     window BANDED_WINDOW for BANDED10K_STEPS steps, its certificate and
     exact_window_miss (both 0). Each: ms/step, body-steps/s, torch ops a
     step; 3 steps card vs CPU at W=2 on the pile at PILE_COMPARE_BOXES boxes
@@ -3166,13 +3565,24 @@ def run_pile_steps(dev, card):
 
     nb = PILE_BOXES
     tables = PS.box_pile_tables(nb)
+    settle = PS.PILE_SETTLE_STEPS if FULL_DEPTH else PILE_SETTLE_STEPS_CUT
     for kind in ("dynamic", "banded"):
         step, carry = make(kind, nb)
-        state, carry, vx_fall, r = run(kind, step, pile(nb), carry,
-                                       PS.PILE_FALL_STEPS + PS.PILE_SETTLE_STEPS, nb,
-                                       fall=PS.PILE_FALL_STEPS)
-        r["gates"] = PS.check_box_drop(kind, vx_fall.cpu().numpy(), state[0].cpu().numpy(),
-                                       state[2].cpu().numpy(), state[3].cpu().numpy(), r["miss"])
+        state, carry, vx_fall, r = run(kind, step, pile(nb), carry, PS.PILE_FALL_STEPS + settle,
+                                       nb, fall=PS.PILE_FALL_STEPS)
+        if FULL_DEPTH:
+            r["gates"] = PS.check_box_drop(kind, vx_fall.cpu().numpy(), state[0].cpu().numpy(),
+                                           state[2].cpu().numpy(), state[3].cpu().numpy(),
+                                           r["miss"])
+        else:
+            # the settle gates need the full count (tools/sim_tier.py): the fall gate here
+            y = state[0][1]
+            r["gates"] = {"vx_sum_fall": float(vx_fall.sum().abs()), "lowest": float(y.min()),
+                          "highest": float(y.max()), "miss": r["miss"],
+                          "settle gates": f"after {PS.PILE_SETTLE_STEPS} settle steps, "
+                                          "tools/sim_tier.py"}
+            if not r["gates"]["vx_sum_fall"] < PS.PILE_VX_SUM_MAX:
+                raise AssertionError(f"{kind} pile, free fall: {r['gates']}")
         if kind == "banded":
             r["exact_window_miss"] = exact_miss(state[0], state[1], tables,
                                                 PS.PILE_STEP["neighbors"])
@@ -3184,7 +3594,7 @@ def run_pile_steps(dev, card):
         r["gpu_vs_cpu"], r["held"] = _pile_gpu_vs_cpu(step, cmp, carry, dev)
         log(f"[10 pile] {card}: make_{'big' if kind == 'dynamic' else 'banded'}_world_step, "
             f"{nb} boxes, window {PS.PILE_STEP['neighbors']}, "
-            f"{PS.PILE_FALL_STEPS + PS.PILE_SETTLE_STEPS} steps in {r['wall']:.2f} s: "
+            f"{PS.PILE_FALL_STEPS + settle} steps in {r['wall']:.2f} s: "
             f"{r['ms']:.3f} ms/step = {r['rate']:.4g} body-steps/s, {r['ops']} torch ops/step, "
             f"launches {r['launches']}, certificate summed {r['miss']}"
             + (f", exact_window_miss {r['exact_window_miss']}" if kind == "banded" else "")
@@ -3219,7 +3629,7 @@ def run_banded_farm(dev, card):
     """The banded branch batched over worlds: the banded farm
     (physics_scenes.mixed_pile at BANDED_FARM_ACTORS actors, which `auto`
     takes to the banded branch) at each width of FARM_WIDTHS for
-    BANDED_FARM_STEPS steps: ms/step, body-steps/s, torch ops a step (equal
+    BANDED_FARM_STEPS steps (BANDED_FARM_STEPS_CUT in the whole script): ms/step, body-steps/s, torch ops a step (equal
     within 2% across the widths: one pass over the batch), the window
     certificate summed (0), the blow-up gates on every world (the piles are
     still landing at BANDED_FARM_STEPS: physics_scenes.check_pile, not
@@ -3235,6 +3645,7 @@ def run_banded_farm(dev, card):
         raise AssertionError("the banded farm did not take the banded branch")
     step = sc.engine.build_step(sc.world, dev)
     out = {}
+    n_steps = BANDED_FARM_STEPS if FULL_DEPTH else BANDED_FARM_STEPS_CUT
     for w in FARM_WIDTHS:
         state = PS.replicate_scene(sc.world.device_state(dev), w, seed=8)
         miss = torch.zeros(w, dtype=torch.int32, device=dev)
@@ -3242,7 +3653,7 @@ def run_banded_farm(dev, card):
         torch.cuda.synchronize()
         _zero_launches()
         t0 = time.perf_counter()
-        for i in range(BANDED_FARM_STEPS):
+        for i in range(n_steps):
             if i == WARM_FRAMES:
                 ev0.record()
             state = step(state, DT)
@@ -3250,7 +3661,7 @@ def run_banded_farm(dev, card):
         ev1.record()
         torch.cuda.synchronize()
         wall, launches = time.perf_counter() - t0, _launches()
-        ms = ev0.elapsed_time(ev1) / (BANDED_FARM_STEPS - WARM_FRAMES)
+        ms = ev0.elapsed_time(ev1) / (n_steps - WARM_FRAMES)
         _, n_ops = count_ops(lambda: step(state, DT))
         ph = state.modules["physics"]
         gates = PS.check_pile(ph.pos.cpu().numpy(), ph.vel.cpu().numpy(),
@@ -3259,7 +3670,7 @@ def run_banded_farm(dev, card):
         r = {"ms": ms, "rate": w * PS.BANDED_FARM_ACTORS / (ms / 1e3), "ops": n_ops,
              "miss": int(miss.sum()), "launches": launches}
         log(f"[10 farm] {card}: the banded farm, {PS.BANDED_FARM_ACTORS} actors a world at W={w}, "
-            f"{BANDED_FARM_STEPS} steps in {wall:.2f} s: {ms:.3f} ms/step = {r['rate']:.4g} "
+            f"{n_steps} steps in {wall:.2f} s: {ms:.3f} ms/step = {r['rate']:.4g} "
             f"body-steps/s, {n_ops} torch ops/step, launches {launches}, certificate summed "
             f"{r['miss']}, active contacts at the end {int(ph.counters['active_contacts'].sum())}; "
             f"gates {gates}")

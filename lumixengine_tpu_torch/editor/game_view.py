@@ -90,7 +90,11 @@ class GameView:
 
     def game_camera(self) -> int:
         rmod = self.world.modules.get("renderer")
-        return int(getattr(rmod, "active_camera", 0) or 0)
+        cam = int(getattr(rmod, "active_camera", 0) or 0)
+        # its camera-store slot: an entity id below the store's capacity
+        # would be read as a slot
+        slot = rmod.cameras.slot_of(cam) if rmod is not None else -1
+        return slot if slot >= 0 else cam
 
     # -- frame -----------------------------------------------------------------
 

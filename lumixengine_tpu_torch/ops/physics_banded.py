@@ -323,7 +323,7 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
         deg_b = banded_pair_data(s_deg, K)
         c["p_relax"] = torch.clamp_max(1.6 / torch.clamp_min(
             torch.maximum(s_deg[..., None, None, :], deg_b[..., None, :, :]), 1.0), relaxation)
-        c["p_bias"] = (baumgarte / dt) * torch.clamp_min(sw["p_depth"] - slop, 0.0)
+        c["p_bias"] = P.baumgarte_bias(baumgarte, dt, sw["p_depth"], slop)
         if "g_active" in sw:
             c["g_r"] = sw["g_point"] - s_pos[..., :, None, :]
             c["g_t1"], c["g_t2"] = _tangents0(sw["g_normal"], -3)
@@ -334,7 +334,7 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
                                          1e-9)
             c["g_relax"] = torch.clamp_max(1.6 / torch.clamp_min(s_deg[..., None, :], 1.0),
                                            relaxation)
-            c["g_bias"] = (baumgarte / dt) * torch.clamp_min(sw["g_depth"] - slop, 0.0)
+            c["g_bias"] = P.baumgarte_bias(baumgarte, dt, sw["g_depth"], slop)
         consts.append(c)
 
     def rel_vels(c, v_r, w_r):

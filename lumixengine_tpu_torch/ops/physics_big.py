@@ -149,7 +149,7 @@ def solve_contacts_dynamic(pos, vel, angvel, inv_mass_arr, iiw, point, normal, d
     k_n = torch.clamp_min(im_a + im_b + ang_term(r_a, n, II_a) + ang_term(r_b, n, II_b), 1e-9)
     k_t1 = torch.clamp_min(im_a + im_b + ang_term(r_a, t1, II_a) + ang_term(r_b, t1, II_b), 1e-9)
     k_t2 = torch.clamp_min(im_a + im_b + ang_term(r_a, t2, II_a) + ang_term(r_b, t2, II_b), 1e-9)
-    bias = (baumgarte / dt) * torch.clamp_min(depth - slop, 0.0)
+    bias = P.baumgarte_bias(baumgarte, dt, depth, slop)
     hb = has_b.unsqueeze(-2)
 
     def rel_vel(v, w):

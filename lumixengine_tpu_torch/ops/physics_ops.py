@@ -370,6 +370,20 @@ def concat_contacts(a: Contacts, b: Contacts) -> Contacts:
     )
 
 
+def baumgarte_bias(baumgarte: float, dt, depth, slop: float):
+    """The contact's Baumgarte velocity target, (baumgarte / dt) ·
+    max(depth - slop, 0), and 0 at dt = 0 (a paused step, as the editor's
+    scene view takes, moves no body; the reference's inf · 0 there is NaN).
+    For dt > 0 the same operations as the reference's, bit for bit."""
+    if not isinstance(dt, torch.Tensor):
+        if dt > 0:
+            return (baumgarte / dt) * torch.clamp_min(depth - slop, 0.0)
+        return torch.zeros_like(depth)
+    live = dt > 0
+    bias = (baumgarte / torch.where(live, dt, 1.0)) * torch.clamp_min(depth - slop, 0.0)
+    return torch.where(live, bias, 0.0)
+
+
 def orthonormal_tangents(n):
     """Two tangent directions per contact from normals [..., 3, C]."""
     nx, ny, nz = lm.unstack(n, AX)

@@ -104,7 +104,7 @@ def prologue(pos, vel, angvel, contacts: P.Contacts, inv_mass, inv_inertia_world
     k_n = torch.clamp_min(im_a + im_b + ang_term(r_a, n, II_a) + ang_term(r_b, n, II_b), 1e-9)
     k_t1 = torch.clamp_min(im_a + im_b + ang_term(r_a, t1, II_a) + ang_term(r_b, t1, II_b), 1e-9)
     k_t2 = torch.clamp_min(im_a + im_b + ang_term(r_a, t2, II_a) + ang_term(r_b, t2, II_b), 1e-9)
-    bias = (baumgarte / dt) * torch.clamp_min(contacts.depth - slop, 0.0)
+    bias = P.baumgarte_bias(baumgarte, dt, contacts.depth, slop)
     va = P.take_vecs(vel, ba) + lm.cross(P.take_vecs(angvel, ba), r_a, axis=AX)
     vb = (torch.where(hasb3, P.take_vecs(vel, bb), 0.0)
           + lm.cross(torch.where(hasb3, P.take_vecs(angvel, bb), 0.0), r_b, axis=AX))

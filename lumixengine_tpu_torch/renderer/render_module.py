@@ -98,6 +98,9 @@ class RenderModule(IModule):
             "fov": ((), np.float32, 2.0 * np.pi),
             "attenuation": ((), np.float32, 1.0),
         })
+        # the first camera created (an entity id; -1: none), as the editor's
+        # scene and game views read it
+        self.active_camera = -1
         self.env_entity = -1
         self.env_color = np.ones(3, np.float32)
         self.env_intensity = np.float32(1.0)
@@ -176,6 +179,8 @@ class RenderModule(IModule):
             self.culling.add(entity, self.system.models.get(mid).bounding_radius)
         elif ctype == "camera":
             self.cameras.add(entity, **props)
+            if self.active_camera < 0:
+                self.active_camera = entity
         elif ctype == "point_light":
             self.point_lights.add(entity, **props)
         elif ctype == "environment":
@@ -254,6 +259,8 @@ class RenderModule(IModule):
             self.culling.remove(entity)
         elif ctype == "camera":
             self.cameras.remove(entity)
+            if self.active_camera == entity:
+                self.active_camera = -1
         elif ctype == "point_light":
             self.point_lights.remove(entity)
         elif ctype == "environment":

@@ -898,3 +898,39 @@ def test_asset_world_kernels_on_the_card(cuda, tmp_path, entities, bodies):
         cpu.use_world(runner.world)
         cpu.state = map_tensors(lambda x: x.cpu(), state)
         _present_limits(out, gpu_tpu.TpuPresent(240, 136)(cpu))
+
+
+def test_editor_path_and_dry_run_on_the_card(cuda, tmp_path):
+    """Phase 14's path at test size: the stress scene (512 entities, 32
+    bodies) written as a .unv beside the assets of phase 13, opened by
+    EditorApp on the card; chip_smoke.editor_script's keys (every view, the
+    scene view's dt = 0 and playing frames around a physics-view layer
+    edit) with K1 and K2 launching; the same script on the CPU held to the
+    card's by chip_smoke.editor_gap (equal screens and host rows, paused
+    images within 2 u8 levels, states within the step tolerances); then
+    parallel/dryrun.py with 2 shards on the card within its limit."""
+    import chip_smoke as C
+    from lumixengine_tpu_torch.importers.unv_write import save_unv
+    from lumixengine_tpu_torch.models import asset_scenes as A
+    from lumixengine_tpu_torch.models import host_scenes as H
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import solver as S
+    from lumixengine_tpu_torch.parallel import dryrun
+
+    data = str(tmp_path)
+    A.write_assets(data)
+    H.write_stress_nav(data)
+    path = str(tmp_path / "stress.unv")
+    save_unv(H.stress_scene(entities=512, bodies=32, agents=8), path)
+    ini = str(tmp_path / "editor.ini")
+    k1, k2 = cull.frustum_cull_cuda.launches, S.solve_cuda.launches
+    app, rec, _times = C.editor_script(path, data, cuda, ini)
+    torch.cuda.synchronize()
+    assert app.device == cuda and app.scene_view().runner().device == cuda
+    assert cull.frustum_cull_cuda.launches > k1 and S.solve_cuda.launches > k2
+    _capp, crec, _ctimes = C.editor_script(path, data, torch.device("cpu"), ini)
+    gap = C.editor_gap(rec, crec)
+    assert gap["screens"] >= 10 and gap["states"] == 2 + 2 * C.EDITOR_PLAY_FRAMES
+    out = {}
+    assert dryrun.main(2, "cuda", out=out) == 0
+    assert out["pos_gap"] <= dryrun.CARD_POS_ATOL and out["visible_total"] > 0

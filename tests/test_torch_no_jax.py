@@ -15,6 +15,14 @@ SOURCES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(P
 SOURCES.append(ROOT / "chip_smoke.py")
 SOURCES.append(ROOT / "tools" / "host_tier.py")
 SOURCES.append(ROOT / "tools" / "asset_tier.py")
+SOURCES.append(ROOT / "tools" / "editor_tier.py")
+# the editor's host views and app, and the world sharding's dry run (the modules that joined
+# the package last)
+EDITOR_AND_SHARDING = [f"lumixengine_tpu_torch/editor/{m}.py" for m in (
+    "app", "asset_browser", "commands", "entity_folders", "gizmo", "log_ui", "material_editor",
+    "meta_editor", "physics_view", "profiler_ui", "scene_view", "settings_ui",
+    "spline_editor")] + ["lumixengine_tpu_torch/parallel/mesh.py",
+                         "lumixengine_tpu_torch/parallel/dryrun.py"]
 
 
 def _imported_roots(path: Path):
@@ -41,7 +49,13 @@ def test_the_scan_sees_the_package():
     assert "lumixengine_tpu_torch/importers/fbx.py" in names
     assert "lumixengine_tpu_torch/core/os_terminal.py" in names
     assert "lumixengine_tpu_torch/editor/game_view.py" in names
+    assert "tools/editor_tier.py" in names
     assert len(names) >= 20
+
+
+@pytest.mark.parametrize("name", EDITOR_AND_SHARDING)
+def test_the_scan_sees_the_editor_and_the_sharding(name):
+    assert name in {p.relative_to(ROOT).as_posix() for p in SOURCES}
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
