@@ -106,7 +106,7 @@ Phases, each printed on its own line:
      heightfield, vehicles, queries) and 3 frames card vs CPU; and the
      banded props level, 1,024 random hulls in the JAX pile test's stacks
      of five over an SDF slab and the ground at 1,024 actor slots (`auto`
-     picks the banded branch), BANDED_PROPS_STEPS_CUT (60) steps at W=1
+     picks the banded branch), BANDED_PROPS_STEPS_CUT (30) steps at W=1
      with every step's window certificate printed and that test's settle
      readings hull by hull (the bounds, at most BANDED_PROPS_UNSETTLED hulls
      outside them, are held after the full 360 steps by tools/sim_tier.py
@@ -136,12 +136,12 @@ Phases, each printed on its own line:
      device-busy share, 3 frames card vs CPU at W=4); make_big_world_step and make_banded_world_step (4
      sweeps, warm start) on the elongated 4,096-box pile of
      tests/test_parity.py::test_box_drop_statistics at its settings for
-     60 steps (20 falling, PILE_SETTLE_STEPS_CUT settling; the free-fall
+     40 steps (20 falling, PILE_SETTLE_STEPS_CUT settling; the free-fall
      gate, certificates summed: 0, exact_window_miss of the banded end
      state: 0, 3 steps card vs CPU at W=2 on a 512-box pile; the settle
      gates after the full 320 steps in tools/sim_tier.py), make_banded_world_step on box_drop_pile(10_000) at window 40
      for 40 steps (certificate and exact_window_miss: 0); the banded farm,
-     mixed_pile(512) under `auto` at W=1 and W=64 for 40 steps (60 alone; ops/step
+     mixed_pile(512) under `auto` at W=1 and W=64 for 20 steps (60 alone; ops/step
      equal within 2% across the widths, certificate 0, the blow-up gates,
      3 frames card vs CPU); the layered crowd, demo_scenes.layered_crowd_world(128) at
      W=1024 for 30 frames with the cull pass (K1 once a frame and bit for
@@ -215,6 +215,25 @@ Phases, each printed on its own line:
      bodies rest; parallel/dryrun.py with 2 shards on the card (the card
      repeated on one card), its summed visible_total equal to the unsharded
      step's and its position gap;
+  15. the JAX package's last surface (printed before phase 8's timings; alone:
+     tools/surface_tier.py): the flagship at 1024 worlds, its bodies piled,
+     SURFACE_FRAMES frames under each PhysicsModule solver_backend (auto and
+     pallas launch K2 once a frame, jnp runs the reference's jnp solve and
+     projection and launches it never), ms a frame, the jnp state's gap to
+     auto after the first frame (within SURFACE_JNP_ATOL) and after the
+     last (unbounded: the solves sum in other orders and the jnp projection
+     caps its push), K2 against its plain version on the phase's operands;
+     the slot step's classic tier (one sweep, no warm start, no mass
+     splitting, no sleeping, all four) for SURFACE_BOX_STEPS steps each from
+     the 10k-box drop's step-1200 state, every body finite and above the
+     ground, the certificates printed; propagate, propagate_indexed and
+     (on a uniform-scale hierarchy) propagate_doubling on the flagship's
+     hierarchy in entity order against propagate_plan; culling_system.cull
+     on the flagship's culled entities (K1 bit for bit with its plain
+     version); blend_palette and skin_points on the ybot-size character
+     over 16 animators against the host's formula; a flagship step with the
+     floating-point traps on, then one on a NaN velocity, which must raise
+     FloatingPointError naming the field;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -291,15 +310,17 @@ BANDED_PROPS_UNSETTLED = 3 * BANDED_PROPS_HULLS // 256
 # before its 3 steps, when the stacks are falling onto each other
 BANDED_PROPS_COMPARE = (20, 300, 60)
 LAYER_REPS = 10          # 20 before phase 13
-# The whole script runs three host-bound paths at a cut depth, to make room for phase 14: the
-# elongated piles' settle and the banded farm (phase 10), and the banded props level (phase 7).
+# The whole script runs three host-bound paths at a cut depth, to make room for phases 14 and
+# 15: the elongated piles' settle and the banded farm (phase 10), and the banded props level
+# (phase 7); the second cut (the props level 60 -> 30 steps, the settle and the farm 40 -> 20)
+# offsets phase 15's ~30 s.
 # At the cut depth it reads every certificate, the blow-up and fall gates and the readings; the
 # settle gates need the full counts, which the tools that run the paths alone set (FULL_DEPTH:
 # tools/sim_tier.py, its "props" run the banded props level)
 FULL_DEPTH = False
-PILE_SETTLE_STEPS_CUT = 40       # of physics_scenes.PILE_SETTLE_STEPS, 300
-BANDED_PROPS_STEPS_CUT = 60      # of physics_scenes.BANDED_PROPS_STEPS, 360
-BANDED_FARM_STEPS_CUT = 40       # of BANDED_FARM_STEPS
+PILE_SETTLE_STEPS_CUT = 20       # of physics_scenes.PILE_SETTLE_STEPS, 300
+BANDED_PROPS_STEPS_CUT = 30      # of physics_scenes.BANDED_PROPS_STEPS, 360
+BANDED_FARM_STEPS_CUT = 20       # of BANDED_FARM_STEPS
 # the headless demo tick (bench.py --config demo at headless_demo_world's default, ~2k entities;
 # bench.py's CLI default would build 10,240) at bench.py's default world count
 DEMO_ENTITIES, DEMO_WORLDS = 2048, 4096
@@ -349,6 +370,27 @@ ASSET_PRESENT, ASSET_EDITOR_FRAMES, TUI_FRAMES = (480, 270), 30, 5
 EDITOR_ENTITIES, EDITOR_BODIES = 2048, 64
 EDITOR_SCENE_TEXT, EDITOR_PLAY_FRAMES, EDITOR_LAND_FRAMES = (160, 47), 2, 60
 EDITOR_DRYRUN_SHARDS = 2
+# phase 15, the JAX package's last surface: the flagship's frames under each solver_backend
+# (from its bodies piled, so that contacts are active from the first frame) and the largest
+# body-state gap of "jnp" against "auto" after the first frame: K2's own limit against its
+# plain version, which the jnp solve equals on the CPU to ~1e-8 (the two part later: the jnp
+# projection caps a frame's push at 5 cm, K2's does not); the classic slot tiers' steps from
+# the 10k-box drop's step-1200 state (tests/data/boxes_step1200.npz); the skinned animators;
+# the skinned points against the host's 4-bone formula (metres)
+SURFACE_FRAMES = 30
+SURFACE_BACKENDS = ("auto", "pallas", "jnp")
+SURFACE_JNP_ATOL = 1e-4
+# propagate and propagate_indexed compose as propagate_plan does (bit for bit on the CPU);
+# pointer jumping groups the same composes otherwise: ulps of positions up to ~100 m
+SURFACE_DOUBLING_ATOL = 1e-3
+SURFACE_BOX_STEPS = 30
+SURFACE_SLOT_TIERS = {"n_sweeps=1": dict(n_sweeps=1), "warm_start=False": dict(warm_start=False),
+                      "mass_split=False": dict(mass_split=False),
+                      "sleeping=False": dict(sleeping=False),
+                      "all four": dict(n_sweeps=1, warm_start=False, mass_split=False,
+                                       sleeping=False)}
+SURFACE_ANIMATORS = 16
+SURFACE_SKIN_ATOL = 1e-4
 BLOB_UNCARRIED = ("modules.script.",)
 INSTANCE_ROWS = ("modules.renderer.mi_", "modules.renderer.culling.", "modules.renderer.prev_")
 DEVICE = "cuda:0"
@@ -615,6 +657,11 @@ def main() -> int:
     editor = run_editor_tier(dev, card)
     mark("phase 14")
 
+    # 15. the JAX package's last surface: solver_backend, the classic slot tier, the other
+    # propagations, culling_system.cull, skinning, the floating-point traps
+    surface = run_surface_tier(dev, card)
+    mark("phase 15")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -670,6 +717,7 @@ def main() -> int:
     k1_paths["host_tier"] = host["k1"]
     k1_paths["asset_tier"] = assets["k1"]
     k1_paths["editor_tier"] = editor["k1"]
+    k1_paths["surface_tier"] = surface["k1"]
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -692,6 +740,7 @@ def main() -> int:
     k2_shapes["host tier"] = [host["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["asset tier"] = [assets["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["editor tier"] = [editor["k2"][k] for k in ("W", "NB", "C")]
+    k2_shapes["surface tier"] = [surface["k2"][k] for k in ("W", "NB", "C")]
     piles = sim["piles"]
     log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
         f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
@@ -727,6 +776,7 @@ def main() -> int:
          "launches_asset_tier": assets["launches"]["K1"],
          "launches_editor_tier": editor["launches"]["K1"],
          "launches_dryrun": editor["dryrun"]["launches"]["K1"],
+         "launches_surface_tier": surface["launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -756,6 +806,9 @@ def main() -> int:
          "launches_editor_tier": editor["launches"]["K2"],
          "launches_dryrun": editor["dryrun"]["launches"]["K2"],
          "editor_tier": editor["k2"],
+         "launches_surface_tier": surface["launches"]["K2"],
+         "launches_surface_backends": surface["k2_backends"],
+         "surface_tier": surface["k2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -763,7 +816,7 @@ def main() -> int:
                            "banded_props": banded_props["launches"]["K2"]},
          "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
                             host["k2"]["max_abs_err"], assets["k2"]["max_abs_err"],
-                            editor["k2"]["max_abs_err"],
+                            editor["k2"]["max_abs_err"], surface["k2"]["max_abs_err"],
                             *(r["k2"]["max_abs_err"] for r in (*farms.values(),
                                                                *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
@@ -2010,6 +2063,329 @@ def run_editor_tier(dev, card):
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _body_gap(a, b):
+    """The largest gap between two physics states' body fields."""
+    return max(float((getattr(a, f) - getattr(b, f)).abs().max())
+               for f in ("pos", "rot", "vel", "angvel"))
+
+
+def _entity_order(t, slot_of):
+    """A slot-ordered Transform [..., c, N] in entity order."""
+    from lumixengine_tpu_torch.core.transform import Transform
+
+    return Transform(pos=t.pos.index_select(-1, slot_of), rot=t.rot.index_select(-1, slot_of),
+                     scale=t.scale.index_select(-1, slot_of))
+
+
+def _transform_gap(a, b):
+    return max(float((getattr(a, f) - getattr(b, f)).abs().max()) for f in ("pos", "rot", "scale"))
+
+
+def surface_backends(dev, world, engine, start):
+    """Phase 15's first part: SURFACE_FRAMES frames of the flagship from
+    `start` under each solver_backend, the launch counts set to 0 just
+    before each run and read just after; CUDA events over the frames after
+    the first. Returns {backend: {"first", "end", "ms", "launches"}}."""
+    import torch
+
+    rm, pm = world.modules["renderer"], world.modules["physics"]
+    step = engine.build_step(world, dev, extra=rm.cull_pass)
+    runs = {}
+    try:
+        for backend in SURFACE_BACKENDS:
+            pm.solver_backend = backend
+            torch.cuda.synchronize()
+            _zero_launches()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            first = step(start, DT)
+            ev0.record()
+            state = first
+            for _ in range(SURFACE_FRAMES - 1):
+                state = step(state, DT)
+            ev1.record()
+            torch.cuda.synchronize()
+            runs[backend] = {"first": first.modules["physics"], "end": state,
+                             "ms": ev0.elapsed_time(ev1) / (SURFACE_FRAMES - 1),
+                             "launches": _launches()}
+    finally:
+        pm.solver_backend = "auto"
+    return runs, step
+
+
+def run_surface_tier(dev, card):
+    """Phase 15: the JAX package's last public surface on the card.
+
+    1. The flagship (full_frame_world(N_ENTITIES, N_CHARACTERS, N_BODIES,
+       N_PARTICLES), the pruned branch) at WORLDS worlds with its bodies
+       piled (demo_scenes.pile_bodies), SURFACE_FRAMES frames under each
+       solver_backend: ms a frame, K2's launches (one a frame under auto
+       and pallas, none under jnp), the jnp state's largest body gap to
+       auto's after the first frame (held to SURFACE_JNP_ATOL) and after
+       the last (printed); K2 against its plain version on the end state's
+       contact set.
+    2. The slot step's classic tier (SURFACE_SLOT_TIERS) on the 10k-box
+       drop from its step-1200 state, SURFACE_BOX_STEPS steps each: ms a
+       step, the certificates, every body finite and above the ground.
+    3. propagate, propagate_indexed and, where hierarchy_is_uniform_scale
+       holds, propagate_doubling on the flagship batch's locals in entity
+       order against propagate_plan's globals: the gap and ms a call.
+    4. culling_system.cull on the renderer's culled entities at WORLDS
+       worlds under the world camera and a random view per world, the
+       launch counts set to 0 just before and read just after; K1 held bit
+       for bit to its plain version on the same operands.
+    5. blend_palette and skin_points on the ybot-size character
+       (models/asset_scenes.character_fbx through importers/fbx.to_model)
+       over SURFACE_ANIMATORS animators of random rigid bone transforms,
+       against gpu_soft.skin_points_dq_np on the host.
+    6. One flagship step with the floating-point traps on (it passes), then
+       one from a state with a NaN in a body's velocity: it must raise
+       FloatingPointError naming modules.physics.vel; any other exception
+       fails the phase.
+    Returns the launch counts over the parts that drive the path (1, 4 and
+    6), K1's check and K2's record."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.core import debug
+    from lumixengine_tpu_torch.core import host_math as hm
+    from lumixengine_tpu_torch.importers import fbx
+    from lumixengine_tpu_torch.models import asset_scenes as A
+    from lumixengine_tpu_torch.models.demo_scenes import (box_drop_pile, full_frame_world,
+                                                          pile_bodies)
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import hierarchy as hier
+    from lumixengine_tpu_torch.ops import skinning
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+    from lumixengine_tpu_torch.renderer import culling_system, pipeline
+    from lumixengine_tpu_torch.renderer.gpu_soft import skin_points_dq_np
+
+    dev = torch.device(dev)
+    launches = {"K1": 0, "K2": 0}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    out = {}
+    # 1. solver_backend
+    engine, world, *_ = full_frame_world(N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES)
+    rm, pm = world.modules["renderer"], world.modules["physics"]
+    if not pm.statics().pruned:
+        raise AssertionError("the flagship's physics is not on the pruned branch")
+    start = pile_bodies(replicate_state(world.device_state(dev), WORLDS,
+                                        torch.Generator(device=dev).manual_seed(15)))
+    runs, step = surface_backends(dev, world, engine, start)
+    for r in runs.values():
+        count(r["launches"])
+    gap1 = _body_gap(runs["jnp"]["first"], runs["auto"]["first"])
+    gap_end = _body_gap(runs["jnp"]["end"].modules["physics"], runs["auto"]["end"].modules["physics"])
+    gap_pallas = {b: _body_gap(r["end"].modules["physics"], runs["auto"]["end"].modules["physics"])
+                  for b, r in runs.items() if b == "pallas"}
+    active = int(runs["auto"]["first"].counters["active_contacts"].sum())
+    finite = all(bool(torch.isfinite(t).all()) for r in runs.values()
+                 for t in _float_tensors(r["end"].modules["physics"]))
+    k2_counts = {b: r["launches"]["K2"] for b, r in runs.items()}
+    log(f"[15 backends] {card}: the flagship at W={WORLDS}, bodies piled, {SURFACE_FRAMES} frames "
+        f"each: " + "; ".join(f"{b} {r['ms']:.3f} ms/frame (K1 {r['launches']['K1']}, K2 "
+                              f"{r['launches']['K2']} launches)" for b, r in runs.items())
+        + f"; active contacts in frame 1 {active}; jnp vs auto body gap after frame 1 {gap1:.3e} "
+        f"(limit {SURFACE_JNP_ATOL:g}), after frame {SURFACE_FRAMES} {gap_end:.3e} (no bound); "
+        f"pallas vs auto after frame {SURFACE_FRAMES} {gap_pallas}; finite {finite}")
+    expected = {b: 0 if b == "jnp" else SURFACE_FRAMES for b in SURFACE_BACKENDS}
+    if k2_counts != expected or not gap1 <= SURFACE_JNP_ATOL or not finite or active == 0:
+        raise AssertionError(f"solver_backend: K2 launches {k2_counts} (expected {expected}), jnp "
+                             f"gap {gap1}, finite {finite}, active {active}")
+    out["backends"] = {b: {"ms": r["ms"], "launches": r["launches"]} for b, r in runs.items()}
+    out["k2_backends"] = k2_counts
+    out["jnp_gap"] = {"frame 1": gap1, f"frame {SURFACE_FRAMES}": gap_end}
+    out["k2"] = k2_on_state(pm, runs["auto"]["end"], "the surface tier")
+    log(f"[15 K2] {card}: on the phase's contact set W={out['k2']['W']} NB={out['k2']['NB']} "
+        f"C={out['k2']['C']} active {out['k2']['active']}: max abs err vs plain "
+        f"{out['k2']['max_abs_err']:.3e} (limit 1e-4), {out['k2']['ms']:.4f} ms (plain "
+        f"{out['k2']['plain_ms']:.4f} ms, bound {out['k2']['bound_ms']:.4f} ms, share "
+        f"{out['k2']['share_of_bound']:.4f})")
+    del runs
+
+    # 3. the other propagations, in entity order
+    plan = world.plan
+    local = start.local
+    ref = hier.propagate_plan(local, plan)
+    slot_of = torch.as_tensor(world.to_slots(np.arange(world.capacity)).astype(np.int64),
+                              device=dev)
+    local_e, ref_e = _entity_order(local, slot_of), _entity_order(ref, slot_of)
+    parent = torch.as_tensor(world.parent.astype(np.int64), device=dev)
+    level_np, _idx = hier.compute_level_indices_host(world.parent)
+    level = torch.as_tensor(level_np, device=dev)
+    depth, uniform = world.max_depth, world.hierarchy_is_uniform_scale()
+    reach = 2 ** max(1, int(np.ceil(np.log2(max(depth, 1))))) - 1
+    fns = {"propagate": lambda: hier.propagate(local_e, parent, level, depth),
+           "propagate_indexed": lambda: hier.propagate_indexed(local_e, parent,
+                                                               world.level_indices)}
+    if uniform:
+        fns["propagate_doubling"] = lambda: hier.propagate_doubling(local_e, parent, depth)
+    props = {"propagate_plan": {"ms": cuda_time(lambda: hier.propagate_plan(local, plan), 5)}}
+    for name, fn in fns.items():
+        props[name] = {"gap": _transform_gap(fn(), ref_e), "ms": cuda_time(fn, 5)}
+    log(f"[15 hierarchy] {card}: the flagship's hierarchy at {list(local.pos.shape)} (max depth "
+        f"{depth}, {sum(len(i) for i in world.level_indices)} entities under a parent; uniform "
+        f"scale {uniform}, so propagate_doubling "
+        f"{'runs' if uniform else 'is not exact here and is not run'}; its rounds reach "
+        f"{reach} levels), in entity order against propagate_plan (limits {TRANSFORM_ATOL:g}, "
+        f"doubling {SURFACE_DOUBLING_ATOL:g}): "
+        + "; ".join(f"{n} gap {r['gap']:.3e}, {r['ms']:.4f} ms a call" if "gap" in r
+                    else f"{n} {r['ms']:.4f} ms a call" for n, r in props.items()))
+    limit = {"propagate": TRANSFORM_ATOL, "propagate_indexed": TRANSFORM_ATOL,
+             "propagate_doubling": SURFACE_DOUBLING_ATOL if reach >= depth else float("inf")}
+    bad = {n: r["gap"] for n, r in props.items() if "gap" in r and not r["gap"] <= limit[n]}
+    if bad:
+        raise AssertionError(f"propagations off propagate_plan beyond {limit}: {bad}")
+    out["hierarchy"] = props
+
+    # 4. culling_system.cull on the culled entities
+    rs = start.modules["renderer"]
+    cs = rs.culling
+    frustum, _c, _r = pipeline.cull_operands(start.replace(world=ref), rs, rm.statics())
+    plane_sets = {"world camera": frustum.planes.contiguous(),
+                  "random views": random_planes(WORLDS, dev)}
+    torch.cuda.synchronize()
+    _zero_launches()
+    vis = {k: culling_system.cull(cs, ref.pos, ref.scale, p) for k, p in plane_sets.items()}
+    torch.cuda.synchronize()
+    cull_launches = _launches()
+    count(cull_launches)
+    eidx = cs.entity.clamp_min(0).to(torch.int64)
+    lanes = eidx.unsqueeze(-2).expand(eidx.shape[:-1] + (3, eidx.shape[-1]))
+    centers = torch.gather(ref.pos, -1, lanes).contiguous()
+    radii = (cs.radius * torch.gather(ref.scale, -1, lanes).abs().amax(dim=-2)).contiguous()
+    live = cs.entity >= 0
+    mism, err, fracs = 0, 0.0, []
+    for k, p in plane_sets.items():
+        plain = cull.frustum_cull_plain(centers, radii, p) & live
+        mism += int((vis[k] != plain).sum())
+        err = max(err, max_err([vis[k].float()], [plain.float()]))
+        fracs.append(float(vis[k].float().mean()))
+    cam = plane_sets["world camera"]
+    cull_ms, plain_ms = alternate(
+        lambda: cull.frustum_cull_plain(centers, radii, cam) & live,
+        lambda: culling_system.cull(cs, ref.pos, ref.scale, cam), 5, 20)
+    per_world = int(live.reshape(-1, live.shape[-1])[0].sum())
+    log(f"[15 cull] {card}: culling_system.cull on {per_world} culled entities a world ({cs.entity.shape[-1]} store slots) at W={WORLDS}, world camera "
+        f"and random views {list(centers.shape)}: "
+        f"{mism} mismatches with K1's plain version on the same operands (visible fractions "
+        f"{[round(f, 4) for f in fracs]}); K1 launches {cull_launches['K1']} for 2 calls; "
+        f"{cull_ms:.4f} ms a call (the plain version's {plain_ms:.4f} ms)")
+    if mism or cull_launches["K1"] != len(plane_sets) or not 0.0 < fracs[0] < 1.0:
+        raise AssertionError(f"cull: {mism} mismatches, launches {cull_launches}, fractions "
+                             f"{fracs}")
+    out["k1"] = {"mismatches": mism, "max_abs_err": err, "shape": list(centers.shape)}
+    out["cull"] = {"ms": cull_ms, "plain_ms": plain_ms}
+
+    # 6. the floating-point traps
+    debug.enable_floating_point_traps(True)
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        clean = step(start, DT)
+        ph = clean.modules["physics"]
+        vel = ph.vel.clone()
+        vel[0, 0, 0] = float("nan")
+        planted = clean.replace(modules={**clean.modules, "physics": ph.replace(vel=vel)})
+        try:
+            step(planted, DT)
+        except FloatingPointError as e:
+            message = str(e)
+        else:
+            raise AssertionError("a step on a NaN velocity did not raise with the traps on")
+        torch.cuda.synchronize()
+        trap_launches = _launches()
+        count(trap_launches)
+    finally:
+        debug.enable_floating_point_traps(False)
+    log(f"[15 traps] {card}: a flagship step at W={WORLDS} with the traps on passed; a step from "
+        f"a NaN in body 0's velocity raised FloatingPointError: '{message[:160]}'; launches "
+        f"{trap_launches}")
+    if "modules.physics.vel" not in message:
+        raise AssertionError(f"the trap did not name the field: {message}")
+    del start, ref, local, local_e, ref_e, clean, planted, vis
+
+    # 2. the classic slot tier
+    z = np.load(os.path.join(GOLDEN_DIR, "boxes_step1200.npz"))
+    boxes = {}
+    for name, tier in SURFACE_SLOT_TIERS.items():
+        bstep, _init, consts = box_drop_pile(N_BOXES, device=dev, **tier)
+        body = [torch.as_tensor(z[k], device=dev) for k in ("pos", "rot", "vel", "angvel")]
+        carry = tuple(torch.as_tensor(z[f"carry{i}"], device=dev) for i in range(6))
+        dt = torch.tensor(DT, dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        drop, miss = zero, zero
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(SURFACE_BOX_STEPS):
+            *body, ctr, carry = bstep(*body, dt, carry, consts)
+            drop = drop + ctr["slot_drop"]
+            miss = miss + ctr["column_miss"]
+        ev1.record()
+        torch.cuda.synchronize()
+        pos = body[0]
+        r = {"ms": ev0.elapsed_time(ev1) / SURFACE_BOX_STEPS, "slot_drop": int(drop),
+             "column_miss": int(miss), "active_contacts": int(ctr["active_contacts"]),
+             "max_candidates": int(ctr["max_candidates"]), "sleeping": int(ctr["sleeping"]),
+             "lowest": float(pos[1].min()), "below": int((pos[1] < BOX_Y_MIN).sum()),
+             "finite": all(bool(torch.isfinite(t).all()) for t in body)}
+        boxes[name] = r
+        if not r["finite"] or not r["lowest"] > 0.0:
+            raise AssertionError(f"classic tier {name}: finite {r['finite']}, lowest centre "
+                                 f"{r['lowest']} m")
+    log(f"[15 slots] {card}: the slot step's classic tier, {N_BOXES} boxes from the drop's step "
+        f"1200, {SURFACE_BOX_STEPS} steps each: " + "; ".join(
+            f"{n} {r['ms']:.3f} ms/step, certificates slot_drop {r['slot_drop']} column_miss "
+            f"{r['column_miss']}, active contacts {r['active_contacts']}, max candidates "
+            f"{r['max_candidates']}, sleeping {r['sleeping']}, lowest centre {r['lowest']:.4f} m "
+            f"({r['below']} below {BOX_Y_MIN} m)" for n, r in boxes.items())
+        + "; every body finite and above the ground")
+    out["slots"] = boxes
+
+    # 5. skinning on the ybot-size character
+    m = fbx.to_model(fbx.FbxDoc(fbx.parse_fbx(A.character_fbx())))
+    pts = np.asarray(m.vertex_positions, np.float32)
+    bones4, wts = np.asarray(m.vertex_bones4), np.asarray(m.vertex_weights, np.float32)
+    nbones = m.skeleton.bone_count
+    rng = np.random.default_rng(15)
+    axis = rng.normal(size=(nbones, SURFACE_ANIMATORS, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    half = rng.uniform(0, 0.4, (nbones, SURFACE_ANIMATORS, 1))
+    real = np.concatenate([axis * np.sin(half), np.cos(half)], -1)
+    trans = rng.uniform(-0.2, 0.2, (nbones, SURFACE_ANIMATORS, 3))
+    dual = 0.5 * hm.quat_mul(np.concatenate([trans, np.zeros_like(half)], -1), real)
+    pal = np.moveaxis(np.concatenate([real, dual], -1), -1, 0).astype(np.float32)   # [8, B, A]
+    wbv = skinning.weights_matrix(bones4, wts, nbones)
+    pal_t, w_t = torch.as_tensor(pal, device=dev), torch.as_tensor(wbv, device=dev)
+    rest = torch.as_tensor(np.ascontiguousarray(pts.T), device=dev)
+
+    def skin():
+        return skinning.skin_points(skinning.blend_palette(pal_t, w_t), rest)
+
+    got = skin().permute(1, 0, 2).cpu().numpy()                      # [V, 3, A]
+    host = np.stack([skin_points_dq_np(pal[:, :, a], pts, bones4, wts)
+                     for a in range(SURFACE_ANIMATORS)], -1)
+    skin_gap = float(np.abs(got - host).max())
+    skin_ms = cuda_time(skin, 10)
+    log(f"[15 skinning] {card}: blend_palette + skin_points on the character ({nbones} bones, "
+        f"{len(pts)} points, extent {float(np.ptp(pts, axis=0).max()):.3f} m) over "
+        f"{SURFACE_ANIMATORS} animators: {skin_ms:.4f} ms a call; against "
+        f"gpu_soft.skin_points_dq_np on the host: max abs gap {skin_gap:.3e} m (limit "
+        f"{SURFACE_SKIN_ATOL:g})")
+    if not skin_gap <= SURFACE_SKIN_ATOL:
+        raise AssertionError(f"skinning: {skin_gap} m from the host formula")
+    out["skinning"] = {"ms": skin_ms, "gap": skin_gap, "bones": nbones, "points": len(pts)}
+    out["launches"] = launches
+    log(f"[15 launches] {card}: over the phase's path (the backends' frames, the culls, the trap "
+        f"steps): {launches}")
+    return out
+
 
 
 def k1_on_state(label, world, state):

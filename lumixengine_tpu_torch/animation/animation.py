@@ -18,6 +18,18 @@ import torch
 
 from lumixengine_tpu_torch.core import host_math as hm
 
+# fixed-point time, the reference's resolution (animation.h)
+TIME_ONE_SECOND = 1 << 15
+
+
+def time_from_seconds(s: float) -> int:
+    return int(s * TIME_ONE_SECOND)
+
+
+def time_to_seconds(t: int) -> float:
+    return t / float(TIME_ONE_SECOND)
+
+
 # root motion flags
 Y_ROOT_TRANSLATION = 1 << 0
 XZ_ROOT_TRANSLATION = 1 << 1

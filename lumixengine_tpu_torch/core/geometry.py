@@ -1,5 +1,5 @@
-"""Frustum planes and the sphere test (counterpart of
-``lumixengine_tpu/core/geometry.py``).
+"""Frustum planes, the sphere and AABB tests, and the ray and overlap
+primitives (counterpart of ``lumixengine_tpu/core/geometry.py``).
 
 A Frustum holds 8 planes as SoA rows xs/ys/zs/ds ``[..., 8]``: 6 real planes
 with inward normals and 2 always-pass padding planes ``(0, 0, 0, 1e30)``.
@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import torch
 
 from lumixengine_tpu_torch.core import math as lm
+
+NUM_PLANES = 8  # 6 used + 2 padding, as the reference's Frustum
 
 
 @dataclass
@@ -130,3 +132,59 @@ def frustum_sphere_visible(frustum: Frustum, centers, radii) -> torch.Tensor:
         + frustum.ds[..., :, None]
     )
     return torch.all(dist >= -radii[..., None, :], dim=-2)
+
+
+def frustum_contains_aabb(frustum: Frustum, mins, maxs) -> torch.Tensor:
+    """Conservative AABB test by the p-vertex: per plane the corner farthest
+    along the normal; outside if even that corner is. mins/maxs
+    [..., 3, N] → bool [..., N]."""
+    nx = frustum.xs[..., :, None]
+    ny = frustum.ys[..., :, None]
+    nz = frustum.zs[..., :, None]
+    mnx, mny, mnz = (m[..., None, :] for m in lm.unstack(mins, -2))
+    mxx, mxy, mxz = (m[..., None, :] for m in lm.unstack(maxs, -2))
+    px = torch.where(nx >= 0, mxx, mnx)
+    py = torch.where(ny >= 0, mxy, mny)
+    pz = torch.where(nz >= 0, mxz, mnz)
+    dist = px * nx + py * ny + pz * nz + frustum.ds[..., :, None]
+    return torch.all(dist >= 0.0, dim=-2)
+
+
+def sphere_sphere_overlap(ca, ra, cb, rb):
+    return lm.squared_length(cb - ca) <= (ra + rb) ** 2
+
+
+def aabb_overlap(min_a, max_a, min_b, max_b):
+    return torch.all((min_a <= max_b) & (min_b <= max_a), dim=-1)
+
+
+def ray_sphere(origin, direction, center, radius):
+    """(hit bool, t); direction must be normalized; t is inf on a miss."""
+    oc = origin - center
+    b = lm.dot(oc, direction)
+    c = lm.squared_length(oc) - radius * radius
+    disc = b * b - c
+    t = -b - torch.sqrt(torch.clamp_min(disc, 0.0))
+    hit = (disc >= 0.0) & (t >= 0.0)
+    return hit, torch.where(hit, t, torch.inf)
+
+
+def ray_aabb(origin, direction, mins, maxs, eps: float = 1e-12):
+    """Slab test: (hit bool, t_enter); t is inf on a miss."""
+    small = torch.where(direction >= 0, eps, -eps)
+    inv = 1.0 / torch.where(torch.abs(direction) < eps, small, direction)
+    t0 = (mins - origin) * inv
+    t1 = (maxs - origin) * inv
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = tmax >= torch.clamp_min(tmin, 0.0)
+    return hit, torch.where(hit, torch.clamp_min(tmin, 0.0), torch.inf)
+
+
+def ray_plane(origin, direction, normal, d):
+    """(hit bool, t) against the plane dot(n, p) + d = 0; t is inf on a miss."""
+    denom = lm.dot(direction, normal)
+    near0 = torch.abs(denom) < 1e-12
+    t = -(lm.dot(origin, normal) + d) / torch.where(near0, 1e-12, denom)
+    hit = ~near0 & (t >= 0.0)
+    return hit, torch.where(hit, t, torch.inf)

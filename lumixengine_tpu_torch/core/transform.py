@@ -26,6 +26,14 @@ class Transform:
     def replace(self, **kw) -> "Transform":
         return dataclasses.replace(self, **kw)
 
+    def packed(self) -> torch.Tensor:
+        """[..., 10, N] concatenation (pos|rot|scale): one gather moves all."""
+        return torch.cat([self.pos, self.rot, self.scale], dim=AXIS)
+
+    @staticmethod
+    def from_packed(p: torch.Tensor) -> "Transform":
+        return Transform(pos=p[..., 0:3, :], rot=p[..., 3:7, :], scale=p[..., 7:10, :])
+
 
 def compose(a: Transform, b: Transform) -> Transform:
     """a ∘ b — apply b in a's space (parent ∘ local = global)."""
@@ -34,6 +42,35 @@ def compose(a: Transform, b: Transform) -> Transform:
         rot=lm.quat_mul(a.rot, b.rot, axis=AXIS),
         scale=a.scale * b.scale,
     )
+
+
+def inverse(t: Transform) -> Transform:
+    """The transform undoing `t` (exact for uniform scale)."""
+    inv_rot = lm.quat_conjugate(t.rot, axis=AXIS)
+    inv_scale = 1.0 / t.scale
+    return Transform(
+        pos=lm.quat_rotate(inv_rot, -t.pos, axis=AXIS) * inv_scale,
+        rot=inv_rot,
+        scale=inv_scale,
+    )
+
+
+def compute_local(parent: Transform, child_global: Transform) -> Transform:
+    """Local l such that compose(parent, l) == child_global."""
+    inv_rot = lm.quat_conjugate(parent.rot, axis=AXIS)
+    return Transform(
+        pos=lm.quat_rotate(inv_rot, child_global.pos - parent.pos, axis=AXIS) / parent.scale,
+        rot=lm.quat_mul(inv_rot, child_global.rot, axis=AXIS),
+        scale=child_global.scale / parent.scale,
+    )
+
+
+def transform_point(t: Transform, p: torch.Tensor) -> torch.Tensor:
+    return t.pos + lm.quat_rotate(t.rot, p * t.scale, axis=AXIS)
+
+
+def transform_vector(t: Transform, v: torch.Tensor) -> torch.Tensor:
+    return lm.quat_rotate(t.rot, v, axis=AXIS)
 
 
 def take(t: Transform, idx: torch.Tensor) -> Transform:

@@ -14,6 +14,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from lumixengine_tpu_torch.core import debug
 from lumixengine_tpu_torch.engine.plugin import SystemManager
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.ops import hierarchy as hier
@@ -137,6 +138,9 @@ class Engine:
             state = state.replace(world=hier.propagate_plan(state.local, plan))
             if extra is not None:
                 state = extra(state, dt)
-            return state.replace(frame=state.frame + 1, time=state.time + dt)
+            state = state.replace(frame=state.frame + 1, time=state.time + dt)
+            if debug.floating_point_traps_enabled():
+                debug.check_floating_point(state)
+            return state
 
         return step

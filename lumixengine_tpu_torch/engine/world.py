@@ -86,6 +86,7 @@ class World:
         self._count = 0
         self._level = np.zeros(n, np.int32)
         self._max_depth = 0
+        self._level_indices: List[np.ndarray] = []
         self._levels_dirty = True  # force initial slot build
         self._perm = np.arange(n, dtype=np.int32)
         self._slot_of = np.arange(n, dtype=np.int32)
@@ -177,7 +178,8 @@ class World:
     def _refresh_levels(self) -> None:
         if not self._levels_dirty:
             return
-        self._level, self._max_depth = hier.compute_levels_host(self.parent)
+        self._level, self._level_indices = hier.compute_level_indices_host(self.parent)
+        self._max_depth = len(self._level_indices)
         self._rebuild_slots()
         self._levels_dirty = False
 
@@ -212,6 +214,34 @@ class World:
         """slot -> entity permutation."""
         self._refresh_levels()
         return self._perm
+
+    @property
+    def max_depth(self) -> int:
+        """The deepest hierarchy level (0: no entity has a parent)."""
+        self._refresh_levels()
+        return self._max_depth
+
+    @property
+    def level_indices(self) -> List[np.ndarray]:
+        """Per-level ENTITY-id arrays, levels 1..max_depth, for
+        ``ops.hierarchy.propagate_indexed`` on entity-ordered states (the
+        device state is in slot order: see ``perm``)."""
+        self._refresh_levels()
+        return self._level_indices
+
+    def hierarchy_is_uniform_scale(self) -> bool:
+        """True when every entity in a parent/child relation has a uniform
+        local scale (within 1e-6): SRT compose is then associative and
+        ``ops.hierarchy.propagate_doubling`` is exact."""
+        involved = self.parent >= 0
+        parents = self.parent[involved]
+        if parents.size:
+            involved = involved.copy()
+            involved[parents] = True
+        s = self.local_scale[involved]
+        if s.size == 0:
+            return True
+        return bool(np.allclose(s[:, 0:1], s, rtol=0.0, atol=1e-6))
 
     def slot(self, e: int) -> int:
         self._refresh_levels()

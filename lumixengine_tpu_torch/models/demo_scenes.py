@@ -158,11 +158,14 @@ BOX_DROP_TIER = dict(slots=28, window=40, iterations=6, position_iterations=2, w
                      wake_speed=0.3)
 
 
-def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cuda"):
+def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cuda", **tier):
     """The 10k-box drop (BASELINE.md config 3, the PhysX parity scene): unit
     boxes (half extent 0.5, mass 1, friction 0.6, no restitution) on the
     first `num_bodies` cells of a cubic lattice at 1.1 m pitch, jittered by
-    0-5 cm, lifted 2 m, at rest; the slot pipeline at the published tier.
+    0-5 cm, lifted 2 m, at rest; the slot pipeline at the published tier,
+    or with `tier`'s options of ``make_slot_world_step`` in place of
+    ``BOX_DROP_TIER``'s (the classic tier: n_sweeps, warm_start,
+    mass_split, sleeping).
 
     Returns (step, state, consts): `state` = (pos, rot, vel, angvel, carry)
     on `device` (the card unless the caller asks for the CPU), `consts` = the
@@ -177,7 +180,7 @@ def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cuda"):
         np.full(nb, P.SHAPE_BOX, np.int32), np.full(nb, 0.5, np.float32),
         np.full((3, nb), 0.5, np.float32), np.ones(nb, bool), np.ones(nb, np.float32),
         np.full((3, nb), 1.0 / (1.0 / 12 * 2.0), np.float32), np.full(nb, 0.6, np.float32),
-        np.zeros(nb, np.float32), **BOX_DROP_TIER)
+        np.zeros(nb, np.float32), **{**BOX_DROP_TIER, **tier})
     side = int(np.ceil(nb ** (1 / 3)))
     grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)[:nb]
     pos = (grid * 1.1 + rng.uniform(0, 0.05, (nb, 3)) + [0.0, 2.0, 0.0]).T.astype(np.float32)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from lumixengine_tpu_torch.core import math as lm
 from lumixengine_tpu_torch.ops import physics_ops as P
 
+AX = -2              # component axis of body arrays [..., 3, NB]
 _FAR = 1 << 24        # sort key offset that puts dead slots last
 
 

@@ -2,9 +2,10 @@
 ``lumixengine_tpu/ops/physics_ops.py``), the subset the PhysicsModule's
 broadphase branches run: velocity/position integration, world AABBs, ground
 and pair contacts for spheres, boxes and capsules, tangent frames, the world
-inverse inertia, sleeping, heightfield contacts, and the raycast and sphere
-sweep queries. Convex hulls and SDF mesh colliders are in
-``ops/convex_ops.py``.
+inverse inertia, sleeping, heightfield contacts, the raycast and sphere
+sweep queries, and the reference's jnp contact solve and position
+projection on incidence matrices (``solver_backend="jnp"``). Convex hulls
+and SDF mesh colliders are in ``ops/convex_ops.py``.
 
 SoA layout, body axis last: pos ``[..., 3, NB]``, rot ``[..., 4, NB]``.
 Contact slots are ``[..., C]`` / ``[..., 3, C]``; normals point from body a
@@ -80,6 +81,36 @@ def integrate_positions(pos, rot, vel, angvel, dt, dyn_mask):
     dq = lm.quat_mul(wq, rot, axis=AX) * (0.5 * dt)
     new_rot = lm.quat_normalize(rot + dq, axis=AX)
     return torch.where(m, new_pos, pos), torch.where(m, new_rot, rot)
+
+
+def select_points_onehot(oh, pts):
+    """The reference's top-k point selection: oh [..., k, J, P] one-hot over
+    the small corner/vertex axis J, pts [..., c, J, P] → [..., c, k, P].
+    An index gather along J here; a row of oh with no one selects 0."""
+    sel = oh != 0
+    idx = torch.argmax(sel.to(torch.uint8), dim=-2)             # [..., k, P]
+    hit = torch.any(sel, dim=-2)
+    c, j, n = pts.shape[-3:]
+    k = oh.shape[-3]
+    batch = torch.broadcast_shapes(oh.shape[:-3], pts.shape[:-3])
+    out = torch.gather(pts.expand(batch + (c, j, n)), -2,
+                       idx.expand(batch + (k, n)).unsqueeze(-3).expand(batch + (c, k, n)))
+    return torch.where(hit.unsqueeze(-3), out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
+
+
+def gather_cols_onehot(x, idx, nb: int):
+    """Column gather x[..., idx] over a last axis of `nb` (the reference's
+    one-hot form, an index gather here): x [..., NB] → [..., P], or
+    x [..., c, NB] → [..., c, P]. An index outside [0, nb) gives 0, as the
+    one-hot contraction does."""
+    valid = (idx >= 0) & (idx < nb)
+    i = torch.where(valid, idx, 0).to(torch.int64)
+    if x.dim() == idx.dim():
+        out = take_rows(x, i)
+    else:
+        out, valid = take_vecs(x, i), valid.unsqueeze(-2)
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -395,6 +426,161 @@ def orthonormal_tangents(n):
     t1 = t1 * torch.rsqrt(torch.clamp_min(torch.sum(t1 * t1, dim=AX, keepdim=True), 1e-12))
     t2 = lm.cross(n, t1, axis=AX)
     return t1, t2
+
+
+def _incidence(incidence):
+    """An incidence matrix [..., NB, C] (bool, bf16 or f32 0/1) as float32."""
+    return torch.as_tensor(incidence).to(torch.float32)
+
+
+def _gath(x, inc):
+    """[..., K, NB] @ [..., NB, C] → [..., K, C]: each contact's body row."""
+    return torch.matmul(x, inc)
+
+
+def _scat(x, inc):
+    """[..., K, C] @ [..., C, NB] → [..., K, NB]: each body's contact sum."""
+    return torch.matmul(x, inc.transpose(-1, -2))
+
+
+def _contact_degree(act_f, inc_a, inc_b):
+    """Per contact, the larger active-contact count of its two bodies (at
+    least 1): the Jacobi-stability scale of the relaxation."""
+    deg = _scat(act_f.unsqueeze(-2), inc_a) + _scat(act_f.unsqueeze(-2), inc_b)  # [..., 1, NB]
+    return torch.clamp_min(torch.maximum(_gath(deg, inc_a), _gath(deg, inc_b))[..., 0, :], 1.0)
+
+
+def solve_contacts(pos, rot, vel, angvel, contacts: Contacts, inv_mass, inv_inertia_world,
+                   incidence_a, incidence_b, dt, friction, restitution, iterations: int = 8,
+                   baumgarte: float = 0.2, slop: float = 0.005, relaxation: float = 0.75,
+                   warm_lambdas=None, return_lambdas: bool = False):
+    """The reference's jnp contact solve: projected Jacobi PGS with friction
+    and restitution, warm-started from the previous frame's accumulated
+    impulses (`warm_lambdas`, three [..., C]). Returns (vel', angvel'[,
+    (lam_n, lam_t1, lam_t2)]).
+
+    incidence_a / incidence_b [..., NB, C] are 0/1 matrices of each slot's
+    body a and body b (body b's column is zero for a ground contact);
+    every per-contact gather and per-body sum is a matrix product with
+    them. inv_inertia_world is the world diagonal [..., 3, NB]. This is
+    not kernel K2's plain version (``ops/solver.py::solve_plain``): it is
+    the solve a PhysicsModule runs under ``solver_backend="jnp"``. The
+    Baumgarte bias is 0 at dt = 0 (``baumgarte_bias``), and `where` masks
+    keep inactive slots, whose geometry may be NaN, out of every sum."""
+    inc_a, inc_b = _incidence(incidence_a), _incidence(incidence_b)
+    im = torch.as_tensor(inv_mass, dtype=torch.float32, device=pos.device)
+    im_a = torch.matmul(im, inc_a)
+    im_b = torch.matmul(im, inc_b)
+    n = contacts.normal
+    t1, t2 = orthonormal_tangents(n)
+    pt = contacts.point
+    active = contacts.active
+    r_a = pt - _gath(pos, inc_a)
+    r_b = pt - _gath(pos, inc_b)
+
+    def ang_term(r, d, II_diag):
+        rxd = lm.cross(r, d, axis=AX)
+        return torch.sum(lm.cross(II_diag * rxd, r, axis=AX) * d, dim=AX)
+
+    II_a = _gath(inv_inertia_world, inc_a)
+    II_b = _gath(inv_inertia_world, inc_b)
+    k_n = torch.clamp_min(im_a + im_b + ang_term(r_a, n, II_a) + ang_term(r_b, n, II_b), 1e-9)
+    k_t1 = torch.clamp_min(im_a + im_b + ang_term(r_a, t1, II_a) + ang_term(r_b, t1, II_b), 1e-9)
+    k_t2 = torch.clamp_min(im_a + im_b + ang_term(r_a, t2, II_a) + ang_term(r_b, t2, II_b), 1e-9)
+    bias = baumgarte_bias(baumgarte, dt, contacts.depth, slop)
+    fr, rest = friction, restitution
+    act_f = active.to(torch.float32)
+    relax = torch.clamp_max(1.6 / _contact_degree(act_f, inc_a, inc_b), relaxation)
+
+    def rel_vel(v, w):
+        vw = torch.cat([v, w], dim=AX)
+        a6, b6 = _gath(vw, inc_a), _gath(vw, inc_b)
+        va = a6[..., 0:3, :] + lm.cross(a6[..., 3:6, :], r_a, axis=AX)
+        vb = b6[..., 0:3, :] + lm.cross(b6[..., 3:6, :], r_b, axis=AX)
+        return vb - va
+
+    vn0 = torch.sum(rel_vel(vel, angvel) * n, dim=AX)
+    # restitution and Baumgarte bias do not stack (max, not sum)
+    v_target = torch.maximum(bias, torch.where(vn0 < -0.5, -rest * vn0, 0.0))
+
+    def apply_impulse(v, w, imp):
+        """+imp on body b, -imp on body a, as [impulse | torque] rows."""
+        six_a = torch.cat([imp, lm.cross(r_a, imp, axis=AX)], dim=AX)
+        six_b = torch.cat([imp, lm.cross(r_b, imp, axis=AX)], dim=AX)
+        acc = _scat(six_b, inc_b) - _scat(six_a, inc_a)
+        return v + acc[..., 0:3, :] * im, w + acc[..., 3:6, :] * inv_inertia_world
+
+    zeros = torch.zeros(contacts.depth.shape, dtype=torch.float32, device=pos.device)
+    if warm_lambdas is None:
+        v, w, lam_n, lam_t1, lam_t2 = vel, angvel, zeros, zeros, zeros
+    else:
+        ln0, lt10, lt20 = warm_lambdas
+        lam_n = torch.clamp_min(ln0, 0.0) * act_f
+        lam_t1 = lt10 * act_f
+        lam_t2 = lt20 * act_f
+        warm_imp = n * lam_n.unsqueeze(AX) + t1 * lam_t1.unsqueeze(AX) + t2 * lam_t2.unsqueeze(AX)
+        # inactive slots can carry NaN geometry (0·NaN = NaN): hard-mask
+        warm_imp = torch.where(active.unsqueeze(AX), warm_imp, 0.0)
+        v, w = apply_impulse(vel, angvel, warm_imp)
+    for _ in range(iterations):
+        vr = rel_vel(v, w)
+        vn = torch.sum(vr * n, dim=AX)
+        dln = (v_target - vn) / k_n * relax
+        new_ln = torch.clamp_min(lam_n + dln, 0.0)
+        dln = torch.where(active, new_ln - lam_n, 0.0)
+        # friction clamped by μ·λ_n
+        vt1 = torch.sum(vr * t1, dim=AX)
+        vt2 = torch.sum(vr * t2, dim=AX)
+        max_f = fr * (lam_n + dln)
+        new_lt1 = torch.minimum(torch.maximum(lam_t1 + (-vt1 / k_t1) * relax, -max_f), max_f)
+        new_lt2 = torch.minimum(torch.maximum(lam_t2 + (-vt2 / k_t2) * relax, -max_f), max_f)
+        dlt1 = torch.where(active, new_lt1 - lam_t1, 0.0)
+        dlt2 = torch.where(active, new_lt2 - lam_t2, 0.0)
+        imp = n * dln.unsqueeze(AX) + t1 * dlt1.unsqueeze(AX) + t2 * dlt2.unsqueeze(AX)
+        v, w = apply_impulse(v, w, imp)
+        lam_n, lam_t1, lam_t2 = lam_n + dln, lam_t1 + dlt1, lam_t2 + dlt2
+    if return_lambdas:
+        return v, w, (lam_n, lam_t1, lam_t2)
+    return v, w
+
+
+def project_positions(pos, contacts: Contacts, inv_mass, incidence_a, incidence_b,
+                      iterations: int = 3, slop: float = 0.005, relaxation: float = 0.8,
+                      max_correction: float = 0.05):
+    """The reference's split-impulse position projection: penetrating
+    contacts pushed apart at the position level, linear only, each frame's
+    push per contact capped at max_correction. Returns the corrected pos.
+    Incidences as in ``solve_contacts``."""
+    inc_a, inc_b = _incidence(incidence_a), _incidence(incidence_b)
+    im = torch.as_tensor(inv_mass, dtype=torch.float32, device=pos.device)
+    k_lin = torch.clamp_min(torch.matmul(im, inc_a) + torch.matmul(im, inc_b), 1e-9)
+    n = contacts.normal
+    active = contacts.active
+    e0 = torch.where(active, torch.clamp(contacts.depth - slop, 0.0, max_correction), 0.0)
+    relax_c = torch.clamp_max(1.6 / _contact_degree(active.to(torch.float32), inc_a, inc_b),
+                              relaxation)
+    dpos = torch.zeros_like(pos)
+    lam = torch.zeros_like(e0)
+    for _ in range(iterations):
+        # separation achieved so far along each contact normal (b − a)
+        sep = torch.sum((_gath(dpos, inc_b) - _gath(dpos, inc_a)) * n, dim=AX)
+        dlam = (e0 - sep) / k_lin * relax_c
+        new_lam = torch.clamp_min(lam + dlam, 0.0)    # never pull together
+        # mask after the max: inactive slots can carry NaN contact geometry
+        dlam = torch.where(active, new_lam - lam, 0.0)
+        step_vec = n * dlam.unsqueeze(AX)
+        dpos = dpos + (_scat(step_vec, inc_b) - _scat(step_vec, inc_a)) * im
+        lam = new_lam
+    return pos + dpos
+
+
+def incidences(body_a, body_b, nb: int):
+    """The 0/1 incidence matrices [..., NB, C] of contact slots' body ids
+    (int [..., C]; body_b -1 = ground, a zero column)."""
+    iota = torch.arange(nb, device=body_a.device)[:, None]
+    inc_a = (body_a.to(torch.int64).unsqueeze(-2) == iota).to(torch.float32)
+    inc_b = (body_b.to(torch.int64).unsqueeze(-2) == iota).to(torch.float32)
+    return inc_a, inc_b
 
 
 def inv_inertia_world_diag(rot, inv_inertia_body):

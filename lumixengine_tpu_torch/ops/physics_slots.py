@@ -66,10 +66,10 @@ def build_slots(mn, mx, occ, dyn, n_sweeps: int, window: int, slots: int,
     bound (an upper bound on true penetration) instead of the AABB overlap.
 
     Returns (partner int32 [P, NB] body ids, -1 = empty; {"slot_drop",
-    "column_miss", "max_candidates"} int32 scalars). Only the four column
-    sweeps of the published tier are ported (n_sweeps = 4)."""
-    if n_sweeps != 4:
-        raise NotImplementedError("build_slots is ported for the 4 column sweeps only")
+    "column_miss", "max_candidates"} int32 scalars). ``column_miss`` sums
+    the column sweeps' certificates; a classic min-x sweep alone
+    (n_sweeps = 1) counts its x-window misses, and beside column sweeps
+    (n_sweeps = 5) adds nothing."""
     nb = mn.shape[-1]
     dev = mn.device
     orders, ranks, col_keys = PBD.sweep_orders(mn, mx, occ, n_sweeps)
@@ -143,8 +143,13 @@ def build_slots(mn, mx, occ, dyn, n_sweeps: int, window: int, slots: int,
         ov = (ov_amt > 0.0) & valid_rank & either_dyn & both_occ
         if s:   # cross-sweep dedup: pair already inside an earlier sweep's window
             ov = ov & ~torch.any(torch.abs(ib[2:] - i_r[2:, None, :]) <= W, dim=0)
-        miss = PBD.column_window_miss(s_mn, s_mx, col_key.index_select(-1, order), W,
-                                      occ=(i_r[1] & 2) != 0)
+        if col_key is not None:
+            miss = PBD.column_window_miss(s_mn, s_mx, col_key.index_select(-1, order), W,
+                                          occ=(i_r[1] & 2) != 0)
+        elif len(orders) == 1:
+            miss = PBD.window_miss(s_mn, s_mx, W, occ=(i_r[1] & 2) != 0)
+        else:
+            miss = torch.zeros((), dtype=I32, device=dev)
         inv_pri = (pri_max - torch.clamp(ov_amt * pri_scale, 0, pri_max).to(I32)) << id_bits
         pk_fwd = torch.where(ov, inv_pri | ib[0], invalid)
         pk_rev = skew_rev(torch.where(ov, inv_pri | i_r[0][None, :], invalid))
@@ -182,7 +187,7 @@ def make_slot_world_step(
     position_iterations: int = 3, ground_y: float = 0.0,
     lin_damping: float = 0.05, ang_damping: float = 0.05,
     ground_friction: float = 0.6, n_sweeps: int = 4, slop: float = 0.005,
-    warm_start: bool = True, mass_split: bool = True,
+    relaxation: float = 0.75, warm_start: bool = True, mass_split: bool = True,
     sleeping: bool = True, sleep_speed: float = 0.08,
     sleep_frames: int = 30, wake_speed: float = 0.25,
     over_relax: float = 1.0, settle_damping: float = 0.0,
@@ -196,18 +201,20 @@ def make_slot_world_step(
     calm-frame counters [NB] int32, delayed wake [NB] bool, deep-ground flag
     [NB] bool).
 
-    Only the reference's published tier is ported: 4 column sweeps, warm
-    start, sleeping and mass splitting (Jacobi with contact-count-scaled
-    effective masses im_i·n_i and the full Δλ, over-relaxed by over_relax).
-    The classic tier (n_sweeps, warm_start, mass_split or sleeping off)
-    raises NotImplementedError. A body calm (|v|²+|w|² < sleep_speed²) for
-    sleep_frames frames, and not deep in the ground, sleeps — zero velocity,
-    no gravity, static to the solver — and wakes one frame after an active
-    partner moves faster than wake_speed. settle_damping bleeds supported
-    slow bodies; max_correction caps the per-frame positional push."""
-    if n_sweeps != 4 or not (warm_start and mass_split and sleeping):
-        raise NotImplementedError("the slot step is ported at the published tier only "
-                                  "(n_sweeps=4, warm_start, mass_split, sleeping)")
+    n_sweeps picks the sweeps of ``build_slots`` (4, the default, is the
+    guaranteed-coverage column set). mass_split (default): Jacobi with
+    contact-count-scaled effective masses im_i·n_i and the full Δλ,
+    over-relaxed by over_relax; off, the classic Jacobi: plain effective
+    masses under the relaxation min(relaxation, 1.6 / degree) (the position
+    passes min(0.8, 1.6 / degree)), the degree of a pair the larger of its
+    two bodies'. warm_start (default) carries each slot's λ by partner id
+    into the next step; off, every step starts from λ = 0. sleeping
+    (default): a body calm (|v|²+|w|² < sleep_speed²) for sleep_frames
+    frames, and not deep in the ground, sleeps — zero velocity, no
+    gravity, static to the solver — and wakes one frame after an active
+    partner moves faster than wake_speed; off, no body sleeps and the
+    carry's counters stay 0. settle_damping bleeds supported slow bodies;
+    max_correction caps the per-frame positional push."""
     nb = int(shape_np.shape[0])
     k = points_per_pair
     Pn = slots
@@ -249,21 +256,27 @@ def make_slot_world_step(
         prev_lam, prev_id, prev_glam, prev_ctr, prev_wake, prev_deep = carry
 
         # ---- sleeping: calm-streak counters + one-frame-delayed wake ------
-        speed2_raw = torch.sum(vel * vel, 0) + torch.sum(angvel * angvel, 0)
-        # a body may not doze off while deep in the ground (asleep ⇒
-        # im_eff = 0 ⇒ the position pass could not push it out)
-        calm = (speed2_raw < sleep_speed * sleep_speed) & dyn_j & ~prev_deep
-        sleep_ctr = torch.where(calm, torch.clamp_max(prev_ctr + 1, sleep_frames), 0)
-        asleep = (sleep_ctr >= sleep_frames) & ~prev_wake
-        # partners that are themselves asleep (or static) never wake
-        wake_sig = torch.where(asleep | ~dyn_j, 0.0, speed2_raw)
+        if sleeping:
+            speed2_raw = torch.sum(vel * vel, 0) + torch.sum(angvel * angvel, 0)
+            # a body may not doze off while deep in the ground (asleep ⇒
+            # im_eff = 0 ⇒ the position pass could not push it out)
+            calm = (speed2_raw < sleep_speed * sleep_speed) & dyn_j & ~prev_deep
+            sleep_ctr = torch.where(calm, torch.clamp_max(prev_ctr + 1, sleep_frames), 0)
+            asleep = (sleep_ctr >= sleep_frames) & ~prev_wake
+            # partners that are themselves asleep (or static) never wake
+            wake_sig = torch.where(asleep | ~dyn_j, 0.0, speed2_raw)
+        else:
+            sleep_ctr = torch.zeros(nb, dtype=I32, device=dev)
+            asleep = torch.zeros(nb, dtype=torch.bool, device=dev)
+            wake_sig = torch.zeros(nb, dtype=torch.float32, device=dev)
         im_eff = torch.where(asleep, 0.0, im_j)
 
         vel, angvel = P.integrate_velocities(vel, angvel, dt, consts["gravity"],
                                              lin_damping, ang_damping, dyn_j)
-        # asleep = static for this frame: no gravity, no drift
-        vel = torch.where(asleep[None], 0.0, vel)
-        angvel = torch.where(asleep[None], 0.0, angvel)
+        if sleeping:
+            # asleep = static for this frame: no gravity, no drift
+            vel = torch.where(asleep[None], 0.0, vel)
+            angvel = torch.where(asleep[None], 0.0, angvel)
         mn, mx = P.world_aabb(pos, rot, shape_j, radius_j, he_j)
         sat = (pos, rot, he_j, shape_j == P.SHAPE_BOX) if any_box else None
         partner, certs = build_slots(mn, mx, occ_j, dyn_j, n_sweeps, window, Pn,
@@ -366,23 +379,36 @@ def make_slot_world_step(
         deep_next = torch.amax(torch.where(g_active, g_depth, 0.0), dim=0) > 8.0 * slop
 
         II_lo, II_hi = lo_iiw[:, None], hi_iiw[:, None]
-        # mass splitting: each body's mass scaled by its contact count
-        lo_deg, hi_deg = pick(deg, p_deg)
-        s_lo = torch.clamp_min(lo_deg, 1.0)[None]                # [1, P, NB]
-        s_hi = torch.clamp_min(hi_deg, 1.0)[None]
-        relax = g_relax = over_relax
-        g_split = torch.clamp_min(deg, 1.0)[None]                # [1, NB]
-        im_lo_c, im_hi_c = (lo_im * s_lo[0])[None], (hi_im * s_hi[0])[None]
+        imn = im_eff[None]
+        if mass_split:
+            # each body's mass scaled by its contact count, the full Δλ
+            lo_deg, hi_deg = pick(deg, p_deg)
+            s_lo = torch.clamp_min(lo_deg, 1.0)[None]            # [1, P, NB]
+            s_hi = torch.clamp_min(hi_deg, 1.0)[None]
+            relax = g_relax = over_relax
+            g_split = torch.clamp_min(deg, 1.0)[None]            # [1, NB]
+            im_lo_c, im_hi_c = (lo_im * s_lo[0])[None], (hi_im * s_hi[0])[None]
 
-        def k_eff(d):
-            return torch.clamp_min(im_lo_c + im_hi_c + s_lo * PBD._ang0(r_lo, d, II_lo)
-                                   + s_hi * PBD._ang0(r_hi, d, II_hi), 1e-9)
+            def k_eff(d):
+                return torch.clamp_min(im_lo_c + im_hi_c + s_lo * PBD._ang0(r_lo, d, II_lo)
+                                       + s_hi * PBD._ang0(r_hi, d, II_hi), 1e-9)
+
+            def g_k_eff(d):
+                return torch.clamp_min(g_split * (imn + PBD._ang0(g_r, d, iiw[:, None])), 1e-9)
+        else:
+            # classic Jacobi: plain masses, relaxation by the pair's degree
+            deg_pair = torch.maximum(deg[None], p_deg)           # symmetric
+            relax = torch.clamp_max(1.6 / torch.clamp_min(deg_pair, 1.0), relaxation)[None]
+            g_relax = torch.clamp_max(1.6 / torch.clamp_min(deg, 1.0), relaxation)[None]
+
+            def k_eff(d):
+                return torch.clamp_min(lo_im[None] + hi_im[None] + PBD._ang0(r_lo, d, II_lo)
+                                       + PBD._ang0(r_hi, d, II_hi), 1e-9)
+
+            def g_k_eff(d):
+                return torch.clamp_min(imn + PBD._ang0(g_r, d, iiw[:, None]), 1e-9)
 
         kn, kt1, kt2 = k_eff(normal), k_eff(t1), k_eff(t2)
-        imn = im_eff[None]
-
-        def g_k_eff(d):
-            return torch.clamp_min(g_split * (imn + PBD._ang0(g_r, d, iiw[:, None])), 1e-9)
 
         g_kn, g_kt1, g_kt2 = g_k_eff(g_normal), g_k_eff(g_t1), g_k_eff(g_t2)
 
@@ -403,24 +429,30 @@ def make_slot_world_step(
             six_g = torch.cat([g_imp, lm.cross(g_r, g_imp, axis=0)], dim=0)
             return acc - torch.sum(six_g, dim=1)
 
-        # ---- warm start: match canonical λ by partner id -------------------
-        # prev_id rows hold UNIQUE partner ids per body (duplicates were -1'd
-        # at build), so each (new slot, body) matches at most one old slot:
-        # an index match and a gather, an exact select
-        eq = (partner[:, None, :] == prev_id[None, :, :]) & pvalid[:, None, :]  # [Pq, Pp, NB]
-        hit = torch.any(eq, dim=1)
-        src = torch.argmax(eq.to(torch.uint8), dim=1)            # [Pq, NB]
-        wlam = torch.gather(prev_lam, 2, src[None, None].expand(3, k, Pn, nb))
-        keep = active & hit[None]
-        ln, l1, l2 = (torch.where(keep, wlam[j], 0.0) for j in range(3))
-        gn, g1, g2 = (torch.where(g_active, prev_glam[j], 0.0) for j in range(3))
-        # apply carried impulses up front (accumulators stay incremental)
-        imp = torch.where(active[None], normal * ln[None] + t1 * l1[None] + t2 * l2[None], 0.0)
-        g_imp = torch.where(g_active[None], g_normal * gn[None] + g_t1 * g1[None]
-                            + g_t2 * g2[None], 0.0)
-        acc = body_impulse(imp, g_imp)
-        v = vel + acc[0:3] * imn
-        w = angvel + acc[3:6] * iiw
+        if warm_start:
+            # ---- warm start: match canonical λ by partner id ---------------
+            # prev_id rows hold UNIQUE partner ids per body (duplicates were
+            # -1'd at build), so each (new slot, body) matches at most one
+            # old slot: an index match and a gather, an exact select
+            eq = (partner[:, None, :] == prev_id[None, :, :]) & pvalid[:, None, :]  # [Pq, Pp, NB]
+            hit = torch.any(eq, dim=1)
+            src = torch.argmax(eq.to(torch.uint8), dim=1)        # [Pq, NB]
+            wlam = torch.gather(prev_lam, 2, src[None, None].expand(3, k, Pn, nb))
+            keep = active & hit[None]
+            ln, l1, l2 = (torch.where(keep, wlam[j], 0.0) for j in range(3))
+            gn, g1, g2 = (torch.where(g_active, prev_glam[j], 0.0) for j in range(3))
+            # apply carried impulses up front (accumulators stay incremental)
+            imp = torch.where(active[None], normal * ln[None] + t1 * l1[None] + t2 * l2[None],
+                              0.0)
+            g_imp = torch.where(g_active[None], g_normal * gn[None] + g_t1 * g1[None]
+                                + g_t2 * g2[None], 0.0)
+            acc = body_impulse(imp, g_imp)
+            v = vel + acc[0:3] * imn
+            w = angvel + acc[3:6] * iiw
+        else:
+            ln = l1 = l2 = torch.zeros((k, Pn, nb), dtype=torch.float32, device=dev)
+            gn = g1 = g2 = torch.zeros((gslots, nb), dtype=torch.float32, device=dev)
+            v, w = vel, angvel
         for _ in range(iterations):
             pv, pw, _pd, _pk = partner_vw(v, w)
             vr = rel_vel(v, w, pv, pw)
@@ -478,20 +510,27 @@ def make_slot_world_step(
             # impact frames depenetrate over several frames
             e0 = torch.where(active, torch.clamp(depth - slop, 0.0, max_correction), 0.0)
             g_e0 = torch.where(g_active, torch.clamp(g_depth - slop, 0.0, max_correction), 0.0)
-            k_pos = torch.clamp_min(lo_im * s_lo[0] + hi_im * s_hi[0], 1e-9)[None]
-            g_kp = torch.clamp_min(g_split * imn, 1e-9)
+            if mass_split:
+                k_pos = torch.clamp_min(lo_im * s_lo[0] + hi_im * s_hi[0], 1e-9)[None]
+                g_kp = torch.clamp_min(g_split * imn, 1e-9)
+                rx = g_rx = 1.0
+            else:
+                k_pos = torch.clamp_min(lo_im + hi_im, 1e-9)[None]
+                g_kp = torch.clamp_min(imn, 1e-9)
+                rx = torch.clamp_max(1.6 / torch.clamp_min(deg_pair, 1.0), 0.8)[None]
+                g_rx = torch.clamp_max(1.6 / torch.clamp_min(deg, 1.0), 0.8)[None]
             dpos = torch.zeros_like(pos)
             pl, pgl = torch.zeros_like(e0), torch.zeros_like(g_e0)
             for _ in range(position_iterations):
                 lo_dp, hi_dp = sel3(dpos, _gather_rows(dpos, pidx))
                 sep = torch.sum((hi_dp[:, None] - lo_dp[:, None]) * normal, dim=0)
-                dl = (e0 - sep) / k_pos
+                dl = (e0 - sep) / k_pos * rx
                 new = torch.clamp_min(pl + dl, 0.0)
                 dl = torch.where(active, new - pl, 0.0)
                 step_v = torch.where(active[None], normal * dl[None], 0.0)
                 d_acc = torch.sum(-sign[None, None] * step_v, dim=(1, 2))
                 g_sep = torch.sum((-dpos[:, None, :]) * g_normal, dim=0)
-                g_dl = (g_e0 - g_sep) / g_kp
+                g_dl = (g_e0 - g_sep) / g_kp * g_rx
                 g_new = torch.clamp_min(pgl + g_dl, 0.0)
                 g_dl = torch.where(g_active, g_new - pgl, 0.0)
                 step_g = torch.where(g_active[None], g_normal * g_dl[None], 0.0)

@@ -8,7 +8,8 @@ does not depend on the TF32 settings. Clip quats are sign-coherent along
 time (baked), so lerp + normalize is an nlerp.
 
 ``statics`` is the clip bank's ``ClipBankStatics.on(device)``: per-clip
-offset, frame count, fps and length as tensors.
+offset, frame count, fps and length as tensors. ``two_hot`` and
+``sample_bank`` are the reference's matrix form, kept for callers of it.
 """
 from __future__ import annotations
 
@@ -33,6 +34,22 @@ def frame_weights(time_s: torch.Tensor, clip_ids: torch.Tensor, statics, weight=
     w = torch.ones_like(t) if weight is None else weight
     w = w * (clip_ids >= 0).to(torch.float32)
     return off + f0, off + f1, (1.0 - a) * w, a * w
+
+
+def two_hot(flat0, flat1, w0, w1, num_cols: int) -> torch.Tensor:
+    """The reference's weighted two-hot matrix [CF, A]: column a holds w0[a]
+    at row flat0[a] and w1[a] at row flat1[a] (summed where they meet)."""
+    cols = torch.arange(num_cols, device=flat0.device)[:, None]
+    m = torch.where(cols == flat0[None, :], w0[None, :], 0.0)
+    return m + torch.where(cols == flat1[None, :], w1[None, :], 0.0)
+
+
+def sample_bank(table: torch.Tensor, weights_cf_a: torch.Tensor) -> torch.Tensor:
+    """pose [rows, A] = table [rows, CF] @ weights [CF, A], a float32 matrix
+    product. The reference asks its MXU for the full float32 mantissa
+    (Precision.HIGHEST); PyTorch gives the same while TF32 matmul stays off,
+    which is its default, and the port never turns it on."""
+    return torch.matmul(table.to(torch.float32), weights_cf_a.to(torch.float32))
 
 
 def sample_frames(table_t: torch.Tensor, f0, f1, w0, w1) -> torch.Tensor:

@@ -21,6 +21,10 @@ import torch
 
 from lumixengine_tpu_torch.engine.world import WorldState, map_tensors
 
+# the name of the world axis (the reference's mesh axis; here it names the
+# batch's leading axis, which a mesh shards)
+WORLD_AXIS = "worlds"
+
 
 def make_world_mesh(n_devices: Optional[int] = None,
                     devices: Optional[Sequence] = None) -> List[torch.device]:

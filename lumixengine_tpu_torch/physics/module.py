@@ -30,9 +30,11 @@ bodies take their entity's world pose, integrate velocities, the vehicles'
 suspension, drive and grip impulses, build the contact streams [ground or
 heightfield | simple pairs | convex pairs | convex ground | SDF] (the
 pruned branch appends its compacted pairs), solve them (kernel K2 in the
-first two branches, the banded Jacobi solve in the third, the dynamic
-solve under sap), the joints, integrate positions, clamp the CCD bodies'
-motion, add the projection's dpos, update sleep. ``update`` steps the
+first two branches, or the reference's jnp solve under
+``solver_backend="jnp"``; the banded Jacobi solve in the third, the
+dynamic solve under sap), the joints, integrate positions, clamp the CCD
+bodies' motion, add the projection's dpos (or run the jnp projection),
+update sleep. ``update`` steps the
 character controllers and writes them and the dynamic bodies back to
 their entities' local transforms.
 """
@@ -467,6 +469,9 @@ def _scatter(x, idx, nb: int):
     return torch.zeros(x.shape[:-1] + (nb,), dtype=x.dtype, device=x.device).index_add_(-1, idx, x)
 
 
+SOLVER_BACKENDS = ("auto", "pallas", "jnp")
+
+
 class PhysicsModule(IModule):
     name = "physics"
     # component type → its DenseStore attribute (the world blob's contract;
@@ -479,9 +484,18 @@ class PhysicsModule(IModule):
                  max_joints: int = 64, points_per_pair: int = 4, ground_slots_per_body: int = 4,
                  solver_iterations: int = 10, position_iterations: int = 3,
                  broadphase: str = "auto", sap_neighbors: int = 16, sap_threshold: int = 256,
-                 sap_sweeps: int = 4, pair_budget: Optional[int] = None,
+                 sap_sweeps: int = 4, solver_backend: str = "auto",
+                 pair_budget: Optional[int] = None,
                  pruned_threshold: int = 192, pruned_margin: float = 0.05):
         super().__init__(world, system)
+        # the contact solve of the all-pairs and pruned branches: "auto" and
+        # "pallas" run kernel K2 on a CUDA device ("auto" runs its plain
+        # version on the CPU, "pallas" raises there); "jnp" runs the
+        # reference's jnp solve (physics_ops.solve_contacts, then
+        # project_positions after integration), only when asked for
+        if solver_backend not in SOLVER_BACKENDS:
+            raise ValueError(f"solver_backend {solver_backend!r}: one of {SOLVER_BACKENDS}")
+        self.solver_backend = solver_backend
         # "auto": banded above sap_threshold actor slots, else pruned above
         # pruned_threshold candidate pairs, else all-pairs; "allpairs",
         # "pruned", "banded" and "sap" force a branch
@@ -1098,10 +1112,25 @@ class PhysicsModule(IModule):
         elif st.sap:
             vel, angvel, n_active, miss, proj = self._sap_solve(st, d, c)
         elif c.contacts is not None:
-            vel, angvel, lams, dpos = S.solve_contacts_fused(
-                pos, vel, angvel, c.contacts, d.inv_mass, c.iiw, c.dt_c, c.fric, c.rest,
-                iterations=self.solver_iterations, position_iterations=self.position_iterations,
-                warm_lambdas=c.warm, **self._solver_kwargs())
+            if self.solver_backend == "jnp":
+                inc_a, inc_b = P.incidences(c.contacts.body_a, c.contacts.body_b,
+                                            pos.shape[-1])
+                vel, angvel, lams = P.solve_contacts(
+                    pos, rot, vel, angvel, c.contacts, d.inv_mass, c.iiw, inc_a, inc_b,
+                    c.dt_c, c.fric, c.rest, iterations=self.solver_iterations,
+                    warm_lambdas=c.warm, return_lambdas=True, **self._solver_kwargs())
+                cts = c.contacts
+                proj = lambda p: P.project_positions(  # noqa: E731
+                    p, cts, d.inv_mass, inc_a, inc_b, iterations=self.position_iterations)
+            else:
+                if self.solver_backend == "pallas" and pos.device.type != "cuda":
+                    raise ValueError(f"solver_backend 'pallas' runs kernel K2 on a CUDA "
+                                     f"device; this world's state is on {pos.device}")
+                vel, angvel, lams, dpos = S.solve_contacts_fused(
+                    pos, vel, angvel, c.contacts, d.inv_mass, c.iiw, c.dt_c, c.fric, c.rest,
+                    iterations=self.solver_iterations,
+                    position_iterations=self.position_iterations,
+                    warm_lambdas=c.warm, **self._solver_kwargs())
             ms = ms.replace(lam_n=lams[0], lam_t1=lams[1], lam_t2=lams[2], pair_key=c.pair_key)
             n_active = torch.sum(c.contacts.active, dim=-1).to(torch.int32)
             miss = c.miss if st.pruned else zero

@@ -280,7 +280,30 @@ def test_profiler_view_and_its_dock_match_reference(tmp_path, monkeypatch):
 
 # -- tests/test_signal_editor.py ------------------------------------------------------------
 
-def test_signal_cycle_with_undo_matches_reference(tmp_path):
+@pytest.fixture
+def own_registries():
+    """Each package's reflection registry holding only what the package
+    registers itself: its built-in schemas and the script module's signal
+    function. The registries are process-global, and other test files add
+    modules to the JAX one (a ``test_sink``, a light's ``turn_off``); the
+    signal editor lists and cycles through every registered event and
+    function, so what ran earlier in the process would show in its lists."""
+    saved = []
+    for pkg in PKG:
+        reflection = mod(pkg, "engine.reflection")
+        signal_call = mod(pkg, "script.module")._signal_call
+        modules = reflection.registry.modules
+        saved.append((modules, dict(modules)))
+        modules.clear()
+        reflection.register_builtin_components()
+        reflection.registry.module("script").func("call", signal_call)
+    yield
+    for modules, before in saved:
+        modules.clear()
+        modules.update(before)
+
+
+def signal_cycle(tmp_path):
     def script(pkg, d):
         engine = mod(pkg, "app").create_full_engine(**engine_kw(pkg))
         world = engine.create_world(capacity=8)
@@ -308,6 +331,24 @@ def test_signal_cycle_with_undo_matches_reference(tmp_path):
         return log
 
     compare_runs(script, tmp_path)
+
+
+def test_signal_cycle_with_undo_matches_reference(tmp_path, own_registries):
+    signal_cycle(tmp_path)
+
+
+def test_signal_cycle_after_a_foreign_registration_matches_reference(tmp_path, request):
+    """tests/test_gui_audio.py registers a ``test_sink`` module into the JAX
+    registry; a signal cycle run after it in the same process compares the
+    same lists as one run alone."""
+    reflection = mod("jax", "engine.reflection")
+    reflection.register_builtin_components()
+    modules = reflection.registry.modules
+    before = dict(modules)
+    request.addfinalizer(lambda: (modules.clear(), modules.update(before)))
+    reflection.registry.module("test_sink").func("record", lambda module, entity: None)
+    request.getfixturevalue("own_registries")
+    signal_cycle(tmp_path)
 
 
 # -- tests/test_prefab_workflow.py ----------------------------------------------------------

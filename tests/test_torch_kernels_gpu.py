@@ -934,3 +934,68 @@ def test_editor_path_and_dry_run_on_the_card(cuda, tmp_path):
     out = {}
     assert dryrun.main(2, "cuda", out=out) == 0
     assert out["pos_gap"] <= dryrun.CARD_POS_ATOL and out["visible_total"] > 0
+
+
+def test_cull_launches_k1_and_matches_plain(cuda):
+    """renderer/culling_system.cull on the card launches K1 once a call and
+    equals its plain version bit for bit on the same operands, on a store
+    with empty slots and a batch of worlds with a view each."""
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.renderer import culling_system as CS
+
+    w, n, k = 64, 3000, 2048
+    g = torch.Generator(device=cuda).manual_seed(15)
+    entity = torch.randperm(n, generator=g, device=cuda)[:k].to(torch.int32)
+    entity[::9] = -1
+    radius = torch.rand(k, generator=g, device=cuda) * 3.0
+    pos = (torch.rand((w, 3, n), generator=g, device=cuda) - 0.5) * 120.0
+    scale = (torch.rand((w, 3, n), generator=g, device=cuda) - 0.5) * 4.0
+    planes, _ = _random_views(cuda, w, 15)
+    cs = CS.CullingState(entity=entity, radius=radius)
+    before = cull.frustum_cull_cuda.launches
+    got = CS.cull(cs, pos, scale, planes)
+    torch.cuda.synchronize()
+    assert cull.frustum_cull_cuda.launches == before + 1
+    e = entity.clamp_min(0).long()
+    centers = pos.index_select(-1, e).contiguous()
+    radii = (radius * scale.index_select(-1, e).abs().amax(dim=-2)).contiguous()
+    ref = cull.frustum_cull_plain(centers, radii, planes) & (entity >= 0)
+    assert torch.equal(got, ref)
+    assert 0 < int(got.sum()) < got.numel()
+
+
+def test_solver_backends_on_the_card(cuda):
+    """The PhysicsModule's solver_backend on the card: "auto" and "pallas"
+    launch K2 once a frame and give the same state; "jnp" launches it never
+    and, from piled bodies, agrees with them after a frame within K2's own
+    limit against its plain version; K2 against plain on the frame's
+    contact set. (auto and pallas are one path; the step's float
+    scatter-adds may sum in another order from call to call.)"""
+    from lumixengine_tpu_torch.models.demo_scenes import full_frame_world, pile_bodies
+    from lumixengine_tpu_torch.ops import solver as S
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, *_ = full_frame_world(2048, 0, 64, 0)
+    pm = world.modules["physics"]
+    assert pm.statics().pruned
+    step = engine.build_step(world, cuda, extra=world.modules["renderer"].cull_pass)
+    start = pile_bodies(replicate_state(world.device_state(cuda), 16,
+                                        torch.Generator(device=cuda).manual_seed(0)))
+    out = {}
+    for backend in ("auto", "pallas", "jnp"):
+        pm.solver_backend = backend
+        before = S.solve_cuda.launches
+        s = start
+        for _ in range(3):
+            s = step(s, 1.0 / 60.0)
+        torch.cuda.synchronize()
+        out[backend] = (s.modules["physics"], step(start, 1.0 / 60.0).modules["physics"])
+        assert S.solve_cuda.launches - before == (0 if backend == "jnp" else 4), backend
+    pm.solver_backend = "auto"
+    for f in ("pos", "rot", "vel", "angvel"):
+        torch.testing.assert_close(getattr(out["pallas"][0], f), getattr(out["auto"][0], f),
+                                   rtol=0, atol=1e-6)
+        torch.testing.assert_close(getattr(out["jnp"][1], f), getattr(out["auto"][1], f),
+                                   rtol=0, atol=S.K2_PLAIN_ATOL)
+    assert int(out["auto"][1].counters["active_contacts"].sum()) > 0
+    _check_k2(pm.solver_problem(start, 1.0 / 60.0))

@@ -16,6 +16,7 @@ SOURCES.append(ROOT / "chip_smoke.py")
 SOURCES.append(ROOT / "tools" / "host_tier.py")
 SOURCES.append(ROOT / "tools" / "asset_tier.py")
 SOURCES.append(ROOT / "tools" / "editor_tier.py")
+SOURCES.append(ROOT / "tools" / "surface_tier.py")
 # the editor's host views and app, and the world sharding's dry run (the modules that joined
 # the package last)
 EDITOR_AND_SHARDING = [f"lumixengine_tpu_torch/editor/{m}.py" for m in (
@@ -50,6 +51,7 @@ def test_the_scan_sees_the_package():
     assert "lumixengine_tpu_torch/core/os_terminal.py" in names
     assert "lumixengine_tpu_torch/editor/game_view.py" in names
     assert "tools/editor_tier.py" in names
+    assert "tools/surface_tier.py" in names
     assert len(names) >= 20
 
 

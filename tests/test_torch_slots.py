@@ -255,19 +255,6 @@ def test_five_steps_match_reference():
     assert np.abs(carry[0]).max() > 0              # the warm start carried impulses in
 
 
-@pytest.mark.parametrize("option", [dict(n_sweeps=1), dict(n_sweeps=5), dict(warm_start=False),
-                                    dict(mass_split=False), dict(sleeping=False)])
-def test_classic_tier_is_refused(option):
-    """Only the published tier is ported: the reference's classic-tier
-    options raise, in the step and (for the sweep count) in build_slots."""
-    with pytest.raises(NotImplementedError, match="published tier"):
-        PS.make_slot_world_step(*_mats(4), **SLOT_KW, **option)
-    if "n_sweeps" in option:
-        mn, mx, occ, _ = _aabbs(16, seed=0)
-        with pytest.raises(NotImplementedError, match="4 column sweeps"):
-            PS.build_slots(_t(mn), _t(mx), _t(occ), _t(occ), option["n_sweeps"], 4, 4)
-
-
 # ---------------------------------------------------------------- properties
 
 def _run(step, body, frames, carry=None, consts=None):
