@@ -234,6 +234,19 @@ Phases, each printed on its own line:
      over 16 animators against the host's formula; a flagship step with the
      floating-point traps on, then one on a NaN velocity, which must raise
      FloatingPointError naming the field;
+  16. the JAX classes' last members (printed before phase 8's timings; alone:
+     tools/members_tier.py): headless_demo_world(2048) at 1024 worlds, every
+     model instance re-pointed through the reflection registry after one
+     frame, 3 frames card against the CPU on 2 worlds (mi_lod, mi_visible,
+     mi_model equal in every slot; the view statics equal statics built
+     anew), RenderModule.set_model's model and cull radius; the flagship at
+     1024 worlds, its bodies piled, its animables' clip and time_scale and
+     its animators' controller set through the registry and one input
+     through set_animator_input, 3 frames card against the CPU (poses and
+     palettes within POSE_ATOL; the groups read the new time scales); ms a
+     frame with build_palettes on and off (median and spread of CUDA
+     events), the palette untouched with it off; K1 and K2 against their
+     plain versions on the phase's operands, with their launches;
   8. timings with CUDA events: ms/frame and entity-steps/s of each path
      (demo and render included), the cluster pass against its bound
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
@@ -391,6 +404,11 @@ SURFACE_SLOT_TIERS = {"n_sweeps=1": dict(n_sweeps=1), "warm_start=False": dict(w
                                        sleeping=False)}
 SURFACE_ANIMATORS = 16
 SURFACE_SKIN_ATOL = 1e-4
+# phase 16, the JAX classes' last members: the demo's worlds, the worlds run again on the CPU,
+# the frames after each edit, and the palette timing's frames a run (after its warm frames),
+# four runs in the order on, off, off, on
+MEMBERS_DEMO_WORLDS, MEMBERS_CPU_WORLDS, MEMBERS_EDIT_FRAMES = 1024, 2, 3
+MEMBERS_PALETTE_WARM, MEMBERS_PALETTE_FRAMES = 3, 12
 BLOB_UNCARRIED = ("modules.script.",)
 INSTANCE_ROWS = ("modules.renderer.mi_", "modules.renderer.culling.", "modules.renderer.prev_")
 DEVICE = "cuda:0"
@@ -473,7 +491,7 @@ def k1_check(centers, radii, plane_sets):
     return bad, err, fracs
 
 
-def k1_on_path(name, world, state):
+def k1_on_path(name, world, state, phase="5"):
     """K1 against its plain version on the operands the path's cull pass
     gives it at the path's own W and K: the world camera and a random view
     per world. Raises on a mismatch."""
@@ -486,7 +504,7 @@ def k1_on_path(name, world, state):
     bad, err, fracs = k1_check(centers, radii, (frustum.planes.contiguous(),
                                                 random_planes(w, centers.device)))
     shape = list(centers.shape)
-    log(f"[5 {name}] K1 on the path's own operands {shape}, world camera and random views: "
+    log(f"[{phase} {name}] K1 on the path's own operands {shape}, world camera and random views: "
         f"{bad} mismatches with the plain version (visible fractions "
         f"{[float(f'{f:.4f}') for f in fracs]})")
     if bad:
@@ -662,6 +680,11 @@ def main() -> int:
     surface = run_surface_tier(dev, card)
     mark("phase 15")
 
+    # 16. the JAX classes' last members: property edits through the registry on the demo and
+    # the flagship, set_model, set_animator_input, the palette's cost
+    members = run_members_tier(dev, card)
+    mark("phase 16")
+
     # 8. timings
     k1_ms, k1_plain = alternate(lambda: cull.frustum_cull_plain(centers, radii, cam_planes),
                                 lambda: cull.frustum_cull_cuda(centers, radii, cam_planes), 20)
@@ -718,6 +741,7 @@ def main() -> int:
     k1_paths["asset_tier"] = assets["k1"]
     k1_paths["editor_tier"] = editor["k1"]
     k1_paths["surface_tier"] = surface["k1"]
+    k1_paths.update({f"members_tier {k}": r for k, r in members["k1"].items()})
     k1_bad += sum(r["mismatches"] for r in k1_paths.values())
     k1_err = max(k1_err, *(r["max_abs_err"] for r in k1_paths.values()))
     log(f"[8 goldens] card vs CPU over the first {GAP_STEPS} steps of the arcs: {gaps}")
@@ -741,6 +765,7 @@ def main() -> int:
     k2_shapes["asset tier"] = [assets["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["editor tier"] = [editor["k2"][k] for k in ("W", "NB", "C")]
     k2_shapes["surface tier"] = [surface["k2"][k] for k in ("W", "NB", "C")]
+    k2_shapes["members tier"] = [members["k2"][k] for k in ("W", "NB", "C")]
     piles = sim["piles"]
     log(f"[8 time] {card}: sap pile {sim['sap']['ms']:.3f} ms/step at W={SAP_WORLDS} = "
         f"{sim['sap']['rate']:.4g} body-steps/s ({sim['sap']['ops']} ops/step); "
@@ -777,6 +802,7 @@ def main() -> int:
          "launches_editor_tier": editor["launches"]["K1"],
          "launches_dryrun": editor["dryrun"]["launches"]["K1"],
          "launches_surface_tier": surface["launches"]["K1"],
+         "launches_members_tier": members["launches"]["K1"],
          "launches_sim_tier_physics": {k: v["K1"] for k, v in sim_launches.items()
                                        if k != "layered"},
          "launches_physics": goldens["launches"]["K1"] + banded["launches"]["K1"]
@@ -809,6 +835,8 @@ def main() -> int:
          "launches_surface_tier": surface["launches"]["K2"],
          "launches_surface_backends": surface["k2_backends"],
          "surface_tier": surface["k2"],
+         "launches_members_tier": members["launches"]["K2"],
+         "members_tier": members["k2"],
          "launches_goldens": goldens["launches"]["K2"],
          "launches_farm": {name: r["launches"]["K2"] for name, r in farms.items()},
          "launches_banded": banded["launches"]["K2"],
@@ -817,6 +845,7 @@ def main() -> int:
          "max_abs_err": max(k2_err, goldens["k2_err"], scripts["k2"]["max_abs_err"],
                             host["k2"]["max_abs_err"], assets["k2"]["max_abs_err"],
                             editor["k2"]["max_abs_err"], surface["k2"]["max_abs_err"],
+                            members["k2"]["max_abs_err"],
                             *(r["k2"]["max_abs_err"] for r in (*farms.values(),
                                                                *game.values()))),
          "checked_shapes": {"[W, NB, C]": k2_shapes},
@@ -2386,6 +2415,267 @@ def run_surface_tier(dev, card):
         f"steps): {launches}")
     return out
 
+
+def _cull_gaps(gpu, cpu):
+    """Slots whose mi_lod, mi_visible or mi_model differ between the card's
+    first worlds and the CPU's run of them."""
+    rg, rc = gpu.modules["renderer"], cpu.modules["renderer"]
+    n = rc.mi_lod.shape[0]
+    return {f: int((getattr(rg, f)[:n].cpu() != getattr(rc, f)).sum())
+            for f in ("mi_lod", "mi_visible", "mi_model")}
+
+
+def _edit_frames(engine, world, state, cpu, frames, compare):
+    """`frames` frames from an edit: the steps built anew for the card and
+    the CPU, the launch counts set to 0 just before the card's frames and
+    read just after, compare(card state, CPU state) after each frame.
+    Returns (card state, CPU state, the comparisons, launches)."""
+    import torch
+
+    rm = world.modules["renderer"]
+    step = engine.build_step(world, state.local.pos.device, extra=rm.cull_pass)
+    cpu_step = engine.build_step(world, "cpu", extra=rm.cull_pass)
+    seen = []
+    torch.cuda.synchronize()
+    _zero_launches()
+    for _ in range(frames):
+        state, cpu = step(state, DT), cpu_step(cpu, DT)
+        seen.append(compare(state, cpu))
+    torch.cuda.synchronize()
+    return state, cpu, seen, _launches()
+
+
+def run_members_tier(dev, card):
+    """Phase 16: the JAX classes' last public members on the card, driven
+    through the paths that launch K1 and K2.
+
+    1. The demo (headless_demo_world(DEMO_ENTITIES)) at MEMBERS_DEMO_WORLDS
+       worlds: one frame, then every model instance re-pointed to (old + 1)
+       mod 4 through reflection.registry.set_property, then
+       MEMBERS_EDIT_FRAMES frames on the card and, from the same state, on
+       the CPU for MEMBERS_CPU_WORLDS worlds: mi_lod, mi_visible and
+       mi_model equal in every slot; the view statics equal statics built
+       anew; the edit moved LODs. Then RenderModule.set_model on one
+       instance: its model, its cull radius in the store and the statics,
+       one frame card against CPU.
+    2. The flagship (its bodies piled, so that K2 has contacts) at WORLDS
+       worlds with a second controller: one frame, then each animable's clip
+       and time_scale and every other animator's controller set through
+       the registry, one animator's speed through set_animator_input (the
+       inputs taken from the module's defaults, as a state built anew
+       carries them), MEMBERS_EDIT_FRAMES frames card against CPU: poses and
+       palettes within POSE_ATOL, clocks within CLOCK_ATOL; the groups read
+       the new time scales, and the first frame's clocks advanced by them.
+    3. The palette's cost at WORLDS worlds: ms a frame with build_palettes
+       on and off (MEMBERS_PALETTE_FRAMES frames a run after
+       MEMBERS_PALETTE_WARM, runs on, off, off, on; the median and the
+       spread of CUDA events a frame); with it off the palette is untouched.
+    4. K1 on the demo's and the flagship's end states bit for bit, K2 on the
+       flagship's contact set within K2_PLAIN_ATOL, against their plain
+       versions.
+    Returns the launches over the parts that drive the path (1-3), K1's and
+    K2's records and the palette's timing. No part falls back: any failure
+    raises."""
+    import numpy as np
+    import torch
+
+    from lumixengine_tpu_torch.animation.controller import (AnimationNode, Blend1D, Controller,
+                                                            Input)
+    from lumixengine_tpu_torch.engine import reflection
+    from lumixengine_tpu_torch.engine.world import map_tensors
+    from lumixengine_tpu_torch.models.demo_scenes import (full_frame_world, headless_demo_world,
+                                                          pile_bodies)
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+    from lumixengine_tpu_torch.renderer.pipeline import ViewStatics
+
+    dev = torch.device(dev)
+    reflection.register_builtin_components()
+    reg = reflection.registry
+    launches = {"K1": 0, "K2": 0}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def first(state):
+        return map_tensors(lambda t: t[:MEMBERS_CPU_WORLDS].to("cpu"), state)
+
+    def one_frame(engine, world, state):
+        torch.cuda.synchronize()
+        _zero_launches()
+        state = engine.build_step(world, dev, extra=world.modules["renderer"].cull_pass)(state, DT)
+        torch.cuda.synchronize()
+        count(_launches())
+        return state
+
+    out = {"k1": {}}
+    # 1. the demo: the model instances re-pointed through the registry, then set_model
+    engine, world, rsys = headless_demo_world(DEMO_ENTITIES)
+    rm = world.modules["renderer"]
+    store = rm.model_instances
+    state = one_frame(engine, world, replicate_state(
+        world.device_state(dev), MEMBERS_DEMO_WORLDS, torch.Generator(device=dev).manual_seed(16)))
+    before = state.modules["renderer"].mi_lod.clone()
+    ents = [int(e) for e in store.entity[store.mask()]]
+    for e in ents:
+        reg.set_property(world, e, "model_instance", "model", (int(store.get(e, "model")) + 1) % 4)
+    dropped = rm._statics is None
+    state, _cpu, gaps, got = _edit_frames(engine, world, state, first(state),
+                                          MEMBERS_EDIT_FRAMES, _cull_gaps)
+    count(got)
+    moved = int((state.modules["renderer"].mi_lod != before).sum())
+    # the view statics and their tensors on the card equal statics built anew from the stores
+    st, built = rm.statics(), ViewStatics(rm)
+    fresh = all(np.array_equal(getattr(st, f), getattr(built, f))
+                and np.array_equal(getattr(st.on(dev), f).cpu().numpy(), getattr(built, f))
+                for f in ("lod_dist2", "material", "mi_model", "radius"))
+    log(f"[16 demo] {card}: headless_demo_world({DEMO_ENTITIES}) at W={MEMBERS_DEMO_WORLDS}, "
+        f"{len(ents)} model instances re-pointed through the registry after frame 1 (statics "
+        f"dropped by the setter {dropped}); {MEMBERS_EDIT_FRAMES} frames, launches {got}; card vs "
+        f"CPU on {MEMBERS_CPU_WORLDS} worlds, slots that differ per frame: {gaps}; mi_lod changed "
+        f"by the edit in {moved} of {before.numel()} slots; view statics equal statics built anew "
+        f"{fresh}")
+    if (not dropped or any(sum(g.values()) for g in gaps) or not fresh or moved == 0
+            or got != {"K1": MEMBERS_EDIT_FRAMES, "K2": 0}):
+        raise AssertionError(f"the demo's model edit: dropped {dropped}, gaps {gaps}, statics "
+                             f"fresh {fresh}, moved {moved}, launches {got}")
+    e = ents[0]
+    name = next(n for n in ("tree", "rock", "cube") if rsys.models.get_id(n) != store.get(e, "model"))
+    mid = rsys.models.get_id(name)
+    radius = np.float32(rsys.models.get(mid).bounding_radius)
+    rm.set_model(e, name)
+    slot = store.slot_of(e)
+    st = rm.statics()
+    held = {"model": int(store.get(e, "model")) == mid,
+            "store radius": bool(rm.culling.store.get(e, "radius") == radius),
+            "statics radius": bool(st.radius[slot] == radius),
+            "card radius": bool(float(st.on(dev).radius[slot]) == radius),
+            "statics model": int(st.mi_model[slot]) == mid}
+    state, _cpu, set_gaps, got = _edit_frames(engine, world, state, first(state), 1, _cull_gaps)
+    count(got)
+    log(f"[16 set_model] {card}: entity {e} to {name!r} (id {mid}, bounding radius {radius}): "
+        f"{held}; one frame card vs CPU, slots that differ {set_gaps}; launches {got}")
+    if not all(held.values()) or any(sum(g.values()) for g in set_gaps):
+        raise AssertionError(f"set_model: {held}, gaps {set_gaps}")
+    out["k1"]["demo"] = k1_on_path("members demo", world, state, phase="16")
+    out["demo"] = {"gaps": gaps, "moved": moved, "set_model_gaps": set_gaps}
+    del state, before
+
+    # 2. the flagship: animables, animators and an input edited
+    engine, world, *_r, anim, _p = full_frame_world(N_ENTITIES, N_CHARACTERS, N_BODIES,
+                                                    N_PARTICLES)
+    stride = anim.add_controller(Controller(
+        "stride", anim.bank_statics,
+        Blend1D(Input(0), [(0.0, AnimationNode(1)), (2.0, AnimationNode(2))]), inputs=["speed"]))
+    am, pm = world.modules["animation"], world.modules["physics"]
+    state = one_frame(engine, world, pile_bodies(replicate_state(
+        world.device_state(dev), WORLDS, torch.Generator(device=dev).manual_seed(16))))
+    animables = [int(x) for x in am.animables.entity[am.animables.mask()]]
+    for i, x in enumerate(animables):
+        reg.set_property(world, x, "animable", "clip", (int(am.animables.get(x, "clip")) + 1) % 3)
+        reg.set_property(world, x, "animable", "time_scale", 0.5 + 0.25 * (i % 8))
+    ators = [int(x) for x in am.animators.entity[am.animators.mask()]]
+    for x in ators[::2]:
+        reg.set_property(world, x, "animator", "controller", stride)
+    am.set_animator_input(ators[1], "speed", 3.7)
+    inputs = torch.as_tensor(am.default_inputs, device=dev)
+    ms = state.modules["animation"]
+    state = state.replace(modules={**state.modules, "animation": ms.replace(
+        ctrl_inputs=inputs.expand(ms.ctrl_inputs.shape).clone())})
+    clocks = [state.modules["animation"].an_time[:MEMBERS_CPU_WORLDS].cpu()]
+
+    def anim_gap(gpu, cpu):
+        ga, ca = gpu.modules["animation"], cpu.modules["animation"]
+        clocks.append(ca.an_time)
+        return {f: float((getattr(ga, f)[:MEMBERS_CPU_WORLDS].cpu() - getattr(ca, f)).abs().max())
+                for f in ("an_time", "ctrl_clocks", "pose_pos", "pose_rot", "palette")}
+
+    cpu = first(state)
+    state, cpu, errs, got = _edit_frames(engine, world, state, cpu, MEMBERS_EDIT_FRAMES, anim_gap)
+    count(got)
+    st = am.statics()
+    scales = {float(v) for g in st.an_groups for v in g["scale"]}
+    reads = all(np.array_equal(g["scale"], am.animables.data["time_scale"][g["cols"]])
+                and np.array_equal(gd.scale.cpu().numpy(), g["scale"])
+                for g, gd in zip(st.an_groups, st.on(dev).an))
+    # the first frame after the edit advanced each animable's clock by dt at its new scale
+    col_scale, col_len = torch.zeros_like(clocks[0][0]), torch.ones_like(clocks[0][0])
+    for g in st.an_groups:
+        col_scale[g["cols"]] = torch.as_tensor(g["scale"])
+        col_len[g["cols"]] = torch.as_tensor(g["lengths"])
+    used = torch.as_tensor(am.animables.entity >= 0)
+    expect = torch.remainder(clocks[0] + torch.tensor(DT) * col_scale, col_len)
+    advance = float((clocks[1] - expect)[..., used].abs().max())
+    controllers = sorted({g["controller"].name for g in st.at_groups})
+    worst = {f: max(e[f] for e in errs) for f in errs[0]}
+    log(f"[16 anim] {card}: the flagship at W={WORLDS}, bodies piled; after frame 1, "
+        f"{len(animables)} animables' clip and time_scale and {len(ators[::2])} of {len(ators)} "
+        f"animators' controller set through the registry, entity {ators[1]}'s speed through "
+        f"set_animator_input (default {float(am.default_inputs[0, am.animators.slot_of(ators[1])])});"
+        f" {MEMBERS_EDIT_FRAMES} frames, launches {got}; card vs CPU on {MEMBERS_CPU_WORLDS} worlds,"
+        f" max abs err {worst} (poses and palettes limit {POSE_ATOL:g}, clocks {CLOCK_ATOL:g}); "
+        f"groups read the new time scales {reads} ({sorted(scales)}), the first frame's clocks "
+        f"{advance:.3e} from dt at them, controllers {controllers}")
+    if (not reads or not advance <= 1e-6 or worst["pose_pos"] > POSE_ATOL or worst["pose_rot"] > POSE_ATOL
+            or worst["palette"] > POSE_ATOL or worst["an_time"] > CLOCK_ATOL
+            or worst["ctrl_clocks"] > CLOCK_ATOL or controllers != ["locomotion", "stride"]
+            or scales != {0.5 + 0.25 * i for i in range(min(8, len(animables)))}
+            or got != {"K1": MEMBERS_EDIT_FRAMES, "K2": MEMBERS_EDIT_FRAMES}):
+        raise AssertionError(f"the flagship's animation edits: {worst}, reads {reads}, "
+                             f"controllers {controllers}, scales {scales}, launches {got}")
+    del cpu, clocks
+
+    # 3. the palette's cost
+    step = engine.build_step(world, dev, extra=world.modules["renderer"].cull_pass)
+    runs = {True: [], False: []}
+    untouched = True
+    torch.cuda.synchronize()
+    _zero_launches()
+    for on in (True, False, False, True):
+        am.build_palettes = on
+        pal = state.modules["animation"].palette.clone()
+        for f in range(MEMBERS_PALETTE_WARM + MEMBERS_PALETTE_FRAMES):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            state = step(state, DT)
+            ev1.record()
+            if f >= MEMBERS_PALETTE_WARM:
+                runs[on].append((ev0, ev1))
+        torch.cuda.synchronize()
+        if not on:
+            untouched &= bool(torch.equal(state.modules["animation"].palette, pal))
+    am.build_palettes = True
+    got = _launches()
+    count(got)
+    frames = 4 * (MEMBERS_PALETTE_WARM + MEMBERS_PALETTE_FRAMES)
+    timing = {}
+    for on, evs in runs.items():
+        ms = sorted(a.elapsed_time(b) for a, b in evs)
+        timing["on" if on else "off"] = {"median_ms": float(np.median(ms)),
+                                         "spread_ms": ms[-1] - ms[0], "frames": len(ms)}
+    cost = timing["on"]["median_ms"] - timing["off"]["median_ms"]
+    log(f"[16 palettes] {card}: the flagship at W={WORLDS}, ms a frame (median of "
+        f"{2 * MEMBERS_PALETTE_FRAMES} CUDA-event frames in runs on, off, off, on; spread max - "
+        f"min): build_palettes on {timing['on']['median_ms']:.3f} (spread "
+        f"{timing['on']['spread_ms']:.3f}), off {timing['off']['median_ms']:.3f} (spread "
+        f"{timing['off']['spread_ms']:.3f}); the palette's cost {cost:.3f} ms a frame; palette "
+        f"untouched with it off {untouched}; launches {got} over {frames} frames")
+    if not untouched or got != {"K1": frames, "K2": frames}:
+        raise AssertionError(f"build_palettes: untouched {untouched}, launches {got}")
+    out["palettes"] = {**timing, "cost_ms": cost}
+
+    # 4. the kernels on the phase's own operands
+    out["k1"]["flagship"] = k1_on_path("members flagship", world, state, phase="16")
+    out["k2"] = k2_on_state(pm, state, "the members tier")
+    log(f"[16 K2] {card}: on the phase's contact set W={out['k2']['W']} NB={out['k2']['NB']} "
+        f"C={out['k2']['C']} active {out['k2']['active']}: max abs err vs plain "
+        f"{out['k2']['max_abs_err']:.3e} (limit 1e-4), {out['k2']['ms']:.4f} ms (plain "
+        f"{out['k2']['plain_ms']:.4f} ms, bound {out['k2']['bound_ms']:.4f} ms, share "
+        f"{out['k2']['share_of_bound']:.4f})")
+    out["launches"] = launches
+    log(f"[16 launches] {card}: over the phase's path (the demo's edit and set_model frames, the "
+        f"flagship's edit and palette frames): {launches}")
+    return out
 
 
 def k1_on_state(label, world, state):

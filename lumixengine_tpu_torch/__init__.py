@@ -15,7 +15,10 @@ world blob, prefabs and checkpoints (``engine/serialize.py``), the ``.unv``
 importer and writer with ``importers/instantiate.py``, shipped navmeshes and
 the per-phase cost model; the asset codecs (FBX with its ``.meta`` sidecar,
 ``.anm``, ``.mat``, composite textures) and the asset compiler, the terminal
-UI (``app.main --tui``), and the editor's views that drive the device (game
-view, animation graph, particle script, voxelizer). The editor's host-only
-views and its app are not ported yet (ROADMAP Queue 1 item 7.6).
+UI (``app.main --tui``), the editor (``editor/app.py``'s ``EditorApp``, its
+command stack, its host views and the views that drive the device: game
+view, scene view, animation graph, particle script, voxelizer) and the
+sharded step (``parallel/mesh.py``). Every public name, class member and
+parameter of the JAX package has its counterpart here, or a reason written
+beside it in ``tests/test_torch_surface_helpers.py``.
 """

@@ -75,6 +75,21 @@ class Clip:
     def length_seconds(self) -> float:
         return max(self.frame_count - 1, 1) / self.fps
 
+    def sample_host(self, t: float, looping: bool = True):
+        """The host sampler (the tests' oracle): the 2-frame nlerp of the
+        reference's getRelativePose. Returns (pos [B, 3], rot [B, 4])."""
+        length = self.length_seconds
+        if looping:
+            t = t % length
+        t = min(max(t, 0.0), length)
+        ff = t * self.fps
+        f0 = int(np.floor(ff))
+        f1 = min(f0 + 1, self.frame_count - 1)
+        a = np.float32(ff - f0)
+        pos = self.pos[f0] * (1 - a) + self.pos[f1] * a
+        rot = hm.quat_normalize(self.rot[f0] * (1 - a) + self.rot[f1] * a)
+        return pos, rot
+
 
 class ClipBank:
     """The baked clip bank (host numpy) and its tensors per device.
@@ -158,6 +173,9 @@ class ClipRegistry:
 
     def get_id(self, name: str) -> int:
         return self._by_name[name]
+
+    def get(self, cid: int) -> Clip:
+        return self.clips[cid]
 
     def bake(self, max_bones: int):
         """→ (ClipBank, ClipBankStatics). Bones padded to max_bones with

@@ -40,8 +40,6 @@ from lumixengine_tpu_torch.ops import pose as pose_ops
 from lumixengine_tpu_torch.ops import sampling, skinning
 from lumixengine_tpu_torch.utils.store import DenseStore
 
-MAX_CONTROLLER_INPUTS = 8
-
 # (component, property) → the RenderState field and the renderer store whose
 # slot indexes it: the device rows a property animator drives
 _DEVICE_PROP_TARGETS = {
@@ -183,16 +181,20 @@ class AnimationModule(IModule):
     COMPONENT_STORES = {"animable": "animables", "animator": "animators"}
 
     def __init__(self, world: World, system: "AnimationSystem",
-                 max_animables: int = 1024, max_animators: int = 256):
+                 max_animables: int = 1024, max_animators: int = 256,
+                 max_controller_inputs: int = 8, build_palettes: bool = True):
         super().__init__(world, system)
         self.animables = DenseStore(max_animables, {
             "clip": ((), np.int32, -1), "time_scale": ((), np.float32, 1.0),
             "start_time": ((), np.float32, 0.0)})
         self.animators = DenseStore(max_animators, {"controller": ((), np.int32, -1)})
-        self.default_inputs = np.zeros((MAX_CONTROLLER_INPUTS, max_animators), np.float32)
+        self.default_inputs = np.zeros((max_controller_inputs, max_animators), np.float32)
         self.property_animators: Dict[int, list] = {}
         self.pa_default_enabled: Dict[int, bool] = {}
         self._curves: Dict[str, dict] = {}   # device → {(entity, curve index): (times, values)}
+        # False: the phases leave `palette` as it was (a caller that skins
+        # from the poses itself saves the dual-quaternion pass)
+        self.build_palettes = build_palettes
         self._statics: Optional[AnimStatics] = None
         self._statics_version = -1
 
@@ -202,7 +204,7 @@ class AnimationModule(IModule):
         return ["animable", "animator", "property_animator"]
 
     def create_component(self, entity: int, ctype: str, **props):
-        self._statics = None
+        self.invalidate_statics()
         if ctype == "animable":
             clip = props.get("clip", -1)
             if isinstance(clip, str):
@@ -238,7 +240,7 @@ class AnimationModule(IModule):
             raise KeyError(ctype)
 
     def destroy_component(self, entity: int, ctype: str) -> None:
-        self._statics = None
+        self.invalidate_statics()
         if ctype == "animable":
             self.animables.remove(entity)
         elif ctype == "animator":
@@ -246,6 +248,14 @@ class AnimationModule(IModule):
         elif ctype == "property_animator":
             self.property_animators.pop(entity, None)
             self._curves.clear()
+
+    def set_animator_input(self, entity: int, name: str, value: float) -> None:
+        """The animator's host default for input `name` of its controller;
+        the next device_state carries it (a running state's inputs are
+        AnimState.ctrl_inputs)."""
+        slot = self.animators.slot_of(entity)
+        c = self.system.controllers[int(self.animators.data["controller"][slot])]
+        self.default_inputs[c.input_index(name), slot] = np.float32(value)
 
     # -- serialization ------------------------------------------------------------
 
@@ -269,6 +279,12 @@ class AnimationModule(IModule):
                 self.default_inputs[: len(vals), slot] = vals
 
     # -- statics / state --------------------------------------------------------
+
+    def invalidate_statics(self) -> None:
+        """Drop the group statics and the tensors cached on them; the next
+        statics() regroups from the stores (a reflected property edit calls
+        this)."""
+        self._statics = None
 
     def statics(self) -> AnimStatics:
         self.world._refresh_levels()
@@ -390,8 +406,9 @@ class AnimationModule(IModule):
                 apos, arot = self._ik_pass(ik_node, inputs_g, apos, arot)
             pose_pos = pose_pos.index_copy(-1, gd.pool_cols, apos)
             pose_rot = pose_rot.index_copy(-1, gd.pool_cols, arot)
-            palette = palette.index_copy(
-                -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
+            if self.build_palettes:
+                palette = palette.index_copy(
+                    -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
 
             # root motion → entity local transform: pos += rot * delta.pos,
             # rot = normalize(rot * delta.rot)
@@ -449,8 +466,9 @@ class AnimationModule(IModule):
             apos, arot = pose_ops.compute_absolute(p, r, g["plan"])
             pose_pos = pose_pos.index_copy(-1, gd.pool_cols, apos)
             pose_rot = pose_rot.index_copy(-1, gd.pool_cols, arot)
-            palette = palette.index_copy(
-                -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
+            if self.build_palettes:
+                palette = palette.index_copy(
+                    -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
             total += len(g["cols"])
 
         ms = ms.replace(an_time=an_time, pose_pos=pose_pos, pose_rot=pose_rot, palette=palette,
@@ -517,22 +535,21 @@ class AnimationSystem(ISystem):
 
     name = "animation_system"
 
-    MIN_BONES = 32  # the clip bank's bone rows, at least
-
-    def __init__(self, engine, renderer=None):
+    def __init__(self, engine, renderer=None, max_bones: int = 32):
         super().__init__(engine)
         self.clips = ClipRegistry()
         self.controllers: List[Controller] = []
         self._ctrl_by_name: Dict[str, int] = {}
         self.renderer = renderer
+        self._max_bones = max_bones   # the clip bank's bone rows, at least
         self._bank = None
         self._bank_statics = None
 
     @property
     def max_bones(self) -> int:
         if self.renderer is not None and len(self.renderer.models):
-            return max(self.MIN_BONES, self.renderer.bake().max_bones)
-        return self.MIN_BONES
+            return max(self._max_bones, self.renderer.bake().max_bones)
+        return self._max_bones
 
     def add_clip(self, clip) -> int:
         self._bank = None

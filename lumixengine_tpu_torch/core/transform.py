@@ -26,6 +26,20 @@ class Transform:
     def replace(self, **kw) -> "Transform":
         return dataclasses.replace(self, **kw)
 
+    @staticmethod
+    def identity(n: int, batch_shape=(), dtype=torch.float32, device=None) -> "Transform":
+        """`n` identity lanes, with leading `batch_shape` axes."""
+        bs = tuple(batch_shape)
+        rot = torch.zeros(bs + (4, n), dtype=dtype, device=device)
+        rot[..., 3, :] = 1.0
+        return Transform(pos=torch.zeros(bs + (3, n), dtype=dtype, device=device), rot=rot,
+                         scale=torch.ones(bs + (3, n), dtype=dtype, device=device))
+
+    @property
+    def lanes(self) -> int:
+        """N, the entity, bone or instance axis."""
+        return self.pos.shape[-1]
+
     def packed(self) -> torch.Tensor:
         """[..., 10, N] concatenation (pos|rot|scale): one gather moves all."""
         return torch.cat([self.pos, self.rot, self.scale], dim=AXIS)

@@ -47,6 +47,7 @@ class Engine:
     def __init__(self, time_multiplier: float = 1.0, base_path: str = "."):
         from lumixengine_tpu_torch.engine.file_system import FileSystem
         from lumixengine_tpu_torch.engine.input import InputSystem
+        from lumixengine_tpu_torch.engine.resource import ResourceManagerHub
 
         self.system_manager = SystemManager(self)
         self.time_multiplier = float(time_multiplier)
@@ -56,6 +57,7 @@ class Engine:
         self._smoother = TimeSmoother()
         self.game_running = False
         self.fs = FileSystem(base_path)
+        self.resources = ResourceManagerHub(self.fs)
         self.input = InputSystem()
 
     def add_system(self, system):

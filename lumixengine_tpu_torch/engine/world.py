@@ -68,7 +68,8 @@ class WorldState:
 class World:
     """Host-side scene container (the reference World's building API)."""
 
-    def __init__(self, capacity: int = 4096):
+    def __init__(self, capacity: int = 4096, allocator=None):
+        # `allocator` is accepted and unused, as in the reference
         self.capacity = int(capacity)
         n = self.capacity
         self.alive = np.zeros(n, bool)
@@ -301,6 +302,12 @@ class World:
 
     def set_position(self, e: int, p) -> None:
         self.set_global_transform(e, position=p)
+
+    def set_rotation(self, e: int, r) -> None:
+        self.set_global_transform(e, rotation=r)
+
+    def set_scale(self, e: int, s) -> None:
+        self.set_global_transform(e, scale=s)
 
     # -- names / partitions -------------------------------------------------------
 

@@ -52,6 +52,11 @@ class DrawStream:
         self._substreams.append(s)
         return s
 
+    def clear(self) -> None:
+        """Drop the recorded commands and substreams."""
+        self.commands = []
+        self._substreams = []
+
     def merge(self) -> None:
         for s in self._substreams:
             s.merge()

@@ -74,6 +74,7 @@ class Model:
     vertex_weights: Optional[np.ndarray] = None    # f32 [V,4] skin weights
     vertex_bones4: Optional[np.ndarray] = None     # int32 [V,4] skin bone ids
     vertex_bone: Optional[np.ndarray] = None       # int32 [V] dominant bone (the FBX importer's)
+    mesh_id: int = 0
 
     def __post_init__(self):
         if self.lod_distances is None:

@@ -166,11 +166,18 @@ class RenderModule(IModule):
             self._anim_statics = anim_statics
         return self._statics
 
+    def invalidate_statics(self) -> None:
+        """Drop the view statics and the tensors cached on them; the next
+        statics() rebuilds both from the stores (a reflected property edit
+        calls this)."""
+        self._statics = None
+        self._anim_statics = None
+
     def prepare_statics(self, device) -> None:
         self.statics().on(device)
 
     def create_component(self, entity: int, ctype: str, **props):
-        self._statics = None
+        self.invalidate_statics()
         if ctype == "model_instance":
             model_name = props.get("model")
             mid = (self.system.models.get_id(model_name) if isinstance(model_name, str)
@@ -245,7 +252,7 @@ class RenderModule(IModule):
             raise KeyError(ctype)
 
     def destroy_component(self, entity: int, ctype: str) -> None:
-        self._statics = None
+        self.invalidate_statics()
         if ctype == "particle_emitter":
             self.particle_emitters.pop(f"pe{entity}", None)
         elif ctype in _PLAIN_STORES:
@@ -265,6 +272,14 @@ class RenderModule(IModule):
             self.point_lights.remove(entity)
         elif ctype == "environment":
             self.env_entity = -1
+
+    def set_model(self, entity: int, model_name: str) -> None:
+        """Point a model instance at another model; its cull radius becomes
+        the new model's bounding radius."""
+        self.invalidate_statics()
+        mid = self.system.models.get_id(model_name)
+        self.model_instances.set(entity, "model", mid)
+        self.culling.set_radius(entity, self.system.models.get(mid).bounding_radius)
 
     # -- serialization (≙ RenderModule::serialize blob) ---------------------------
 

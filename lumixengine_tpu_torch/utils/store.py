@@ -87,6 +87,10 @@ class DenseStore:
             out[name] = torch.as_tensor(arr, device=device)
         return out
 
+    def mask(self) -> np.ndarray:
+        """bool [capacity]: the slots that hold a component."""
+        return self.entity >= 0
+
 
 def dump_stores(module) -> list:
     """Every component of a module's COMPONENT_STORES mapping as

@@ -999,3 +999,88 @@ def test_solver_backends_on_the_card(cuda):
                                    rtol=0, atol=S.K2_PLAIN_ATOL)
     assert int(out["auto"][1].counters["active_contacts"].sum()) > 0
     _check_k2(pm.solver_problem(start, 1.0 / 60.0))
+
+
+def _first_worlds_on_cpu(state, n=2):
+    from lumixengine_tpu_torch.engine.world import map_tensors
+
+    return map_tensors(lambda t: t[:n].to("cpu"), state)
+
+
+def test_model_edit_on_the_card(cuda):
+    """Phase 16's demo edit at a small W: one frame, every model instance
+    re-pointed through the reflection registry, 3 frames on the card (K1
+    once a frame) and on the CPU from the same 2 worlds: mi_lod, mi_visible
+    and mi_model equal in every slot, and the edit moved LODs; then
+    set_model's cull radius reaches the statics on the card."""
+    from lumixengine_tpu_torch.engine import reflection
+    from lumixengine_tpu_torch.models.demo_scenes import headless_demo_world
+    from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    reflection.register_builtin_components()
+    engine, world, rsys = headless_demo_world(512)
+    rm = world.modules["renderer"]
+    state = replicate_state(world.device_state(cuda), 16, torch.Generator(device=cuda).manual_seed(16))
+    state = engine.build_step(world, cuda, extra=rm.cull_pass)(state, 1.0 / 60.0)
+    before = state.modules["renderer"].mi_lod.clone()
+    store = rm.model_instances
+    for e in store.entity[store.mask()]:
+        reflection.registry.set_property(world, int(e), "model_instance", "model",
+                                         (int(store.get(int(e), "model")) + 1) % 4)
+    step = engine.build_step(world, cuda, extra=rm.cull_pass)
+    cpu_step = engine.build_step(world, "cpu", extra=rm.cull_pass)
+    cpu = _first_worlds_on_cpu(state)
+    launches = cull.frustum_cull_cuda.launches
+    for _ in range(3):
+        state, cpu = step(state, 1.0 / 60.0), cpu_step(cpu, 1.0 / 60.0)
+        for f in ("mi_lod", "mi_visible", "mi_model"):
+            got = getattr(state.modules["renderer"], f)[:2].cpu()
+            assert torch.equal(got, getattr(cpu.modules["renderer"], f)), f
+    torch.cuda.synchronize()
+    assert cull.frustum_cull_cuda.launches - launches == 3
+    assert int((state.modules["renderer"].mi_lod != before).sum()) > 0
+    e = int(store.entity[store.mask()][0])
+    rm.set_model(e, "tree")
+    radius = rsys.models.get(rsys.models.get_id("tree")).bounding_radius
+    assert float(rm.statics().on(cuda).radius[store.slot_of(e)]) == radius
+
+
+def test_animation_edits_on_the_card(cuda):
+    """Phase 16's flagship edits at a small W: the animables' clip and
+    time_scale and an animator's controller set through the registry,
+    palettes off for the last frame; 3 frames on the card against the CPU
+    on 2 worlds within the poses' 1e-5, and the palette left as it was."""
+    from lumixengine_tpu_torch.animation.controller import (AnimationNode, Blend1D, Controller,
+                                                            Input)
+    from lumixengine_tpu_torch.engine import reflection
+    from lumixengine_tpu_torch.models.demo_scenes import full_frame_world
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    reflection.register_builtin_components()
+    engine, world, _r, anim, _p = full_frame_world(1024, 8, 16, 64)
+    stride = anim.add_controller(Controller(
+        "stride", anim.bank_statics,
+        Blend1D(Input(0), [(0.0, AnimationNode(1)), (2.0, AnimationNode(2))]), inputs=["speed"]))
+    am, rm = world.modules["animation"], world.modules["renderer"]
+    state = replicate_state(world.device_state(cuda), 8, torch.Generator(device=cuda).manual_seed(16))
+    state = engine.build_step(world, cuda, extra=rm.cull_pass)(state, 1.0 / 60.0)
+    for i, e in enumerate(am.animables.entity[am.animables.mask()]):
+        reflection.registry.set_property(world, int(e), "animable", "clip",
+                                         (int(am.animables.get(int(e), "clip")) + 1) % 3)
+        reflection.registry.set_property(world, int(e), "animable", "time_scale", 0.5 + 0.5 * i)
+    e = int(am.animators.entity[am.animators.mask()][0])
+    reflection.registry.set_property(world, e, "animator", "controller", stride)
+    step = engine.build_step(world, cuda, extra=rm.cull_pass)
+    cpu_step = engine.build_step(world, "cpu", extra=rm.cull_pass)
+    cpu = _first_worlds_on_cpu(state)
+    for frame in range(3):
+        am.build_palettes = frame < 2
+        pal = state.modules["animation"].palette.clone()
+        state, cpu = step(state, 1.0 / 60.0), cpu_step(cpu, 1.0 / 60.0)
+        for f in ("pose_pos", "pose_rot", "palette"):
+            torch.testing.assert_close(getattr(state.modules["animation"], f)[:2].cpu(),
+                                       getattr(cpu.modules["animation"], f), rtol=0, atol=1e-5)
+    am.build_palettes = True
+    assert torch.equal(state.modules["animation"].palette, pal)
+    assert {g["controller"].name for g in am.statics().at_groups} == {"locomotion", "stride"}

@@ -17,6 +17,7 @@ SOURCES.append(ROOT / "tools" / "host_tier.py")
 SOURCES.append(ROOT / "tools" / "asset_tier.py")
 SOURCES.append(ROOT / "tools" / "editor_tier.py")
 SOURCES.append(ROOT / "tools" / "surface_tier.py")
+SOURCES.append(ROOT / "tools" / "members_tier.py")
 # the editor's host views and app, and the world sharding's dry run (the modules that joined
 # the package last)
 EDITOR_AND_SHARDING = [f"lumixengine_tpu_torch/editor/{m}.py" for m in (
@@ -52,6 +53,7 @@ def test_the_scan_sees_the_package():
     assert "lumixengine_tpu_torch/editor/game_view.py" in names
     assert "tools/editor_tier.py" in names
     assert "tools/surface_tier.py" in names
+    assert "tools/members_tier.py" in names
     assert len(names) >= 20
 
 

@@ -447,3 +447,158 @@ def test_every_public_jax_name_has_a_counterpart(module):
     assert port.exists(), module
     missing = _top_level(JAX_PKG / module, True) - _top_level(port, False) - KEPT.get(module, set())
     assert not missing, f"{module}: {sorted(missing)}"
+
+
+# JAX class members the port keeps without a namesake ("module", "Class") -> names; each
+# has a counterpart by another name, or nothing in the JAX package reads it
+KEPT_MEMBERS = {
+    ("renderer/render_module.py", "RendererSystem"): {"bank"},     # RendererSystem.bake
+    ("script/lua_fastpath.py", "FastUpdate"): {"batched"},         # vmap's form; already batched
+    ("physics/module.py", "PhysStatics"): {
+        "incidence_a", "incidence_b",     # the jnp backend builds its incidences per frame
+        "ctrl_radius", "ctrl_height",     # written, never read
+        "veh_mask",                       # written, never read
+        "veh_body",                       # read in the constructor only: a local there
+    },
+}
+# JAX parameters the port keeps without a namesake ("module", "qualified name") -> names;
+# each is a form of the JAX package (tracing, Pallas, its argument layout), not a function
+KEPT_PARAMS = {
+    ("engine/engine.py", "Engine.build_step"): {"jit", "donate"},          # the step is eager
+    ("ops/culling.py", "frustum_cull"): {"frustum", "use_pallas"},         # planes; the device
+    ("renderer/culling_system.py", "cull"): {"frustum", "use_pallas"},     # planes; the device
+    ("renderer/pipeline.py", "prepare_view"): {"use_pallas"},              # the device decides
+    ("renderer/pipeline.py", "cull_pass"): {"use_pallas"},                 # the device decides
+    ("ops/physics_banded.py", "solve_contacts_banded_multi"): {"return_lams"},  # always returned
+    ("ops/physics_big.py", "compact_pairs"): {"body_count"},     # a traced list's static bound
+    ("ops/physics_ops.py", "heightfield_contacts"): {"terrain_bank",       # bank
+                                                     "shape_np"},          # slot_mask
+    ("ops/sampling.py", "frame_weights"): {"clip_offset", "clip_frames",   # statics
+                                           "clip_fps", "clip_length"},
+    ("ops/sampling.py", "sample_clips"): {"table"},                        # bank
+    ("ops/sampling.py", "sample_root_motion"): {"root_table"},             # bank
+    ("parallel/mesh.py", "build_sharded_step"): {"step_fn"},               # make_step
+    ("parallel/mesh.py", "replicate_state"): {"perturb_key"},              # a torch.Generator
+    ("renderer/particle_compiler.py", "CompiledEmitter.run_update"): {"cap"},   # shape
+    ("renderer/particle_compiler.py", "CompiledEmitter.run_emit"): {"cap"},     # shape
+    ("renderer/particle_compiler.py", "CompiledEmitter.run_output"): {"cap"},   # shape
+}
+
+
+def _class_members(cnode: ast.ClassDef):
+    """The public names a class defines: methods, class attributes, dataclass
+    fields, and the attributes its methods assign on self."""
+    names = set()
+    for node in cnode.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    for node in ast.walk(cnode):
+        targets = (node.targets if isinstance(node, ast.Assign) else [node.target]
+                   if isinstance(node, (ast.AnnAssign, ast.AugAssign)) else [])
+        for t in targets:
+            for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                if (isinstance(e, ast.Attribute) and isinstance(e.value, ast.Name)
+                        and e.value.id == "self"):
+                    names.add(e.attr)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _classes(path: Path):
+    return {n.name: n for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.ClassDef) and not n.name.startswith("_")}
+
+
+def _port_module(module: str):
+    import importlib
+
+    return importlib.import_module("lumixengine_tpu_torch." + module[:-3].replace("/", "."))
+
+
+def _port_members(cls):
+    """Every name the port's class answers to: dir() of the class, and the
+    attributes the methods of each class in its MRO (those in the port)
+    assign on self."""
+    import inspect
+
+    names = set(dir(cls))
+    for k in inspect.getmro(cls):
+        src = inspect.getsourcefile(k) if k.__module__.startswith("lumixengine_tpu_torch") else None
+        if src is not None and k.__name__ in _classes(Path(src)):
+            names |= _class_members(_classes(Path(src))[k.__name__])
+    return names
+
+
+def _ported_modules():
+    return [m for m in JAX_MODULES if not (m in KEPT and KEPT[m] is None)]
+
+
+@pytest.mark.parametrize("module", _ported_modules())
+def test_every_public_jax_class_member_has_a_counterpart(module):
+    """An AST scan of each public JAX class of the module: every method,
+    class attribute, dataclass field and attribute set on self has a
+    namesake in the port's class of the same name (its bases included), but
+    for the ones KEPT_MEMBERS keeps with a reason; each kept name is still
+    missing, so the list does not go stale."""
+    port = _port_module(module)
+    for cname, cnode in _classes(JAX_PKG / module).items():
+        if cname in KEPT.get(module, set()):
+            continue
+        assert hasattr(port, cname), f"{module}: class {cname}"
+        gap = _class_members(cnode) - _port_members(getattr(port, cname))
+        kept = KEPT_MEMBERS.get((module, cname), set())
+        assert gap == kept, f"{module} {cname}: missing {sorted(gap - kept)}, kept but present " \
+                            f"{sorted(kept - gap)}"
+
+
+def _signatures(path: Path):
+    """Public functions and public classes' methods (their __init__ too) of a
+    module: qualified name (":fset" after a property's setter) -> parameter
+    names, self and cls left out."""
+    out = {}
+
+    def params(fn):
+        a = fn.args
+        names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+        names += [v.arg for v in (a.vararg, a.kwarg) if v is not None]
+        return [n for n in names if n not in ("self", "cls")]
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and not node.name.startswith("_"):
+            out[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for m in node.body:
+                if (isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and (not m.name.startswith("_") or m.name == "__init__")):
+                    setter = any(isinstance(d, ast.Attribute) and d.attr == "setter"
+                                 for d in m.decorator_list)
+                    out[f"{node.name}.{m.name}" + (":fset" if setter else "")] = params(m)
+    return out
+
+
+@pytest.mark.parametrize("module", _ported_modules())
+def test_every_jax_parameter_has_a_counterpart(module):
+    """Each parameter of the module's public functions and methods is a
+    parameter of the port's counterpart, but for the forms KEPT_PARAMS
+    keeps with a reason; each kept name is still missing. A function the
+    port lacks by name is the other scans' to report."""
+    import inspect
+
+    port = _port_module(module)
+    for qualname, names in _signatures(JAX_PKG / module).items():
+        path, _, accessor = qualname.partition(":")
+        obj = port
+        for part in path.split("."):
+            obj = getattr(obj, part, None)
+        if isinstance(obj, property):
+            obj = getattr(obj, accessor or "fget")
+            assert obj is not None, f"{module} {qualname}: the port's property has no setter"
+        if obj is None:
+            continue
+        gap = set(names) - set(inspect.signature(obj).parameters)
+        kept = KEPT_PARAMS.get((module, qualname), set())
+        assert gap == kept, f"{module} {qualname}: missing {sorted(gap - kept)}, kept but " \
+                            f"present {sorted(kept - gap)}"
