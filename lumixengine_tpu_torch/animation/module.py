@@ -33,6 +33,7 @@ import torch
 from lumixengine_tpu_torch.animation.animation import ClipRegistry
 from lumixengine_tpu_torch.animation.controller import Controller
 from lumixengine_tpu_torch.core import math as lm
+from lumixengine_tpu_torch.core import profiler
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.ops import ik as ik_ops
@@ -407,8 +408,9 @@ class AnimationModule(IModule):
             pose_pos = pose_pos.index_copy(-1, gd.pool_cols, apos)
             pose_rot = pose_rot.index_copy(-1, gd.pool_cols, arot)
             if self.build_palettes:
-                palette = palette.index_copy(
-                    -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
+                with profiler.block("animation.palette"):
+                    palette = palette.index_copy(
+                        -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
 
             # root motion → entity local transform: pos += rot * delta.pos,
             # rot = normalize(rot * delta.rot)
@@ -467,8 +469,9 @@ class AnimationModule(IModule):
             pose_pos = pose_pos.index_copy(-1, gd.pool_cols, apos)
             pose_rot = pose_rot.index_copy(-1, gd.pool_cols, arot)
             if self.build_palettes:
-                palette = palette.index_copy(
-                    -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
+                with profiler.block("animation.palette"):
+                    palette = palette.index_copy(
+                        -1, gd.pool_cols, skinning.build_palette_dq(apos, arot, gd.ibp, gd.ibr))
             total += len(g["cols"])
 
         ms = ms.replace(an_time=an_time, pose_pos=pose_pos, pose_rot=pose_rot, palette=palette,

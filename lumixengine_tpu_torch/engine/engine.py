@@ -14,7 +14,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lumixengine_tpu_torch.core import debug
+from lumixengine_tpu_torch.core import debug, profiler
+from lumixengine_tpu_torch.engine.phase_profile import PHASES, _phase_overridden
 from lumixengine_tpu_torch.engine.plugin import SystemManager
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.ops import hierarchy as hier
@@ -38,6 +39,14 @@ class TimeSmoother:
         if len(s) > 2 * self.TRIM + 1:
             s = s[self.TRIM: -self.TRIM]
         return float(np.mean(s))
+
+
+def _extra_span(extra) -> str:
+    """The extra pass's span: its module's name and its method for a bound
+    method of a module (``renderer.cull_pass``), else ``extra.<name>``."""
+    owner = getattr(getattr(extra, "__self__", None), "name", None)
+    name = getattr(extra, "__name__", "pass")
+    return f"{owner}.{name}" if isinstance(owner, str) else f"extra.{name}"
 
 
 class Engine:
@@ -119,30 +128,41 @@ class Engine:
         extra: Optional[Callable[[WorldState, torch.Tensor], WorldState]] = None,
     ) -> Callable[[WorldState, float], WorldState]:
         """Compose the modules' phases into step(state, dt) -> state, with
-        every static index tensor built once on `device`."""
+        every static index tensor built once on `device`.
+
+        The step records ``core/profiler`` blocks: ``engine.frame`` around
+        the whole frame, ``<module>.<phase>`` around each phase a module
+        overrides (decided here, once), ``hierarchy.propagate`` and the extra
+        pass's span, named from the callable (``renderer.cull_pass``)."""
         device = torch.device(device)
         modules = list(world.modules.values())
         for m in modules:
             m.prepare_statics(device)
         plan = world.plan
         plan.parent_index(device)
+        # per phase, each module's span name; None where IModule's default runs
+        spans = {p: [f"{m.name}.{p}" if _phase_overridden(m, p) else None for m in modules]
+                 for p in PHASES}
+        extra_span = _extra_span(extra)
 
         def step(state: WorldState, dt) -> WorldState:
-            dt = torch.as_tensor(dt, dtype=torch.float32, device=device)
-            for m in modules:
-                state = m.end_frame(state, dt)
-            for m in modules:
-                state = m.update_parallel(state, dt)
-            for m in modules:
-                state = m.update(state, dt)
-            for m in modules:
-                state = m.late_update(state, dt)
-            state = state.replace(world=hier.propagate_plan(state.local, plan))
-            if extra is not None:
-                state = extra(state, dt)
-            state = state.replace(frame=state.frame + 1, time=state.time + dt)
-            if debug.floating_point_traps_enabled():
-                debug.check_floating_point(state)
+            with profiler.block("engine.frame"):
+                dt = torch.as_tensor(dt, dtype=torch.float32, device=device)
+                for phase in PHASES:
+                    for m, span in zip(modules, spans[phase]):
+                        if span is None:
+                            state = getattr(m, phase)(state, dt)
+                            continue
+                        with profiler.block(span):
+                            state = getattr(m, phase)(state, dt)
+                with profiler.block("hierarchy.propagate"):
+                    state = state.replace(world=hier.propagate_plan(state.local, plan))
+                if extra is not None:
+                    with profiler.block(extra_span):
+                        state = extra(state, dt)
+                state = state.replace(frame=state.frame + 1, time=state.time + dt)
+                if debug.floating_point_traps_enabled():
+                    debug.check_floating_point(state)
             return state
 
         return step

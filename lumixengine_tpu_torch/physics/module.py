@@ -50,6 +50,7 @@ import torch
 
 from lumixengine_tpu_torch.core import host_math as hm
 from lumixengine_tpu_torch.core import math as lm
+from lumixengine_tpu_torch.core import profiler
 from lumixengine_tpu_torch.engine.plugin import IModule, ISystem
 from lumixengine_tpu_torch.engine.world import World, WorldState
 from lumixengine_tpu_torch.ops import convex_ops as CV
@@ -1100,42 +1101,44 @@ class PhysicsModule(IModule):
     def update_parallel(self, state: WorldState, dt) -> WorldState:
         st = self.statics()
         ms: PhysicsState = state.modules[self.name]
-        c = self._contact_stage(state, dt)
+        with profiler.block("physics.contacts"):
+            c = self._contact_stage(state, dt)
         d, pos, rot, vel, angvel = c.d, c.pos, c.rot, c.vel, c.angvel
         batch = pos.shape[:-2]
         zero = torch.zeros(batch, dtype=torch.int32, device=pos.device)
         counters = dict(ms.counters)
         dpos = proj = None
-        if st.banded:
-            vel, angvel, n_active, miss, proj, carry = self._banded_solve(st, d, c, ms)
-            ms = ms.replace(sap_lam=carry[0], sap_glam=carry[1], sap_rank=carry[2])
-        elif st.sap:
-            vel, angvel, n_active, miss, proj = self._sap_solve(st, d, c)
-        elif c.contacts is not None:
-            if self.solver_backend == "jnp":
-                inc_a, inc_b = P.incidences(c.contacts.body_a, c.contacts.body_b,
-                                            pos.shape[-1])
-                vel, angvel, lams = P.solve_contacts(
-                    pos, rot, vel, angvel, c.contacts, d.inv_mass, c.iiw, inc_a, inc_b,
-                    c.dt_c, c.fric, c.rest, iterations=self.solver_iterations,
-                    warm_lambdas=c.warm, return_lambdas=True, **self._solver_kwargs())
-                cts = c.contacts
-                proj = lambda p: P.project_positions(  # noqa: E731
-                    p, cts, d.inv_mass, inc_a, inc_b, iterations=self.position_iterations)
+        with profiler.block("physics.solve"):
+            if st.banded:
+                vel, angvel, n_active, miss, proj, carry = self._banded_solve(st, d, c, ms)
+                ms = ms.replace(sap_lam=carry[0], sap_glam=carry[1], sap_rank=carry[2])
+            elif st.sap:
+                vel, angvel, n_active, miss, proj = self._sap_solve(st, d, c)
+            elif c.contacts is not None:
+                if self.solver_backend == "jnp":
+                    inc_a, inc_b = P.incidences(c.contacts.body_a, c.contacts.body_b,
+                                                pos.shape[-1])
+                    vel, angvel, lams = P.solve_contacts(
+                        pos, rot, vel, angvel, c.contacts, d.inv_mass, c.iiw, inc_a, inc_b,
+                        c.dt_c, c.fric, c.rest, iterations=self.solver_iterations,
+                        warm_lambdas=c.warm, return_lambdas=True, **self._solver_kwargs())
+                    cts = c.contacts
+                    proj = lambda p: P.project_positions(  # noqa: E731
+                        p, cts, d.inv_mass, inc_a, inc_b, iterations=self.position_iterations)
+                else:
+                    if self.solver_backend == "pallas" and pos.device.type != "cuda":
+                        raise ValueError(f"solver_backend 'pallas' runs kernel K2 on a CUDA "
+                                         f"device; this world's state is on {pos.device}")
+                    vel, angvel, lams, dpos = S.solve_contacts_fused(
+                        pos, vel, angvel, c.contacts, d.inv_mass, c.iiw, c.dt_c, c.fric, c.rest,
+                        iterations=self.solver_iterations,
+                        position_iterations=self.position_iterations,
+                        warm_lambdas=c.warm, **self._solver_kwargs())
+                ms = ms.replace(lam_n=lams[0], lam_t1=lams[1], lam_t2=lams[2], pair_key=c.pair_key)
+                n_active = torch.sum(c.contacts.active, dim=-1).to(torch.int32)
+                miss = c.miss if st.pruned else zero
             else:
-                if self.solver_backend == "pallas" and pos.device.type != "cuda":
-                    raise ValueError(f"solver_backend 'pallas' runs kernel K2 on a CUDA "
-                                     f"device; this world's state is on {pos.device}")
-                vel, angvel, lams, dpos = S.solve_contacts_fused(
-                    pos, vel, angvel, c.contacts, d.inv_mass, c.iiw, c.dt_c, c.fric, c.rest,
-                    iterations=self.solver_iterations,
-                    position_iterations=self.position_iterations,
-                    warm_lambdas=c.warm, **self._solver_kwargs())
-            ms = ms.replace(lam_n=lams[0], lam_t1=lams[1], lam_t2=lams[2], pair_key=c.pair_key)
-            n_active = torch.sum(c.contacts.active, dim=-1).to(torch.int32)
-            miss = c.miss if st.pruned else zero
-        else:
-            n_active, miss = zero, zero
+                n_active, miss = zero, zero
         if st.pruned:
             counters["pruned_pair_miss"] = miss
         if len(st.joint_a):

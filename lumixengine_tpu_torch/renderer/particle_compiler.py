@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from lumixengine_tpu_torch.core import profiler
 from lumixengine_tpu_torch.core import random as prng
 from lumixengine_tpu_torch.core.tokenizer import (  # noqa: F401 (TokenizeError: re-exported)
     IDENT, NUMBER, SYMBOL, TokenStream, TokenizeError, tokenize,
@@ -531,8 +532,9 @@ class _ExecCtx:
         out = []
         for i in range(w):
             self._rand_counter += 1
-            k = prng.fold_in(self.key, self._rand_counter)
-            u = prng.uniform(k, (self.cap,)).expand(self.shape)
+            with profiler.block("particles.random"):
+                k = prng.fold_in(self.key, self._rand_counter)
+                u = prng.uniform(k, (self.cap,)).expand(self.shape)
             out.append(lo.comps[i] + (hi.comps[i] - lo.comps[i]) * u)
         return Vec(out)
 
