@@ -6,7 +6,8 @@
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of the hand-written kernels (nvcc, sm_90a) from lumixengine_tpu_torch/csrc,
-     with what ptxas reports for each kernel (registers, shared memory, spills);
+     with what ptxas reports for each kernel (registers, shared memory, spills;
+     the Threefry kernels must spill nothing);
   3. K1 (frustum cull) against its plain PyTorch version on the cull pass's
      own operands at [1024, 10240]: bit for bit;
   4. K2 (fused contact solve) against its plain version on the contact sets
@@ -28,7 +29,9 @@ Phases, each printed on its own line:
      particle_stress_world(1_000_000) at 1 world. Each kernel of a path
      launches once per frame (K2 only where there is physics; on the storm
      K1 launches on the world's 8 empty model-instance slots and culls
-     nothing, as in the reference); the state stays finite; every character
+     nothing, as in the reference), and the Threefry kernel at least once a
+     frame where there are particle emitters and never where there are
+     none; the state stays finite; every character
      is animated, 0 < particles alive <= capacity, root motion moves the
      animators. K1 is then held bit for bit to its plain version on the
      operands the path's own cull pass gives it, at the path's W and K (the
@@ -36,7 +39,9 @@ Phases, each printed on its own line:
      card against the plain versions
      on the CPU, animation and particle fields included (the storm's end
      state tiled to 4 worlds that diverge), and the threefry stream on the
-     card against the CPU's, bit for bit. Two paths of the RenderModule's
+     card against the CPU's, bit for bit (a draw under a twice-folded key,
+     and fold_uniform, the particles' draw, at [1024, 2048] against its
+     plain version on the card too). Two paths of the RenderModule's
      views follow: the headless demo tick headless_demo_world(2048) at
      W=4096 (BASELINE config 1, bench.py --config demo), and the render
      config, the full flagship at W=1024 with each frame followed by
@@ -252,9 +257,12 @@ Phases, each printed on its own line:
      (particle-steps/s of the storm, as bench.py counts it), body-steps/s
      of the boxes, of the farms, the game farms and the banded blocks, each kernel beside
      its plain version (plain, kernel, kernel, plain; K2 on the settled and
-     the piled problem) and against its bound: the bytes it must move over
-     3.35 TB/s or its operations over 67 TFLOP/s (fp32), whichever is
-     longer; and the torch ops dispatched per frame or step.
+     the piled problem; the Threefry kernel as fold_uniform at [4096, 2048],
+     the flagship cell's draw) and against its bound: the bytes it must move
+     over 3.35 TB/s or its operations over 67 TFLOP/s (fp32; for the Threefry
+     kernel its integer ALU-pipe operations over 1.67e13/s), whichever is
+     longer; each kernel's launches on every path in the kernels' record;
+     and the torch ops dispatched per frame or step.
 
 Any failure raises and the exit code is not 0. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}. Without a CUDA device
@@ -414,6 +422,8 @@ INSTANCE_ROWS = ("modules.renderer.mi_", "modules.renderer.culling.", "modules.r
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # one H100 SXM (NVIDIA's data sheet), at its 700 W limit
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
+INT_ALU_OP_PER_S = 132 * 64 * 1.98e9  # integer ALU pipe: 64 a clock on each of 132 SMs at 1.98 GHz
+TF_WORLDS = 4096            # the Threefry kernel's timed shape: the flagship cell's worlds
 KERNEL_REPS = 50
 NO_LIBRARY = "no single PyTorch call computes it"
 
@@ -450,9 +460,10 @@ def alternate(plain, kernel, plain_reps: int, kernel_reps: int = KERNEL_REPS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(nbytes: int, flops: int):
-    """(least ms for the work on the card, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: int, flops: int, op_rate: float = FP32_FLOP_PER_S):
+    """(least ms for the work on the card, "bytes" or "operations"): the
+    bytes over HBM_BYTES_PER_S or the operations over `op_rate`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / op_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -522,6 +533,7 @@ def main() -> int:
     from lumixengine_tpu_torch.models.demo_scenes import (full_frame_world,
                                                           particle_stress_world, pile_bodies,
                                                           skinned_crowd_world)
+    from lumixengine_tpu_torch.core import random as prng
     from lumixengine_tpu_torch.ops import culling as cull
     from lumixengine_tpu_torch.ops import hierarchy as hier
     from lumixengine_tpu_torch.ops import native
@@ -549,8 +561,13 @@ def main() -> int:
     native.library()
     log(f"[2 build] {native.library_path().name} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(native.NVCC_FLAGS[:2])})")
-    for line in ptxas_report(native.build_log()):
+    report = ptxas_report(native.build_log())
+    for line in report:
         log(f"[2 ptxas] {line}")
+    spills = [line for line in report if line.startswith("TF") and "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    if spills or not any(line.startswith("TF draw uniform") for line in report):
+        raise AssertionError(f"the Threefry kernels spill, or ptxas reports none of them: {spills}")
 
     engine, world, _renderer, _anim, _phys = full_frame_world(N_ENTITIES, 0, N_BODIES, 0)
     rm, pm = world.modules["renderer"], world.modules["physics"]
@@ -612,7 +629,7 @@ def main() -> int:
     mark("phases 1-4")
 
     # 5. the main paths
-    stream = check_threefry(dev)
+    stream = check_threefry(dev, W)
     log(f"[5 rng] threefry on the card vs the CPU, first 8 words of one draw: {stream}")
     flag = full_frame_world(N_ENTITIES, N_CHARACTERS, N_BODIES, N_PARTICLES)
     runs = {"flagship": run_path("flagship", flag, W, dev, replicate_state, map_tensors),
@@ -706,6 +723,16 @@ def main() -> int:
         log(f"[8 K2] {card}: {name} W={w_} NB={nb} C={c} (active {n_active}): {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, {nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound "
             f"{bound_ms / ms:.3f}")
+    tf_key = prng.fold_in(prng.PRNGKey(0, dev), torch.arange(TF_WORLDS, device=dev))
+    tf_ms, tf_plain_ms = alternate(
+        lambda: prng.uniform_plain(prng.fold_in_plain(tf_key, 5), (N_PARTICLES,)),
+        lambda: prng.fold_uniform(tf_key, 5, (N_PARTICLES,)), 3)
+    tf_ops, tf_bytes = (prng.threefry_alu_ops(TF_WORLDS, N_PARTICLES),
+                        prng.threefry_bytes(TF_WORLDS, N_PARTICLES))
+    tf_bound, tf_by = bound(tf_bytes, tf_ops, INT_ALU_OP_PER_S)
+    log(f"[8 TF] {card}: fold_uniform [{TF_WORLDS}, {N_PARTICLES}] {tf_ms:.4f} ms, plain "
+        f"{tf_plain_ms:.4f} ms, {tf_ops} ALU-pipe ops and {tf_bytes} bytes, bound {tf_bound:.4f} ms "
+        f"({tf_by}), share of bound {tf_bound / tf_ms:.3f}")
     prob = problems["settled"]
     paths = "; ".join(
         f"{name} {r['ms']:.3f} ms/frame at W={r['worlds']} = "
@@ -857,6 +884,22 @@ def main() -> int:
          "share_of_bound_piled": k2["piled"]["share_of_bound"],
          "farm": {name: r["k2"] for name, r in farms.items()},
          "game": {kind: r["k2"] for kind, r in game.items()}, "library_ms": None,
+         "library_note": NO_LIBRARY},
+        {"name": "TF threefry", "route": "cuda", "source": "lumixengine_tpu_torch/csrc/threefry.cu",
+         "replaces": None, "replaces_note": "no TPU kernel: the JAX package draws through "
+         "jax.random, whose Threefry XLA compiles itself", "launches": main_launches["TF"],
+         "launches_paths": {
+             **{name: r["launches"]["TF"] for name, r in runs.items()},
+             "attachments": attach["launches"]["TF"], "scripts": scripts["launches"]["TF"],
+             "game_world": game_world["launches"]["TF"], "nav_width": nav_width["launches"]["TF"],
+             "layered": sim["layered"]["launches"]["TF"], "present": present["launches"]["TF"],
+             "present_views": present["view_launches"]["TF"], "host_tier": host["launches"]["TF"],
+             "asset_tier": assets["launches"]["TF"], "editor_tier": editor["launches"]["TF"],
+             "dryrun": editor["dryrun"]["launches"]["TF"], "surface_tier": surface["launches"]["TF"],
+             "members_tier": members["launches"]["TF"]},
+         "checked": stream, "shape": [TF_WORLDS, N_PARTICLES], "ms": tf_ms, "plain_ms": tf_plain_ms,
+         "bytes": tf_bytes, "alu_ops": tf_ops, "bound_ms": tf_bound, "bound_by": tf_by,
+         "bound_of": tf_by, "share_of_bound": tf_bound / tf_ms, "library_ms": None,
          "library_note": NO_LIBRARY},
     ]
     log(card)
@@ -1154,7 +1197,7 @@ def run_host_tier(dev, card):
             f"{len(ms)} median {ms[len(ms) // 2]:.3f} ms a tick, spread {ms[-1] - ms[0]:.3f} ms "
             f"(min {ms[0]:.3f}, max {ms[-1]:.3f}); launches {launches}, finite {finite}, active "
             f"contacts at the end {contacts}")
-        if launches != {"K1": HOST_TICKS, "K2": HOST_TICKS} or not finite or contacts == 0:
+        if not _launched(launches, HOST_TICKS, HOST_TICKS) or not finite or contacts == 0:
             raise AssertionError(f"host tier ticks: launches {launches}, finite {finite}, "
                                  f"contacts {contacts}")
         out.update(launches=launches, tick_ms=tick_ms, load_s=load_s, start_s=start_s)
@@ -1561,7 +1604,7 @@ def run_asset_tier(dev, card):
             f"{ms[len(ms) // 2]:.3f} ms a tick, spread {ms[-1] - ms[0]:.3f} ms (min {ms[0]:.3f}, "
             f"max {ms[-1]:.3f}); launches {launches}, finite {finite}; the .anm clip {cid} on "
             f"entity {bound_e}")
-        if launches != {"K1": ASSET_TICKS, "K2": ASSET_TICKS} or not finite:
+        if not _launched(launches, ASSET_TICKS, ASSET_TICKS) or not finite:
             raise AssertionError(f"asset tier ticks: launches {launches}, finite {finite}")
         # the frame alone: phase 12 times each module phase of the same scene
         busy = device_busy(runner.step, st, {}, label="13 device")
@@ -2191,7 +2234,7 @@ def run_surface_tier(dev, card):
     from lumixengine_tpu_torch.renderer.gpu_soft import skin_points_dq_np
 
     dev = torch.device(dev)
-    launches = {"K1": 0, "K2": 0}
+    launches = {"K1": 0, "K2": 0, "TF": 0}
 
     def count(got):
         for k in launches:
@@ -2491,7 +2534,7 @@ def run_members_tier(dev, card):
     dev = torch.device(dev)
     reflection.register_builtin_components()
     reg = reflection.registry
-    launches = {"K1": 0, "K2": 0}
+    launches = {"K1": 0, "K2": 0, "TF": 0}
 
     def count(got):
         for k in launches:
@@ -2536,7 +2579,7 @@ def run_members_tier(dev, card):
         f"by the edit in {moved} of {before.numel()} slots; view statics equal statics built anew "
         f"{fresh}")
     if (not dropped or any(sum(g.values()) for g in gaps) or not fresh or moved == 0
-            or got != {"K1": MEMBERS_EDIT_FRAMES, "K2": 0}):
+            or not _launched(got, MEMBERS_EDIT_FRAMES, 0)):
         raise AssertionError(f"the demo's model edit: dropped {dropped}, gaps {gaps}, statics "
                              f"fresh {fresh}, moved {moved}, launches {got}")
     e = ents[0]
@@ -2620,7 +2663,7 @@ def run_members_tier(dev, card):
             or worst["palette"] > POSE_ATOL or worst["an_time"] > CLOCK_ATOL
             or worst["ctrl_clocks"] > CLOCK_ATOL or controllers != ["locomotion", "stride"]
             or scales != {0.5 + 0.25 * i for i in range(min(8, len(animables)))}
-            or got != {"K1": MEMBERS_EDIT_FRAMES, "K2": MEMBERS_EDIT_FRAMES}):
+            or not _launched(got, MEMBERS_EDIT_FRAMES, MEMBERS_EDIT_FRAMES)):
         raise AssertionError(f"the flagship's animation edits: {worst}, reads {reads}, "
                              f"controllers {controllers}, scales {scales}, launches {got}")
     del cpu, clocks
@@ -2660,7 +2703,7 @@ def run_members_tier(dev, card):
         f"{timing['on']['spread_ms']:.3f}), off {timing['off']['median_ms']:.3f} (spread "
         f"{timing['off']['spread_ms']:.3f}); the palette's cost {cost:.3f} ms a frame; palette "
         f"untouched with it off {untouched}; launches {got} over {frames} frames")
-    if not untouched or got != {"K1": frames, "K2": frames}:
+    if not untouched or not _launched(got, frames, frames):
         raise AssertionError(f"build_palettes: untouched {untouched}, launches {got}")
     out["palettes"] = {**timing, "cost_ms": cost}
 
@@ -2776,7 +2819,7 @@ def run_scripts_config(dev, replicate_state, map_tensors):
         f"{float(moved.max()):.3f} m, visible min/max {int(visible.min())}/{int(visible.max())}")
     # the physics module runs its phases at zero bodies too: K2 once a
     # frame on an empty contact set, as the full engine's step does everywhere
-    if launches != {"K1": WARM_FRAMES + FRAMES, "K2": WARM_FRAMES + FRAMES} or not finite:
+    if not _launched(launches, WARM_FRAMES + FRAMES, WARM_FRAMES + FRAMES) or not finite:
         raise AssertionError(f"scripts config: launches {launches}, finite {finite}")
     if not float(moved.min()) > 0.0:
         raise AssertionError("a scripted mover did not move")
@@ -2823,7 +2866,7 @@ def run_game_world(dev):
     log(f"[9 game] Runner.tick at W=1 on {runner.device}: {G.STREAM_FRAMES} frames in {wall:.2f} s"
         f" ({wall / G.STREAM_FRAMES * 1e3:.3f} ms a tick on the host's clock, logging reads "
         f"included), launches {launches}, compiled script groups {groups}; gates: {out}")
-    if launches != {"K1": G.STREAM_FRAMES, "K2": G.STREAM_FRAMES} or groups != [1]:
+    if not _launched(launches, G.STREAM_FRAMES, G.STREAM_FRAMES) or groups != [1]:
         raise AssertionError(f"game world: launches {launches}, compiled groups {groups}")
     return {"ms_tick": wall / G.STREAM_FRAMES * 1e3, "launches": launches, "gates": out}
 
@@ -2872,7 +2915,7 @@ def run_nav_width(dev, replicate_state, map_tensors):
         f"navigating min {int(navigating.min())}, closest agents {gap0:.4f} -> {gap:.4f} m")
     log(f"[9 width] {ms:.3f} ms/frame at W={NAV_WORLDS} = {rate:.4g} agent-steps/s; torch ops in "
         f"one frame {sum(ops.values())} = {ops}")
-    if launches != {"K1": WARM_FRAMES + FRAMES, "K2": WARM_FRAMES + FRAMES} or not finite:
+    if not _launched(launches, WARM_FRAMES + FRAMES, WARM_FRAMES + FRAMES) or not finite:
         raise AssertionError(f"width path: launches {launches}, finite {finite}")
     if int(navigating.min()) != 2 * NAV_CROSSING or not gap > G.MIN_GAP:
         raise AssertionError(f"width path: navigating {int(navigating.min())}, closest {gap}")
@@ -2894,7 +2937,9 @@ def ptxas_report(log: str):
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
             name = ("K2 compact" if "solve_kernelILb1" in fn else "K2 in place"
-                    if "solve_kernel" in fn else "K1" if "cull" in fn else fn)
+                    if "solve_kernel" in fn else "K1" if "cull" in fn else "TF fold"
+                    if "fold_kernel" in fn else "TF draw uniform" if "draw_kernelILb1" in fn
+                    else "TF draw bits" if "draw_kernel" in fn else fn)
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -2914,23 +2959,46 @@ def wide_problem(dev, num_worlds, replicate_state):
     return world.modules["physics"].solver_problem(pile_bodies(state), DT)
 
 
-def check_threefry(dev):
-    """One uniform draw under a folded key on the card and on the CPU: equal
-    bit for bit. Returns the first 8 words of each."""
+def check_threefry(dev, num_worlds):
+    """The Threefry kernel on the card against the plain version, bit for
+    bit: one uniform draw under a twice-folded key batch (three launches),
+    then the main path's draw, ``fold_uniform`` on `num_worlds` keys folded
+    from a per-world counter whose words cross the sign bit, N_PARTICLES
+    uniforms a key (three launches), against ``uniform_plain(fold_in_plain
+    (...))`` on the card and against the CPU, which launches nothing.
+    Returns the first 8 words of the first draw on each and the launches."""
     import torch
 
     from lumixengine_tpu_torch.core import random as prng
 
-    words = {}
+    words, wide, launches = {}, {}, {}
+    counter = (torch.arange(num_worlds, dtype=torch.int64) * 2654435761 % 2**32).to(torch.int32)
     for where in (dev, torch.device("cpu")):
+        before = prng.threefry_cuda.launches
         key = prng.fold_in(prng.fold_in(prng.PRNGKey(0, where), 1234), torch.tensor(
             [7, -3], dtype=torch.int32, device=where))
         u = prng.uniform(key, (N_PARTICLES,))
         words[where.type] = u.view(torch.int32).cpu().numpy().view("uint32")
+        keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0, where), 99), counter.to(where))
+        wide[where.type] = prng.fold_uniform(keys, 5, (N_PARTICLES,)).view(torch.int32)
+        launches[where.type] = prng.threefry_cuda.launches - before
+        if where.type == "cuda":
+            plain = prng.uniform_plain(prng.fold_in_plain(keys, 5), (N_PARTICLES,))
+            bad = int((wide["cuda"] != plain.view(torch.int32)).sum())
+            if bad:
+                raise AssertionError(f"fold_uniform at [{num_worlds}, {N_PARTICLES}] differs from "
+                                     f"the plain version on the card in {bad} words")
     cuda, cpu = words["cuda"], words["cpu"]
     if not (cuda == cpu).all():
         raise AssertionError(f"threefry differs on the card: {int((cuda != cpu).sum())} words")
-    return {"cuda": cuda[0, :8].tolist(), "cpu": cpu[0, :8].tolist()}
+    bad = int((wide["cuda"].cpu() != wide["cpu"]).sum())
+    if bad:
+        raise AssertionError(f"fold_uniform at [{num_worlds}, {N_PARTICLES}] differs between the "
+                             f"card and the CPU in {bad} words")
+    if launches.get("cuda") != 6 or launches["cpu"] != 0:
+        raise AssertionError(f"threefry launches on the card and the CPU: {launches}")
+    return {"cuda": cuda[0, :8].tolist(), "cpu": cpu[0, :8].tolist(), "launches": launches,
+            "fold_uniform": [num_worlds, N_PARTICLES]}
 
 
 def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=None, views=False,
@@ -2995,9 +3063,11 @@ def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=No
     if cap:
         facts.append(f"particles alive min/max {int(alive.min())}/{int(alive.max())} of {cap}")
     log(f"[5 {name}] W={num_worlds}: " + "; ".join(facts))
-    expected = {"K1": FRAMES, "K2": FRAMES if has_physics else 0}
-    if launches != expected:
-        raise AssertionError(f"each kernel of the path must launch once per frame: {launches}")
+    # K1 and K2 once a frame; the Threefry kernel at least once a frame where there are
+    # emitters (the frame's key fold), never where there are none
+    draws = launches["TF"] >= FRAMES if rm.particle_emitters else launches["TF"] == 0
+    if not _launched(launches, FRAMES, FRAMES if has_physics else 0) or not draws:
+        raise AssertionError(f"the path's kernels launched {launches} times in {FRAMES} frames")
     if not finite or (n_inst and int(visible.min()) <= 0):
         raise AssertionError("state is not finite, or no instance is visible")
     if has_physics and int(active.sum()) == 0:
@@ -3073,7 +3143,7 @@ def view_checks(name, world, state, map_tensors):
              for mode in (pipeline.SORT_MATERIAL, pipeline.SORT_DEPTH)}
     torch.cuda.synchronize()
     launches = _launches()
-    if launches != {"K1": 2, "K2": 0}:
+    if not _launched(launches, 2, 0):
         raise AssertionError(f"prepare_view must launch K1 once a call: {launches}")
     for mode, v in views.items():
         order = v.order.long()
@@ -3189,7 +3259,7 @@ def run_attachments(dev, replicate_state):
         f"{launches};"
         f" 3 frames card vs plain on the CPU: max abs err {cmp['errs']}; attachment local vs "
         f"bone pose ∘ offset on the card: {err:.3e}")
-    if launches != {"K1": 1, "K2": 0} or not err <= TRANSFORM_ATOL:
+    if not _launched(launches, 1, 0) or not err <= TRANSFORM_ATOL:
         raise AssertionError(f"bone attachments: launches {launches}, pose error {err}")
     return {"launches": launches, "err": err, "k1": k1}
 
@@ -3296,18 +3366,29 @@ def _golden(name):
 
 
 def _zero_launches():
+    from lumixengine_tpu_torch.core import random as prng
     from lumixengine_tpu_torch.ops import culling as cull
     from lumixengine_tpu_torch.ops import solver as S
 
     cull.frustum_cull_cuda.launches = 0
     S.solve_cuda.launches = 0
+    prng.threefry_cuda.launches = 0
 
 
 def _launches():
+    from lumixengine_tpu_torch.core import random as prng
     from lumixengine_tpu_torch.ops import culling as cull
     from lumixengine_tpu_torch.ops import solver as S
 
-    return {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches}
+    return {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches,
+            "TF": prng.threefry_cuda.launches}
+
+
+def _launched(launches, k1: int, k2: int) -> bool:
+    """Whether K1 and K2 launched `k1` and `k2` times. The Threefry kernel's
+    launches follow the content's random draws: they are reported beside
+    them, and held where the path says how many it draws."""
+    return launches["K1"] == k1 and launches["K2"] == k2
 
 
 def run_goldens(dev):
@@ -3391,7 +3472,7 @@ def run_goldens(dev):
         f"{cap_err:.3e}")
     log(f"[7 golden] nine goldens and the ensemble in {wall:.2f} s, launches {launches} "
         f"(K2 expected {expected})")
-    if launches != {"K1": 0, "K2": expected}:
+    if not _launched(launches, 0, expected):
         raise AssertionError(f"the goldens' launches {launches}, expected K2 {expected}")
     if int(holds.sum()) < need or moved or not finite:
         raise AssertionError(f"capsule_stack ensemble: {int(holds.sum())} within the bounds, "
@@ -3550,7 +3631,7 @@ def run_farm(name, dev, replicate_state):
     n_dyn = int(pm.statics().dyn_mask.sum())
     active = phys.counters["active_contacts"]
     _, n_ops = count_ops(lambda: step(state, DT))
-    if launches != {"K1": 0, "K2": FARM_FRAMES} or not finite:
+    if not _launched(launches, 0, FARM_FRAMES) or not finite:
         raise AssertionError(f"farm {name}: launches {launches}, finite {finite}")
     # a capsule takes a sphere's inertia, as in the reference, and in a few
     # perturbed capsule worlds the top capsule spins up to hundreds of rad/s
@@ -3889,7 +3970,7 @@ def run_game(kind, dev, card):
     rate = num_worlds * n_dyn / (ms / 1e3)
     active = state.modules["physics"].counters["active_contacts"]
     tr = torch.stack(trace).cpu().numpy() if trace else None
-    if launches != {"K1": 0, "K2": frames} or not finite:
+    if not _launched(launches, 0, frames) or not finite:
         raise AssertionError(f"{kind} farm: launches {launches}, finite {finite}")
     first = game_checks(kind, sc, state, tr, hits[0].cpu().numpy())
     _, n_ops = count_ops(lambda: frame(state, frames))
@@ -3999,7 +4080,7 @@ def run_banded_props(dev, card):
     log(f"[7 banded props] {card}: {_show_layers(layers)}")
     if FULL_DEPTH:
         PS.check_banded_props(sc, pos, vel, pen, unsettled_max=BANDED_PROPS_UNSETTLED)
-    if launches != {"K1": 0, "K2": 0}:
+    if not _launched(launches, 0, 0):
         raise AssertionError(f"the banded branch launched {launches}")
 
     # the banded polytope SAT of the level's end state, one sweep order, on
@@ -4150,7 +4231,7 @@ def run_sap_pile(dev, card):
         f"contacts at the end {int(ph.counters['active_contacts'].sum())}; gates {gates}; one "
         f"step {ev_ms:.4f} ms on events, {dev_ms} ms of kernels (torch.profiler): device-busy "
         f"share {busy}")
-    if int(miss.sum()) or launches != {"K1": 0, "K2": 0}:
+    if int(miss.sum()) or not _launched(launches, 0, 0):
         raise AssertionError(f"sap pile: miss {int(miss.sum())}, launches {launches}")
     errs, flips = compare_game("sap", sc, state, step)
     log(f"[10 sap] 3 frames at W=4 card vs CPU: max abs err {errs}; decisions flipped {flips}")
@@ -4213,7 +4294,7 @@ def run_pile_steps(dev, card):
         finite = all(bool(torch.isfinite(x).all()) for x in state)
         r = {"ms": ms, "rate": nb / (ms / 1e3), "ops": n_ops, "miss": int(miss),
              "launches": launches, "finite": finite, "wall": wall}
-        if int(miss) or not finite or launches != {"K1": 0, "K2": 0}:
+        if int(miss) or not finite or not _launched(launches, 0, 0):
             raise AssertionError(f"{name}: {r}")
         return state, carry, vx_fall, r
 
@@ -4340,7 +4421,7 @@ def run_banded_farm(dev, card):
             f"body-steps/s, {n_ops} torch ops/step, launches {launches}, certificate summed "
             f"{r['miss']}, active contacts at the end {int(ph.counters['active_contacts'].sum())}; "
             f"gates {gates}")
-        if r["miss"] or launches != {"K1": 0, "K2": 0}:
+        if r["miss"] or not _launched(launches, 0, 0):
             raise AssertionError(f"banded farm at W={w}: {r}")
         out[w] = r
     ops = [out[w]["ops"] for w in FARM_WIDTHS]
@@ -4378,7 +4459,7 @@ def run_layered(dev, card, replicate_state, map_tensors):
     t_read = state.time.cpu().numpy()
     state = step(state, DT)
     launches = _launches()
-    if launches != {"K1": LAYERED_FRAMES, "K2": 0}:
+    if not _launched(launches, LAYERED_FRAMES, 0):
         raise AssertionError(f"layered crowd launches {launches}")
     dist, reachable = DS.ik_gaps(world, state, h)
     ik_worst = float(dist[reachable].max())

@@ -23,12 +23,14 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cull.cu", "solver.cu")
+SOURCES = ("cull.cu", "solver.cu", "threefry.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U32 = ctypes.c_uint32
+_I64 = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -85,6 +87,10 @@ def library() -> ctypes.CDLL:
     lib.lumix_solve_contacts.restype = _I
     lib.lumix_solve_contacts_smem.argtypes = [_I] * 4
     lib.lumix_solve_contacts_smem.restype = ctypes.c_size_t
+    lib.lumix_threefry_fold.argtypes = [_P, _I, _I, _P, _I, _I, _U32, _P, _I64, _P]
+    lib.lumix_threefry_fold.restype = _I
+    lib.lumix_threefry_draw.argtypes = [_P, _I, _I, _P, _I, _I, _U32, _I, _I, _P, _I64, _I64, _P]
+    lib.lumix_threefry_draw.restype = _I
     return lib
 
 

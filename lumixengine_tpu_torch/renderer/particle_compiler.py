@@ -533,8 +533,7 @@ class _ExecCtx:
         for i in range(w):
             self._rand_counter += 1
             with profiler.block("particles.random"):
-                k = prng.fold_in(self.key, self._rand_counter)
-                u = prng.uniform(k, (self.cap,)).expand(self.shape)
+                u = prng.fold_uniform(self.key, self._rand_counter, (self.cap,)).expand(self.shape)
             out.append(lo.comps[i] + (hi.comps[i] - lo.comps[i]) * u)
         return Vec(out)
 
