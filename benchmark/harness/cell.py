@@ -149,7 +149,7 @@ def set_up(cell: spec.Cell, seed: int, device, fault=None, parts=None):
 def judge(cell: spec.Cell, readings: ProgramReadings, seed: int, device, lower: bool = False):
     """The check against the reference: (numbers, world-frames compared,
     world-frames over a limit). With `lower`, the control's."""
-    ref = check.Reference(cell.config, seed, device)
+    ref = check.Reference(cell.config, seed, device, cell.bench_dir)
     return check.verdict(check.stages(ref, readings, float(cell.traffic["dt"]), lower),
                          cell.config["limits"], log)
 

@@ -3,6 +3,11 @@ to the plain reference (``benchmark/reference``), which builds the scene
 anew from the same recipe and seed, apart from the program's code, and runs
 in float32 with TF32 off on the same device.
 
+The reference is the configuration's: the module ``reference/<name>.py``
+that its file names under ``"reference"`` (see ``spec.reference``), or,
+without the key, the default one: ``recipe.build``, ``model.Model``, the
+groups of CONTINUOUS and the cull's decisions (CULL).
+
 A frame depends on the one before it and the rigid bodies' contacts are
 chaotic, so over hundreds of frames two sound float32 implementations part.
 The reference therefore follows the program step by step where it must:
@@ -15,21 +20,24 @@ The reference therefore follows the program step by step where it must:
   from the program's own state before it (its transforms, clocks, bodies,
   impulses and particles: the program's outputs of the frame before).
 
-Each group of outputs gives one number, its largest gap over the stages
-and worlds, which is held to the configuration's limit for it; the
-decisions (what is visible, at which LOD, which particle is alive) are
-compared exactly, away from the cull's thresholds.
+Each group of outputs (the reference's GROUPS) gives one number, its
+largest gap over the stages and worlds, which is held to the
+configuration's limit for it; the decisions (the reference's EXACT: by
+default what is visible and at which LOD; and which particle is alive) are
+compared exactly, away from the thresholds that the reference's margins
+give.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import types
 from typing import Dict, Optional
 
 import torch
 
 from benchmark.harness import scene as scenes
-from benchmark.harness import tree
+from benchmark.harness import spec, tree
 from benchmark.reference import model, recipe
 
 SAMPLE = 16     # worlds of the start and the first frame held to the reference
@@ -48,6 +56,9 @@ CONTINUOUS = {
 }
 CULL = ("modules.renderer.mi_visible", "modules.renderer.mi_lod", "modules.renderer.pl_visible")
 PARTICLES = "modules.renderer.particles."
+# the reference of a configuration that names none; a reference module gives the same four names
+DEFAULT = types.SimpleNamespace(build=recipe.build, Model=model.Model, GROUPS=CONTINUOUS,
+                                EXACT=CULL)
 
 
 def sample_rows(worlds: int, seed: int) -> torch.Tensor:
@@ -64,20 +75,23 @@ def _merge(out: dict, group: str, v: torch.Tensor) -> None:
     out[group] = torch.maximum(out[group], v) if group in out else v
 
 
-def world_gaps(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
-               margins=None) -> Dict[str, torch.Tensor]:
-    """group -> [B] float64: each world's largest absolute gap in the group's
-    fields (the particles' channels over the slots alive on both sides), and
-    for "decisions" its count of differing decisions: the cull's visibility,
-    LOD and lights (only those away from MARGIN of their threshold where
-    `margins`, the reference's, are given) and the particles' alive masks.
+def world_gaps(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], margins=None,
+               groups=CONTINUOUS, exact=CULL) -> Dict[str, torch.Tensor]:
+    """group -> [B] float64: each world's largest absolute gap in the fields
+    of each group of `groups` (and in "particle", the particles' channels
+    over the slots alive on both sides), and in "decisions" its count of
+    differing decisions: the most differing entries of any one field of
+    `exact` (only those away from MARGIN of their threshold where
+    `margins`, the reference's, are given: one for each field of `exact`),
+    plus the particles' alive flags that differ. `groups` and `exact` are
+    the reference's GROUPS and EXACT, by default the default reference's.
     A field the program lacks raises."""
     out: dict = {}
-    for group, names in CONTINUOUS.items():
+    for group, names in groups.items():
         for name in names:
             if name in ref:
                 _merge(out, group, _per_world((got[name].float() - ref[name].float()).abs()))
-    for i, name in enumerate(CULL):
+    for i, name in enumerate(exact):
         if name in ref:
             off = got[name] != ref[name]
             if margins is not None:
@@ -112,11 +126,19 @@ def float32_exact():
 
 
 class Reference:
-    """The plain reference's scene, built from the recipe and seed."""
+    """The plain reference's scene, built from the recipe and seed by the
+    configuration's reference: the module its ``"reference"`` names, found
+    under `bench_dir`, or DEFAULT."""
 
-    def __init__(self, config: dict, seed: int, device):
-        self.model = model.Model(recipe.build(config, scenes.seed_of(seed)), device)
+    def __init__(self, config: dict, seed: int, device, bench_dir: str = spec.BENCH_DIR):
+        name = config.get("reference")
+        self.plain = DEFAULT if name is None else spec.reference(name, bench_dir)
+        self.model = self.plain.Model(self.plain.build(config, scenes.seed_of(seed)), device)
         self.device = torch.device(device)
+
+    def gaps(self, got, want, margins=None) -> Dict[str, torch.Tensor]:
+        """`world_gaps` over this reference's groups and exact fields."""
+        return world_gaps(got, want, margins, self.plain.GROUPS, self.plain.EXACT)
 
     def start(self, worlds: int, seed: int, rows: torch.Tensor, lower: bool = False):
         """The reference's start state, worlds `rows`."""
@@ -150,10 +172,10 @@ def stages(ref: Reference, run, dt: float, lower: bool = False):
     itself in bfloat16."""
     start = ref.start(run.worlds, run.seed, run.rows)
     got = ref.start(run.worlds, run.seed, run.rows, lower=True) if lower else run.start
-    yield "start", world_gaps(got, start)
+    yield "start", ref.gaps(got, start)
     first, margins = ref.frame(start, dt)
     got = ref.frame(start, dt, lower=True)[0] if lower else run.first
-    yield "first", world_gaps(got, first, margins)
+    yield "first", ref.gaps(got, first, margins)
     del start, first, got
     step = block_worlds(run.prev)
     parts = []
@@ -162,7 +184,7 @@ def stages(ref: Reference, run, dt: float, lower: bool = False):
         prev = tree.block(run.prev, a, b)
         want, margins = ref.frame(prev, dt)
         got = ref.frame(prev, dt, lower=True)[0] if lower else tree.block(run.last, a, b)
-        parts.append(world_gaps(got, want, margins))
+        parts.append(ref.gaps(got, want, margins))
     yield "last", {g: torch.cat([p[g] for p in parts]) for g in parts[0]}
 
 

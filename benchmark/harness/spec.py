@@ -6,7 +6,9 @@ name given there:
 
 * a configuration: the file its entry names (``configs/<name>.json``);
 * a traffic mix: ``workloads/<traffic>.json``;
-* a metric: its reader, ``metrics/<name>.py``.
+* a metric: its reader, ``metrics/<name>.py``;
+* a configuration's own plain reference, where its file names one under
+  ``"reference"``: ``reference/<name>.py``.
 
 Adding a piece is adding its file and its entry; no file here changes.
 """
@@ -36,11 +38,13 @@ def benchmark(root: str = ROOT) -> dict:
 
 
 def find(kind: str, name: str, bench_dir: str = BENCH_DIR) -> str:
-    """The file of piece `name` of `kind` ("configs", "workloads" or
-    "metrics"); raises where the name is not valid or the file is absent."""
+    """The file of piece `name` of `kind` ("configs", "workloads", "metrics"
+    or "reference"); raises where the name is not valid or the file is
+    absent."""
     if not NAME.match(name):
         raise ValueError(f"not a valid name: {name!r}")
-    path = os.path.join(bench_dir, kind, name + (".py" if kind == "metrics" else ".json"))
+    suffix = ".py" if kind in ("metrics", "reference") else ".json"
+    path = os.path.join(bench_dir, kind, name + suffix)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no {kind} file for {name!r}: {path}")
     return path
@@ -59,6 +63,7 @@ class Cell:
     chips: int
     end_to_end: List[dict] = field(default_factory=list)
     per_layer: List[dict] = field(default_factory=list)
+    bench_dir: str = BENCH_DIR   # the checkout's benchmark directory the cell was found in
 
 
 def reports(metric: dict, cell: str, reported=None) -> bool:
@@ -77,23 +82,46 @@ def cell(name: str, bench: dict = None, root: str = ROOT) -> Cell:
         raise KeyError(f"no cell {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
     config = load_json(os.path.join(root, conf["file"]))
-    traffic = load_json(find("workloads", entry["traffic"], os.path.join(root, "benchmark")))
+    bench_dir = os.path.join(root, "benchmark")
+    traffic = load_json(find("workloads", entry["traffic"], bench_dir))
     e2e = [m for m in bench["end_to_end"] if reports(m, name)]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if reports(m, name, names)]
     return Cell(name, entry["config"], config, entry["traffic"], traffic, int(entry["chips"]),
-                e2e, per_layer)
+                e2e, per_layer, bench_dir)
+
+
+def _module(kind: str, name: str, bench_dir: str):
+    """Piece `name` of `kind` loaded from its file under `bench_dir`; loaded
+    once a process, and anew where another checkout's file has the name."""
+    path = find(kind, name, bench_dir)
+    key = f"benchmark.{kind}.{name}"
+    mod = sys.modules.get(key)
+    if mod is not None and getattr(mod, "__file__", None) == path:
+        return mod
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str, bench_dir: str = BENCH_DIR):
     """The module of metric `name`'s reader: ``read(run)`` gives the
     metric's value, or None where the run holds nothing to read."""
-    key = "benchmark.metrics." + name
-    if key in sys.modules:
-        return sys.modules[key]
-    spec = importlib.util.spec_from_file_location(key, find("metrics", name, bench_dir))
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[key] = mod
-    spec.loader.exec_module(mod)
+    return _module("metrics", name, bench_dir)
+
+
+def reference(name: str, bench_dir: str = BENCH_DIR):
+    """The plain reference module `name` that a configuration names: it
+    gives ``build(config, seed)`` (the scene), ``Model(scene, device)``
+    (``names``, ``start``, ``frame``, ``margins``), ``GROUPS`` (group ->
+    field names, compared by the largest absolute gap a world) and
+    ``EXACT`` (field names compared exactly). Raises as `find` does, and
+    where the module lacks one of these."""
+    mod = _module("reference", name, bench_dir)
+    missing = [k for k in ("build", "Model", "GROUPS", "EXACT") if not hasattr(mod, k)]
+    if missing:
+        raise AttributeError(f"reference {name!r} gives no {missing}")
     return mod
 

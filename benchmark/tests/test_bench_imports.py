@@ -35,6 +35,8 @@ def test_no_file_of_the_benchmark_imports_the_jax_side():
 
 
 def test_the_reference_imports_nothing_of_the_port():
+    """Every file under ``reference/``: the default reference's and each
+    reference a configuration brings of its own, those added later too."""
     files = list(python_files(REFERENCE_DIR))
     assert len(files) >= 3
     for path in files:

@@ -3,10 +3,14 @@ import json
 import os
 import re
 import shutil
+import time
 
 import pytest
 
-from benchmark.harness import spec
+from benchmark.harness import cell as cells
+from benchmark.harness import check, spec, tree
+from benchmark.tests.small import SEED, SMALL_ARGS
+from benchmark.tests.test_bench_control import altered
 
 BENCH = spec.benchmark()
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
@@ -138,3 +142,101 @@ def test_a_new_cell_is_files_and_entries_only(tmp_path):
     assert {m["name"] for m in cell.end_to_end} == {m["name"] for m in BENCH["end_to_end"]}
     assert "physics.device_ms" not in {m["name"] for m in cell.per_layer}
     assert "frame.torch_ops" in {m["name"] for m in cell.per_layer}
+
+
+TOY_REFERENCE = '''"""A configuration's own plain reference: the crowd's scene from the
+default reference's recipe and model, with groups and decisions of its own."""
+from benchmark.reference import model, recipe
+
+GROUPS = {"placement": ("local.pos", "local.rot", "world.pos", "world.rot"),
+          "motion": ("modules.animation.pose_pos", "modules.animation.pose_rot",
+                     "modules.animation.palette", "modules.animation.an_time", "time")}
+EXACT = ("frame", "modules.renderer.mi_visible")
+
+
+def build(config, seed):
+    return recipe.skinned_crowd_world(**config["args"], seed=seed)
+
+
+class Model(model.Model):
+    def margins(self, state):
+        return None
+'''
+
+
+def miscounted(step):
+    """The first world's frame counter, a field that only the toy's EXACT
+    compares, one ahead where the step produces it."""
+    def run(state, dt):
+        out = tree.flatten(step(state, dt))
+        frame = out["frame"].clone()
+        frame[0] += 1
+        return tree.fill(state, {**out, "frame": frame})
+    return run
+
+
+def add_configuration(root, limits):
+    """A configuration with its own reference, added to the checkout at
+    `root` by new files and entries only: the cell `toy.w4096`, cut to
+    three worlds."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    config = dict(spec.load_json(os.path.join(spec.BENCH_DIR, "configs", "skinned_crowd.json")),
+                  name="toy", args=SMALL_ARGS["skinned_crowd"], reference="toy_crowd",
+                  limits=limits)
+    (root / "benchmark" / "configs" / "toy.json").write_text(json.dumps(config))
+    (root / "benchmark" / "reference" / "toy_crowd.py").write_text(TOY_REFERENCE)
+    bench["configs"].append({"name": "toy", "source": config["source"],
+                             "file": "benchmark/configs/toy.json", "reduced": [],
+                             "why": "the crowd under a reference of its own"})
+    bench["workloads"].append({"name": "toy.w4096", "config": "toy", "traffic": "w4096",
+                               "chips": 1, "why": "a configuration with its own reference"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = spec.cell("toy.w4096", root=str(root))
+    cell.traffic = dict(cell.traffic, worlds=3)
+    return cell
+
+
+def test_a_new_configuration_is_files_and_entries_only(tmp_path):
+    """A later change adds a configuration that brings its own plain
+    reference (a configuration file naming it, the reference's file, the
+    configuration's and the cell's entries): nothing else changes, the check
+    loads that checkout's reference and holds the run to its groups and its
+    exact fields."""
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(spec.ROOT, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(spec.ROOT, "BENCHMARK.json"), root / "BENCHMARK.json")
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    limits = {"placement": 1e-3, "motion": 1e-3, "decisions": 0}
+    cell = add_configuration(root, limits)
+    assert all(p.read_bytes() == b for p, b in before.items() if p.name != "BENCHMARK.json")
+
+    assert cell.config_name == "toy" and cell.bench_dir == str(root / "benchmark")
+    ref = check.Reference(cell.config, SEED, "cpu", cell.bench_dir)
+    assert ref.plain.__file__ == str(root / "benchmark" / "reference" / "toy_crowd.py")
+
+    def run(fault=None):
+        return cells.run_cell(cell, SEED, 0.3, False, "cpu", time.perf_counter(), fault=fault)
+
+    sound = run()
+    assert sound["correct"] and sound["failed"] == 0 and sound["attempted"] == 9
+    assert {k: v["value"] for k, v in sound["compared"].items()} == dict.fromkeys(limits, 0.0)
+    assert not run(altered)["correct"]
+    one = run(miscounted)
+    assert not one["correct"] and one["compared"]["decisions"]["value"] == 1.0
+
+    cell.config = dict(cell.config, limits={"placement": 1e-3, "decisions": 0})
+    with pytest.raises(KeyError, match="motion"):
+        run()
+
+
+@pytest.mark.parametrize("name,error", [("no_such_reference", FileNotFoundError),
+                                        ("../reference/model", ValueError),
+                                        ("model", AttributeError)])
+def test_a_configuration_naming_a_bad_reference_raises(name, error):
+    """A reference name that is not valid, names no file, or names a module
+    that is no reference raises, as a bad name of any piece does."""
+    config = spec.cell("crowd.w4096").config
+    with pytest.raises(error):
+        check.Reference({**config, "reference": name}, SEED, "cpu")
+    assert check.Reference(config, SEED, "cpu").plain is check.DEFAULT
