@@ -7,7 +7,9 @@ the headless demo tick (~2k props in a hierarchy of depth <= 4, a camera and
 32 point lights). ``skinned_crowd_world`` and ``particle_stress_world`` are
 the crowd and the 1M-particle stress; ``box_drop_pile`` is the 10k-box drop
 on the slot pipeline (the scene the reference's ``bench.py --config boxes``
-builds). ``script_stress_world`` is the scripts config: every entity runs a
+builds), and ``box_drop_world`` the same boxes as a rendered world on the
+engine's step and the PhysicsModule's banded branch. ``script_stress_world``
+is the scripts config: every entity runs a
 Lua update() compiled to the device fast path, built through
 ``app.create_full_engine``. Each makes the same numpy RNG draws in the same
 order as the reference, and keeps its capacities, so one seed gives one
@@ -152,6 +154,18 @@ def particle_stress_world(capacity: int = 1_000_000):
     return engine, world, renderer
 
 
+def box_lattice(num_bodies: int, seed: int = 0) -> np.ndarray:
+    """The box drop's start positions [num_bodies, 3] float32: the first
+    `num_bodies` cells of a cubic lattice at 1.1 m pitch (x-major), each
+    jittered by 0-5 cm on every axis from numpy's generator seeded with
+    `seed`, lifted 2 m."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(num_bodies ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return (grid[:num_bodies] * 1.1 + rng.uniform(0, 0.05, (num_bodies, 3))
+            + [0.0, 2.0, 0.0]).astype(np.float32)
+
+
 # the reference bench's published tier for the box drop (bench.py --config boxes)
 BOX_DROP_TIER = dict(slots=28, window=40, iterations=6, position_iterations=2, warm_start=True,
                      over_relax=1.4, settle_damping=0.05, sleep_speed=0.15, sleep_frames=15,
@@ -175,21 +189,49 @@ def box_drop_pile(num_bodies: int = 10_000, seed: int = 0, device="cuda", **tier
     from lumixengine_tpu_torch.ops import physics_slots as PSL
 
     nb = num_bodies
-    rng = np.random.default_rng(seed)
     step = PSL.make_slot_world_step(
         np.full(nb, P.SHAPE_BOX, np.int32), np.full(nb, 0.5, np.float32),
         np.full((3, nb), 0.5, np.float32), np.ones(nb, bool), np.ones(nb, np.float32),
         np.full((3, nb), 1.0 / (1.0 / 12 * 2.0), np.float32), np.full(nb, 0.6, np.float32),
         np.zeros(nb, np.float32), **{**BOX_DROP_TIER, **tier})
-    side = int(np.ceil(nb ** (1 / 3)))
-    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)[:nb]
-    pos = (grid * 1.1 + rng.uniform(0, 0.05, (nb, 3)) + [0.0, 2.0, 0.0]).T.astype(np.float32)
+    pos = box_lattice(nb, seed).T.copy()
     rot = np.zeros((4, nb), np.float32)
     rot[3] = 1.0
     zeros = np.zeros((3, nb), np.float32)
     state = tuple(torch.as_tensor(a, device=device) for a in (pos, rot, zeros, zeros)) + (
         step.init_carry(device),)
     return step, state, step.init_consts(device)
+
+
+def box_drop_world(num_bodies: int = 10_000, capacity: int = 10_240, window: int = 40,
+                   seed: int = 0):
+    """The 10k-box drop as a rendered game world on the engine's own step:
+    the boxes of `box_lattice` (unit boxes: half extent 0.5, mass 1,
+    friction 0.6, no restitution, at rest), each an entity with a dynamic
+    box ``rigid_actor`` and a ``model_instance`` "cube", and a camera that
+    sees the lattice, in a world of `capacity` entity slots whose
+    PhysicsModule has `capacity` actor slots and the ground plane. Above
+    256 actor slots ``broadphase="auto"`` takes the banded branch, whose
+    sweep window (``sap_neighbors``) is `window`. Returns (engine, world,
+    renderer, physics_system)."""
+    from lumixengine_tpu_torch.physics.module import PhysicsSystem
+
+    engine, renderer = build_engine(model_instances=capacity, actors=capacity)
+    phys = PhysicsSystem(engine)
+    engine.add_system(phys)
+    world = engine.create_world(capacity=capacity)
+    # the camera 35 m in front of the lattice's near face, level with its middle
+    span = 1.1 * (int(np.ceil(num_bodies ** (1 / 3))) - 1)
+    cam = world.create_entity(position=(0.5 * span, 2.0 + 0.5 * span, span + 35.0),
+                              name="camera")
+    world.create_component(cam, "camera", fov=np.radians(70.0), near=0.3, far=300.0)
+    for p in box_lattice(num_bodies, seed):
+        e = world.create_entity(position=tuple(float(x) for x in p))
+        world.create_component(e, "rigid_actor", motion="dynamic", shape="box",
+                               half_extents=(0.5, 0.5, 0.5), mass=1.0, friction=0.6)
+        world.create_component(e, "model_instance", model="cube")
+    world.modules["physics"].sap_neighbors = window
+    return engine, world, renderer, phys
 
 
 def pile_bodies(state):

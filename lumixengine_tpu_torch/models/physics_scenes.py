@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from lumixengine_tpu_torch.engine.engine import Engine
+from lumixengine_tpu_torch.models.demo_scenes import box_lattice
 from lumixengine_tpu_torch.physics.module import PhysicsSystem
 
 GOLDEN_NAMES = ("ballistic", "tumbling", "bounce", "stack3", "drop27", "friction_slide",
@@ -246,14 +247,9 @@ def box_block(num_bodies: int, capacity: int, seed: int = 0, neighbors: int = 16
     `broadphase="auto"` picks the banded branch, whose sweep window is
     `neighbors` (the module's `sap_neighbors`, 16 by default). Returns
     (engine, world)."""
-    rng = np.random.default_rng(seed)
     engine, world, _phys = physics_world(capacity, joints=1)
     world.modules["physics"].sap_neighbors = neighbors
-    side = int(np.ceil(num_bodies ** (1 / 3)))
-    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
-    pos = (grid[:num_bodies] * 1.1 + rng.uniform(0, 0.05, (num_bodies, 3))
-           + [0.0, 2.0, 0.0]).astype(np.float32)
-    for p in pos:
+    for p in box_lattice(num_bodies, seed):
         e = world.create_entity(position=tuple(float(x) for x in p))
         world.create_component(e, "rigid_actor", motion="dynamic", shape="box",
                                half_extents=(0.5, 0.5, 0.5), mass=1.0, friction=0.6)
