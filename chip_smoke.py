@@ -73,6 +73,13 @@ Phases, each printed on its own line:
      bounds set from the card's and the reference's readings; then 3 steps
      from the card's state at step 60 (mid-impact) on the card against the
      CPU, within BODY_POS_ATOL / BODY_VEL_ATOL with equal certificates;
+     then BJ, the banded Jacobi kernel, on the 10k-box drop's own operands
+     (box_drop_world at BJ_WORLDS worlds after BJ_LAND_FRAMES frames through
+     the engine's step, the PhysicsModule's banded branch): within
+     BJ_PLAIN_ATOL of its plain version, inactive slots' lambdas 0, two
+     calls bit-identical, its launches in each stepped frame, its ms over
+     BJ_REPS calls with CUDA events beside the plain version's and its bound
+     (physics_banded.banded_jacobi_bytes);
   7. the PhysicsModule beyond the flagship, each path with the launch counts
      set to 0 just before it and read just after: the nine committed
      goldens (tests/data/golden_*.npz) at W=1 for their full step counts,
@@ -425,6 +432,8 @@ FP32_FLOP_PER_S = 67e12     # outside the tensor cores
 INT_ALU_OP_PER_S = 132 * 64 * 1.98e9  # integer ALU pipe: 64 a clock on each of 132 SMs at 1.98 GHz
 TF_WORLDS = 4096            # the Threefry kernel's timed shape: the flagship cell's worlds
 KERNEL_REPS = 50
+BJ_WORLDS, BJ_LAND_FRAMES, BJ_REPS = 4, 60, 20   # the box-drop cell's W; the lattice has landed
+BJ_PLAIN_ATOL = 1e-4        # the kernel sums a body's impulses in another order than plain
 NO_LIBRARY = "no single PyTorch call computes it"
 
 
@@ -651,6 +660,7 @@ def main() -> int:
 
     # 6. the 10k-box drop
     boxes = run_boxes(dev)
+    bj = check_banded_jacobi(dev, card)
     mark("phase 6")
 
     # 7. the PhysicsModule: the goldens, the farm, the banded branch
@@ -901,6 +911,14 @@ def main() -> int:
          "bytes": tf_bytes, "alu_ops": tf_ops, "bound_ms": tf_bound, "bound_by": tf_by,
          "bound_of": tf_by, "share_of_bound": tf_bound / tf_ms, "library_ms": None,
          "library_note": NO_LIBRARY},
+        {"name": "BJ banded_jacobi", "route": "cuda",
+         "source": "lumixengine_tpu_torch/csrc/banded_jacobi.cu", "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package's banded solve is jnp, which XLA fuses",
+         "launches": bj["launches_frame"], "launches_banded_block": banded["launches"].get("BJ"),
+         **{key: bj[key] for key in ("max_abs_err", "bit_identical", "shape", "n_active", "ms",
+                                     "plain_ms", "bytes", "bound_ms", "bound_by",
+                                     "share_of_bound")},
+         "bound_of": bj["bound_by"], "library_ms": None, "library_note": NO_LIBRARY},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -2939,7 +2957,11 @@ def ptxas_report(log: str):
             name = ("K2 compact" if "solve_kernelILb1" in fn else "K2 in place"
                     if "solve_kernel" in fn else "K1" if "cull" in fn else "TF fold"
                     if "fold_kernel" in fn else "TF draw uniform" if "draw_kernelILb1" in fn
-                    else "TF draw bits" if "draw_kernel" in fn else fn)
+                    else "TF draw bits" if "draw_kernel" in fn
+                    else "BJ pass" if "pass_kernelILb0" in fn
+                    else "BJ warm pass" if "pass_kernelILb1" in fn
+                    else next((f"BJ {part}" for part in ("mask", "scan", "body", "consts", "out")
+                               if f"{part}_kernel" in fn), fn))
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -2999,6 +3021,81 @@ def check_threefry(dev, num_worlds):
         raise AssertionError(f"threefry launches on the card and the CPU: {launches}")
     return {"cuda": cuda[0, :8].tolist(), "cpu": cpu[0, :8].tolist(), "launches": launches,
             "fold_uniform": [num_worlds, N_PARTICLES]}
+
+
+def check_banded_jacobi(dev, card):
+    """BJ on the 10k-box drop's own operands: box_drop_world at BJ_WORLDS
+    worlds, BJ_LAND_FRAMES frames through the engine's step (the launches of
+    each frame counted), then the next frame's solve operands caught on
+    their way in; the kernel against the plain version on them (within
+    BJ_PLAIN_ATOL, inactive slots' lambdas exactly 0, a second call
+    bit-identical), then both timed with CUDA events beside the bound."""
+    import torch
+
+    from lumixengine_tpu_torch.models.demo_scenes import box_drop_world
+    from lumixengine_tpu_torch.ops import physics_banded as PB
+    from lumixengine_tpu_torch.parallel.mesh import replicate_state
+
+    engine, world, _, _ = box_drop_world(BANDED_BOXES, BANDED_CAPACITY, BANDED_WINDOW, seed=5)
+    step = engine.build_step(world, dev, extra=world.modules["renderer"].cull_pass)
+    state = replicate_state(world.device_state(dev), BJ_WORLDS,
+                            torch.Generator(device=dev).manual_seed(5))
+    per_frame = []
+    for _ in range(BJ_LAND_FRAMES):
+        before = PB.solve_contacts_banded_cuda.launches
+        state = step(state, DT)
+        per_frame.append(PB.solve_contacts_banded_cuda.launches - before)
+    seen, kernel = [], PB.solve_contacts_banded_multi
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return kernel(*a, **kw)
+
+    PB.solve_contacts_banded_multi = spy
+    try:
+        step(state, DT)
+    finally:
+        PB.solve_contacts_banded_multi = kernel
+    args, kw = seen[0]
+    sweeps = args[5]
+
+    def solve_kernel():
+        return PB.solve_contacts_banded_cuda(*args, **kw)
+
+    def solve_plain():
+        return PB.solve_contacts_banded_multi_plain(*args, **kw)
+
+    def outputs(r):
+        return [r[0], r[1], *(t for lams in r[2] for t in lams)]
+
+    got, again, ref = solve_kernel(), solve_kernel(), solve_plain()
+    gap = max_err(outputs(got), outputs(ref))
+    same = all(torch.equal(a, b) for a, b in zip(outputs(got), outputs(again)))
+    stray = sum(int(torch.count_nonzero(lams[3 + j][~sw["p_active"].expand(lams[3].shape)]))
+                for lams, sw in zip(got[2], sweeps) for j in range(3))
+    w_, nb = args[0].shape[0], args[0].shape[-1]
+    k, K = sweeps[0]["p_active"].shape[-3:-1]
+    g = sum(sw["g_active"].shape[-2] for sw in sweeps if "g_active" in sw)
+    n_pair = sum(int(sw["p_active"].sum()) for sw in sweeps)
+    n_active = n_pair + sum(int(sw["g_active"].sum()) for sw in sweeps if "g_active" in sw)
+    log(f"[6 BJ] box drop W={w_} NB={nb} sweeps={len(sweeps)} k={k} K={K} G={g}, {n_active} "
+        f"active contacts ({n_pair} pair slots): max abs gap to the plain version {gap:.3e} "
+        f"(limit {BJ_PLAIN_ATOL:g}), second call bit-identical {same}, nonzero lambdas on "
+        f"inactive slots {stray}; launches a frame over {BJ_LAND_FRAMES} frames "
+        f"{sorted(set(per_frame))}")
+    if not gap <= BJ_PLAIN_ATOL or not same or stray:
+        raise AssertionError(f"BJ: gap {gap}, bit-identical {same}, stray lambdas {stray}")
+    if set(per_frame) != {2 * len(sweeps) + 3 + len(sweeps) * (1 + kw["iterations"])}:
+        raise AssertionError(f"BJ launches a frame: {per_frame}")
+    ms, plain_ms = alternate(solve_plain, solve_kernel, 3, BJ_REPS)
+    nbytes = PB.banded_jacobi_bytes(w_, nb, len(sweeps), k, K, g, n_active)
+    bound_ms, by = bound(nbytes, 0)
+    log(f"[6 BJ] {card}: {ms:.4f} ms a solve over {BJ_REPS} calls, plain {plain_ms:.4f} ms, "
+        f"{nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound {bound_ms / ms:.3f}")
+    return {"max_abs_err": gap, "bit_identical": same, "launches_frame": per_frame[-1],
+            "shape": [w_, nb, len(sweeps), k, K, g],
+            "n_active": n_active, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms}
 
 
 def run_path(name, built, num_worlds, dev, replicate_state, map_tensors, step=None, views=False,
@@ -3368,20 +3465,23 @@ def _golden(name):
 def _zero_launches():
     from lumixengine_tpu_torch.core import random as prng
     from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import physics_banded as PB
     from lumixengine_tpu_torch.ops import solver as S
 
     cull.frustum_cull_cuda.launches = 0
     S.solve_cuda.launches = 0
     prng.threefry_cuda.launches = 0
+    PB.solve_contacts_banded_cuda.launches = 0
 
 
 def _launches():
     from lumixengine_tpu_torch.core import random as prng
     from lumixengine_tpu_torch.ops import culling as cull
+    from lumixengine_tpu_torch.ops import physics_banded as PB
     from lumixengine_tpu_torch.ops import solver as S
 
     return {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches,
-            "TF": prng.threefry_cuda.launches}
+            "TF": prng.threefry_cuda.launches, "BJ": PB.solve_contacts_banded_cuda.launches}
 
 
 def _launched(launches, k1: int, k2: int) -> bool:

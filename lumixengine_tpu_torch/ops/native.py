@@ -23,7 +23,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cull.cu", "solver.cu", "threefry.cu")
+SOURCES = ("cull.cu", "solver.cu", "threefry.cu", "banded_jacobi.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,6 +91,12 @@ def library() -> ctypes.CDLL:
     lib.lumix_threefry_fold.restype = _I
     lib.lumix_threefry_draw.argtypes = [_P, _I, _I, _P, _I, _I, _U32, _I, _I, _P, _I64, _I64, _P]
     lib.lumix_threefry_draw.restype = _I
+    lib.lumix_banded_jacobi_abi.argtypes = [_P]
+    lib.lumix_banded_jacobi_abi.restype = None
+    lib.lumix_banded_jacobi_workspace.argtypes = [_I] * 7
+    lib.lumix_banded_jacobi_workspace.restype = _I64
+    lib.lumix_banded_jacobi.argtypes = [_P, _P]
+    lib.lumix_banded_jacobi.restype = _I
     return lib
 
 

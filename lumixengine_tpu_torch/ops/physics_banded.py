@@ -8,7 +8,9 @@ projections, the warm-start match across frames, the cross-sweep dedup, the
 exact all-pairs coverage count ``exact_window_miss`` and the stand-alone
 world step ``make_banded_world_step``. The PhysicsModule's banded branch
 runs the multi-sweep pipeline; the slot-compacted pipeline
-(``physics_slots.py``) stands on the sweeps and views.
+(``physics_slots.py``) stands on the sweeps and views. On the card the
+multi-sweep Jacobi solve is one hand-written kernel, ``csrc/banded_jacobi.cu``
+(``solve_contacts_banded_cuda``); CPU tensors take its plain version.
 
 After a sweep's sort every candidate pair joins rank i to rank i+d, d <= K,
 so a pair's data is a shifted view and an impulse's scatter a shifted sum:
@@ -26,7 +28,9 @@ Every argsort is stable, as ``jnp.argsort`` is: ties decide ranks.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from lumixengine_tpu_torch.core import math as lm
+from lumixengine_tpu_torch.ops import native
 from lumixengine_tpu_torch.ops import physics_ops as P
 
 AX = -2              # component axis of body arrays [..., 3, NB]
@@ -283,19 +288,12 @@ def _six(imp, r, axis: int):
     return torch.cat([imp, lm.cross(r, imp, axis=axis)], dim=axis)
 
 
-def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt,
-                                iterations: int = 8, baumgarte: float = 0.0,
-                                slop: float = 0.005, relaxation: float = 0.75, warm=None):
-    """Multi-sweep projected-Jacobi PGS (body-order vel/angvel/pos/iiw
-    [..., 3, NB], inverse masses [NB] or [..., NB]): each pass applies every
-    sweep's banded contact block in its own rank space. `sweeps` are dicts
-    with `order` (int64 [..., NB]) and the banded grids p_point/p_normal
-    ([..., 3, k, K, NB]), p_depth/p_active/p_fric/p_rest ([..., k, K, NB]);
-    the first may also carry ground grids g_* ([..., 3, G, NB] / [..., G,
-    NB]). `warm`: per-sweep dicts {"p": (λn, λt1, λt2) [..., k, K, NB] in
-    this frame's rank space, "g": the ground lambdas [..., G, NB]}, applied
-    up front and seeding the accumulators. Returns (vel, angvel, the
-    per-sweep final lambdas (gl, gl1, gl2, pl, pl1, pl2))."""
+def solve_contacts_banded_multi_plain(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt,
+                                      iterations: int = 8, baumgarte: float = 0.0,
+                                      slop: float = 0.005, relaxation: float = 0.75, warm=None):
+    """The plain version of solve_contacts_banded_multi, same contract:
+    eager torch over the whole slot grids, each pass's intermediates as
+    full grids."""
     nb = vel.shape[-1]
     body = vel.shape[:-2] + (nb,)
     deg_body = _body_degree(sweeps, body, vel.device)
@@ -436,6 +434,257 @@ def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, 
         for i, (c, sw) in enumerate(zip(consts, sweeps)):
             vel, angvel, lams[i] = sweep_iter(c, sw, vel, angvel, lams[i])
     return vel, angvel, tuple(lams)
+
+
+def solve_contacts_banded_multi(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt,
+                                iterations: int = 8, baumgarte: float = 0.0,
+                                slop: float = 0.005, relaxation: float = 0.75, warm=None):
+    """Multi-sweep projected-Jacobi PGS (body-order vel/angvel/pos/iiw
+    [..., 3, NB], inverse masses [NB] or [..., NB]): each pass applies every
+    sweep's banded contact block in its own rank space. `sweeps` are dicts
+    with `order` (int64 [..., NB]) and the banded grids p_point/p_normal
+    ([..., 3, k, K, NB]), p_depth/p_active/p_fric/p_rest ([..., k, K, NB]);
+    a sweep may also carry ground grids g_* ([..., 3, G, NB] / [..., G,
+    NB]). `warm`: per-sweep dicts {"p": (λn, λt1, λt2) [..., k, K, NB] in
+    this frame's rank space, "g": the ground lambdas [..., G, NB]}, applied
+    up front and seeding the accumulators. Returns (vel, angvel, the
+    per-sweep final lambdas (gl, gl1, gl2, pl, pl1, pl2)), 0 on inactive
+    slots.
+
+    CPU tensors take the plain version (solve_contacts_banded_multi_plain);
+    CUDA tensors launch the kernel csrc/banded_jacobi.cu
+    (solve_contacts_banded_cuda); there is no fallback between the two."""
+    if vel.device.type == "cpu":
+        return solve_contacts_banded_multi_plain(vel, angvel, inv_mass_body, iiw_body, pos_body,
+                                                 sweeps, dt, iterations=iterations,
+                                                 baumgarte=baumgarte, slop=slop,
+                                                 relaxation=relaxation, warm=warm)
+    if vel.device.type == "cuda":
+        return solve_contacts_banded_cuda(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps,
+                                          dt, iterations=iterations, baumgarte=baumgarte,
+                                          slop=slop, relaxation=relaxation, warm=warm)
+    raise ValueError(f"solve_contacts_banded_multi: unsupported device {vel.device}")
+
+
+# ---------------------------------------------------------------------------
+# the kernel (csrc/banded_jacobi.cu)
+
+# A sweep's world keeps the constants of its first BJ_RECORDS_PER_BODY * NB
+# contacts in records; a contact past them has its constants recomputed from
+# the grids where a pass uses it (the same arithmetic, so the same result).
+BJ_RECORDS_PER_BODY = 16
+
+
+class _BJView(ctypes.Structure):
+    """banded_jacobi.cu's View: a pointer and the element strides of the axes
+    (w, c, a, d, i); an axis the operand lacks has stride 0."""
+    _fields_ = [("p", ctypes.c_void_p)] + [(ax, ctypes.c_longlong) for ax in "wcadi"]
+
+
+_BJ_PAIR = (("point", "p_point"), ("normal", "p_normal"), ("depth", "p_depth"),
+            ("active", "p_active"), ("fric", "p_fric"), ("rest", "p_rest"))
+_BJ_GROUND = tuple((k, k) for k in ("g_point", "g_normal", "g_depth", "g_active", "g_fric",
+                                    "g_rest"))
+
+
+class _BJSweep(ctypes.Structure):
+    """banded_jacobi.cu's Sweep: one sweep's operands."""
+    _fields_ = ([("order", _BJView)] + [(f, _BJView) for f, _ in _BJ_PAIR + _BJ_GROUND]
+                + [("warm_p", _BJView * 3), ("warm_g", _BJView * 3)]
+                + [(f, ctypes.c_int) for f in ("ground", "warm_pairs", "warm_ground", "pad")])
+
+
+class _BJCall(ctypes.Structure):
+    """banded_jacobi.cu's Call: sizes, scalars, operands, outputs, workspace."""
+    _fields_ = ([(f, ctypes.c_int) for f in ("W", "NB", "S", "k", "K", "G", "iterations", "cap",
+                                             "dt_per_world")]
+                + [(f, ctypes.c_float) for f in ("bias_scale", "baumgarte", "slop", "relaxation")]
+                + [("bias_live", ctypes.c_int)]
+                + [(f, _BJView) for f in ("vel", "angvel", "inv_mass", "iiw", "pos", "dt_view")]
+                + [(f, ctypes.c_void_p) for f in ("sweeps", "vel_out", "angvel_out")]
+                + [("lam_p", ctypes.c_void_p * 2), ("lam_g", ctypes.c_void_p),
+                   ("work", ctypes.c_void_p), ("work_bytes", ctypes.c_longlong),
+                   ("launches", ctypes.c_int), ("pad2", ctypes.c_int)])
+
+
+def _bj_view(name: str, t, dev, dtype, batch: tuple, tail: tuple, axes: str) -> _BJView:
+    """`t` as the kernel reads it: broadcast to batch + tail (stride 0 where
+    it broadcasts; nothing is copied), the batch axes as one axis w, and the
+    strides of `axes`, one letter of "cadi" per axis of `tail`. Raises on
+    another device or dtype, or a shape that does not broadcast to one
+    strided batch axis."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"banded jacobi: {name} must be a tensor, not {type(t).__name__}")
+    if t.device != dev:
+        raise ValueError(f"banded jacobi: {name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"banded jacobi: {name} must be {dtype}, not {t.dtype}")
+    try:
+        flat = t.expand(batch + tail).view((math.prod(batch),) + tail)
+    except RuntimeError as e:
+        raise ValueError(f"banded jacobi: {name} of shape {tuple(t.shape)} is not a strided "
+                         f"{batch + tail}") from e
+    strides = dict(zip("w" + axes, flat.stride()))
+    return _BJView(flat.data_ptr(), *(strides.get(ax, 0) for ax in "wcadi"))
+
+
+def _bj_operands(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt, iterations,
+                 baumgarte, slop, relaxation, warm):
+    """The solve's operands checked and laid out for the kernel: (call with
+    its operand views and scalars, the sweeps' array, (batch, NB, k, K,
+    G)). Raises
+    ValueError on what the kernel does not take: another device or dtype,
+    shapes that do not broadcast, a sweep without its pair grids, sweeps of
+    other k, K or G. Touches no device memory."""
+    if not isinstance(vel, torch.Tensor) or vel.dim() < 2 or vel.shape[-2] != 3:
+        raise ValueError("banded jacobi: vel must be [..., 3, NB]")
+    dev, f32 = vel.device, torch.float32
+    batch, nb = tuple(vel.shape[:-2]), vel.shape[-1]
+    if not sweeps:
+        raise ValueError("banded jacobi: needs at least one sweep")
+    if warm is not None and len(warm) < len(sweeps):
+        raise ValueError(f"banded jacobi: {len(warm)} warm entries for {len(sweeps)} sweeps")
+    call = _BJCall()
+    for f, t in (("vel", vel), ("angvel", angvel), ("iiw", iiw_body), ("pos", pos_body)):
+        setattr(call, f, _bj_view(f, t, dev, f32, batch, (3, nb), "ci"))
+    call.inv_mass = _bj_view("inv_mass", inv_mass_body, dev, f32, batch, (nb,), "i")
+    k = K = G = None
+    arr = (_BJSweep * len(sweeps))()
+    for s, sw in enumerate(sweeps):
+        missing = [key for key in ("order",) + tuple(key for _, key in _BJ_PAIR) if key not in sw]
+        ground = "g_active" in sw
+        if ground:
+            missing += [key for _, key in _BJ_GROUND if key not in sw]
+        if missing:
+            raise ValueError(f"banded jacobi: sweep {s} lacks {missing}")
+        if sw["p_active"].dim() < 3:
+            raise ValueError(f"banded jacobi: sweep {s}'s p_active is not [..., k, K, NB]")
+        kK = tuple(sw["p_active"].shape[-3:-1])
+        if k is None:
+            k, K = kK
+        elif kK != (k, K):
+            raise ValueError(f"banded jacobi: sweep {s} has (k, K) = {kK}, sweep 0 {(k, K)}")
+        x = arr[s]
+        x.order = _bj_view(f"sweep {s} order", sw["order"], dev, torch.int64, batch, (nb,), "i")
+        for f, key in _BJ_PAIR:
+            vec = key in ("p_point", "p_normal")
+            setattr(x, f, _bj_view(f"sweep {s} {key}", sw[key], dev,
+                                   torch.bool if key == "p_active" else f32, batch,
+                                   ((3,) if vec else ()) + (k, K, nb), "cadi" if vec else "adi"))
+        if ground:
+            if sw["g_active"].dim() < 2:
+                raise ValueError(f"banded jacobi: sweep {s}'s g_active is not [..., G, NB]")
+            g = sw["g_active"].shape[-2]
+            if G is not None and g != G:
+                raise ValueError(f"banded jacobi: sweep {s} has G = {g}, an earlier sweep {G}")
+            G = g
+            x.ground = 1
+            for f, key in _BJ_GROUND:
+                vec = key in ("g_point", "g_normal")
+                setattr(x, f, _bj_view(f"sweep {s} {key}", sw[key], dev,
+                                       torch.bool if key == "g_active" else f32, batch,
+                                       ((3,) if vec else ()) + (G, nb), "cai" if vec else "ai"))
+        w_s = warm[s] if warm is not None else None
+        if not w_s:
+            continue
+        for key, tail, axes, flag, field in (("p", (k, K, nb), "adi", "warm_pairs", "warm_p"),
+                                             ("g", (G, nb), "ai", "warm_ground", "warm_g")):
+            lam = w_s.get(key)
+            if lam is None or (key == "g" and not ground):
+                continue
+            if len(lam) != 3:
+                raise ValueError(f"banded jacobi: sweep {s}'s warm {key!r} is not (λn, λt1, λt2)")
+            setattr(x, flag, 1)
+            for j, t in enumerate(lam):
+                getattr(x, field)[j] = _bj_view(f"sweep {s} warm {key}[{j}]", t, dev, f32, batch,
+                                                tail, axes)
+    if isinstance(dt, torch.Tensor):
+        if dt.device != dev:
+            raise ValueError(f"banded jacobi: dt is on {dt.device}, expected {dev}")
+        call.dt_per_world = 1
+        call.dt_view = _bj_view("dt", dt, dev, f32, batch, (), "")
+    elif dt > 0:
+        call.bias_live, call.bias_scale = 1, baumgarte / dt
+    call.W, call.NB, call.S, call.k, call.K, call.G = (math.prod(batch), nb, len(sweeps), k, K,
+                                                       G or 0)
+    call.iterations = max(int(iterations), 0)
+    call.baumgarte, call.slop, call.relaxation = baumgarte, slop, relaxation
+    return call, arr, (batch, nb, k, K, G or 0)
+
+
+@functools.cache
+def _bj_library():
+    """The kernel library, its view of the structures checked against ours."""
+    lib = native.library()
+    sizes = (ctypes.c_longlong * 4)()
+    lib.lumix_banded_jacobi_abi(sizes)
+    ours = (ctypes.sizeof(_BJView), ctypes.sizeof(_BJSweep), ctypes.sizeof(_BJCall),
+            _BJCall.launches.offset)
+    if tuple(sizes) != ours:
+        raise RuntimeError(f"banded_jacobi.cu's structures {tuple(sizes)} differ from the "
+                           f"wrapper's {ours}")
+    return lib
+
+
+def solve_contacts_banded_cuda(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt,
+                               iterations: int = 8, baumgarte: float = 0.0, slop: float = 0.005,
+                               relaxation: float = 0.75, warm=None):
+    """solve_contacts_banded_multi on the card: the kernel's launches
+    (csrc/banded_jacobi.cu) on the current stream, their number added to
+    `.launches`. Operands are read through their strides (broadcast views
+    stay views); the lambdas come back as views of one buffer."""
+    dev = vel.device
+    if dev.type != "cuda":
+        raise ValueError(f"solve_contacts_banded_cuda takes CUDA tensors, got {dev}")
+    lib = _bj_library()
+    call, arr, (batch, nb, k, K, G) = _bj_operands(vel, angvel, inv_mass_body, iiw_body,
+                                                   pos_body, sweeps, dt, iterations, baumgarte,
+                                                   slop, relaxation, warm)
+    s_n, w_n = call.S, call.W
+    call.cap = min(BJ_RECORDS_PER_BODY, k * K + G) * nb
+    v_out = torch.empty((2,) + batch + (3, nb), device=dev)
+    lam = torch.empty((2, s_n, w_n, k, K, nb, 3), device=dev)
+    lam_g = torch.empty((s_n, w_n, G, nb, 3), device=dev) if G else None
+    call.work_bytes = lib.lumix_banded_jacobi_workspace(w_n, nb, s_n, k, K, G, call.cap)
+    work = torch.empty(call.work_bytes, dtype=torch.uint8, device=dev)
+    call.sweeps = ctypes.addressof(arr)
+    call.vel_out, call.angvel_out = v_out[0].data_ptr(), v_out[1].data_ptr()
+    call.lam_p[0], call.lam_p[1] = lam[0].data_ptr(), lam[1].data_ptr()
+    call.lam_g = lam_g.data_ptr() if G else None
+    call.work = work.data_ptr()
+    rc = lib.lumix_banded_jacobi(ctypes.addressof(call), native.stream_handle(dev))
+    native.check(rc, "lumix_banded_jacobi")
+    solve_contacts_banded_cuda.launches += call.launches
+    fin = lam[call.iterations % 2]
+    zero = None
+    lams = []
+    for s in range(s_n):
+        pl = tuple(fin[s, ..., j].view(batch + (k, K, nb)) for j in range(3))
+        if arr[s].ground:
+            gl = tuple(lam_g[s, ..., j].view(batch + (G, nb)) for j in range(3))
+        else:
+            zero = torch.zeros((), device=dev) if zero is None else zero
+            gl = (zero,) * 3
+        lams.append(gl + pl)
+    return v_out[0], v_out[1], tuple(lams)
+
+
+solve_contacts_banded_cuda.launches = 0  # kernel launches, counted where the kernel is launched
+
+
+def banded_jacobi_bytes(w: int, nb: int, sweeps: int, k: int, K: int, ground_slots: int,
+                        n_active: int, warm: bool = True) -> int:
+    """Bytes a banded solve must move over `w` worlds of `nb` bodies, with
+    `sweeps` pair grids of k x K slots a body, `ground_slots` ground slots a
+    body in all, and `n_active` active contacts: every slot's active flag
+    read and its three lambdas written (0 where inactive); an active slot's
+    point, normal, depth, friction and restitution read (36 B), and its
+    warm-start lambdas (12 B) where `warm`; per body its velocities,
+    position, inverse inertia and inverse mass read (13 words), its
+    velocities written (6), and its rank in each sweep read (8 B each)."""
+    slots = w * nb * (sweeps * k * K + ground_slots)
+    return (slots * 13 + n_active * (36 + 12 * int(warm))
+            + w * nb * (19 * 4 + 8 * sweeps))
 
 
 def match_warm_lams(prev_lams, prev_rank, order, K: int):
