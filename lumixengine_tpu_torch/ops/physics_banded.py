@@ -5,12 +5,14 @@ multi-offset column sweeps with their coverage certificates, the banded
 narrowphase grids (analytic, and the polytope SAT for pairs with a convex
 hull), the single-sweep and multi-sweep Jacobi solves and position
 projections, the warm-start match across frames, the cross-sweep dedup, the
-exact all-pairs coverage count ``exact_window_miss`` and the stand-alone
-world step ``make_banded_world_step``. The PhysicsModule's banded branch
-runs the multi-sweep pipeline; the slot-compacted pipeline
-(``physics_slots.py``) stands on the sweeps and views. On the card the
-multi-sweep Jacobi solve is one hand-written kernel, ``csrc/banded_jacobi.cu``
-(``solve_contacts_banded_cuda``); CPU tensors take its plain version.
+exact all-pairs coverage count ``exact_window_miss``, the banded contact
+stage ``banded_sweeps`` / ``banded_carry`` and the stand-alone world step
+``make_banded_world_step``. The PhysicsModule's banded branch and the
+stand-alone step build their sweeps through that one stage; the
+slot-compacted pipeline (``physics_slots.py``) stands on the sweeps and
+views. On the card the multi-sweep Jacobi solve is one hand-written
+kernel, ``csrc/banded_jacobi.cu`` (``solve_contacts_banded_cuda``); CPU
+tensors take its plain version.
 
 After a sweep's sort every candidate pair joins rank i to rank i+d, d <= K,
 so a pair's data is a shifted view and an impulse's scatter a shifted sum:
@@ -31,7 +33,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -43,6 +44,12 @@ from lumixengine_tpu_torch.ops import physics_ops as P
 
 AX = -2              # component axis of body arrays [..., 3, NB]
 _FAR = 1 << 24        # sort key offset that puts dead slots last
+
+# a sweep dict's banded grids: pair grids [..., (3,) k, K, NB] and, on a sweep
+# that holds the ground stream, ground grids [..., (3,) G, NB]; beside them
+# "order", the sweep's rank -> body map
+PAIR_KEYS = ("p_point", "p_normal", "p_depth", "p_active", "p_fric", "p_rest")
+GROUND_KEYS = ("g_point", "g_normal", "g_depth", "g_active", "g_fric", "g_rest")
 
 
 def _fwd(x, d: int):
@@ -481,10 +488,8 @@ class _BJView(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p)] + [(ax, ctypes.c_longlong) for ax in "wcadi"]
 
 
-_BJ_PAIR = (("point", "p_point"), ("normal", "p_normal"), ("depth", "p_depth"),
-            ("active", "p_active"), ("fric", "p_fric"), ("rest", "p_rest"))
-_BJ_GROUND = tuple((k, k) for k in ("g_point", "g_normal", "g_depth", "g_active", "g_fric",
-                                    "g_rest"))
+_BJ_PAIR = tuple((key[2:], key) for key in PAIR_KEYS)      # (the Sweep's field, the key)
+_BJ_GROUND = tuple((key, key) for key in GROUND_KEYS)
 
 
 class _BJSweep(ctypes.Structure):
@@ -551,10 +556,10 @@ def _bj_operands(vel, angvel, inv_mass_body, iiw_body, pos_body, sweeps, dt, ite
     k = K = G = None
     arr = (_BJSweep * len(sweeps))()
     for s, sw in enumerate(sweeps):
-        missing = [key for key in ("order",) + tuple(key for _, key in _BJ_PAIR) if key not in sw]
+        missing = [key for key in ("order",) + PAIR_KEYS if key not in sw]
         ground = "g_active" in sw
         if ground:
-            missing += [key for _, key in _BJ_GROUND if key not in sw]
+            missing += [key for key in GROUND_KEYS if key not in sw]
         if missing:
             raise ValueError(f"banded jacobi: sweep {s} lacks {missing}")
         if sw["p_active"].dim() < 3:
@@ -831,6 +836,119 @@ def cross_sweep_coverage(order_s, ranks_earlier, K: int):
     return covered
 
 
+def banded_sweeps(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ, fric,
+                  rest, K: int, k: int, any_caps: bool, ground, carry, layers, hulls):
+    """The banded contact stage: each sweep's grids in its own rank space,
+    as solve_contacts_banded_multi and project_positions_banded_multi take
+    them.
+
+    Body order in: pos/rot [..., 3|4, NB] and the AABBs mn/mx [..., 3, NB]
+    with their world axes; orders, ranks and col_keys from sweep_orders;
+    the per-body tables shape, radius, he, dyn, occ, fric and rest ([NB] /
+    [3, NB], shared by the worlds). Per sweep: the analytic narrowphase
+    (banded_pair_grids), the polytope SAT where a pair holds a hull
+    (`hulls`: the tables poly_verts, poly_axes, poly_rad and is_convex, or
+    None); the pairs that the layer matrix rules out (`layers`: the layer
+    table and the flattened [L * L] matrix, or None), that join two
+    non-dynamic bodies or an unoccupied one, or that an earlier sweep's
+    window holds, masked; pair friction sqrt(f_a f_b), restitution
+    max(r_a, r_b). Sweep 0 takes the ground stream, `ground` = (Contacts in
+    body order, G slots a body; the ground's friction; the ground's
+    restitution floor, or None for the body's own), or None. `carry` (last
+    frame's banded_carry), or None for a cold solve, is re-matched to this
+    frame's ranks (match_warm_lams).
+
+    Returns (sweeps: dicts of "order" and the PAIR_KEYS / GROUND_KEYS grids;
+    warm: the solve's per-sweep warm-start dicts, or None; miss: the
+    per-step window certificate, int32 [...]: only the column sweeps
+    certify, a lone classic sweep by its x-window bound; n_active: the
+    active contacts, int32 [...])."""
+    batch, nb = pos.shape[:-2], pos.shape[-1]
+    warm = None if carry is None else []
+    sweeps = []
+    miss = torch.zeros(batch, dtype=torch.int32, device=pos.device)
+    n_active = torch.zeros(batch, dtype=torch.int32, device=pos.device)
+    for s, (order, ck) in enumerate(zip(orders, col_keys)):
+        def rk(x, _o=order):
+            """A per-world row in this sweep's rank space."""
+            return take_ranked(x, _o)
+
+        def rks(x, _o=order):
+            """A per-body table in this sweep's rank space."""
+            return take_ranked(x.expand(batch + x.shape), _o)
+
+        sp, sr = rk(pos), rk(rot)
+        s_dyn, s_occ, s_fric, s_rest = rks(dyn), rks(occ), rks(fric), rks(rest)
+        s_mn, s_mx = rk(mn), rk(mx)
+        p_point, p_normal, p_depth, p_raw, ok = banded_pair_grids(
+            sp, sr, rks(radius), rks(he), rks(shape), s_mn, s_mx, K, k, any_caps)
+        if hulls is not None:
+            # pairs with a hull take the polytope SAT instead
+            verts, axes, prad, is_convex = hulls
+            c_pt, c_n, c_d, c_act = banded_polytope_grids(sp, sr, rks(verts), rks(axes), rks(prad),
+                                                          K, k)
+            s_cvx = rks(is_convex)
+            cvx_pair = s_cvx[..., None, :] | banded_pair_data(s_cvx, K)          # [.., K, NB]
+            cv3 = cvx_pair[..., None, None, :, :]
+            p_point = torch.where(cv3, c_pt, p_point)
+            p_normal = torch.where(cv3, c_n, p_normal)
+            p_depth = torch.where(cvx_pair.unsqueeze(-3), c_d, p_depth)
+            p_raw = torch.where(cvx_pair.unsqueeze(-3), c_act, p_raw)
+        if layers is not None:
+            layer, matrix = layers
+            s_layer = rks(layer)
+            ok = ok & matrix[s_layer[..., None, :] * math.isqrt(matrix.shape[-1])
+                             + banded_pair_data(s_layer, K)]
+        ok = (ok & (s_dyn[..., None, :] | banded_pair_data(s_dyn, K))
+              & s_occ[..., None, :] & banded_pair_data(s_occ, K))
+        if s > 0:
+            ok = ok & ~cross_sweep_coverage(order, ranks[:s], K)
+        fric_b, rest_b = banded_pair_data(s_fric, K), banded_pair_data(s_rest, K)
+        sw = dict(zip(PAIR_KEYS, (
+            p_point, p_normal, p_depth, p_raw & ok.unsqueeze(-3),
+            torch.sqrt(torch.clamp_min(s_fric[..., None, :] * fric_b, 0.0))
+            .unsqueeze(-3).expand(p_depth.shape),
+            torch.maximum(s_rest[..., None, :], rest_b).unsqueeze(-3).expand(p_depth.shape))),
+            order=order)
+        if warm is not None:
+            wl = match_warm_lams(carry[0][..., s, :, :, :, :], carry[2][..., s, :], order, K)
+            warm.append({"p": tuple(wl[..., j, :, :, :] for j in range(3))})
+        if s == 0 and ground is not None:
+            gc, g_fric, g_rest = ground
+            gsl = gc.depth.shape[-1] // nb
+            g_depth = rk(gc.depth.reshape(batch + (gsl, nb)))
+            g_active = rk(gc.active.reshape(batch + (gsl, nb))) & s_occ[..., None, :]
+            g_rest = s_rest if g_rest is None else torch.clamp_min(s_rest, g_rest)
+            sw.update(zip(GROUND_KEYS, (
+                rk(gc.point.reshape(batch + (3, gsl, nb))),
+                rk(gc.normal.reshape(batch + (3, gsl, nb))), g_depth, g_active,
+                torch.sqrt(torch.clamp_min(s_fric * g_fric, 0.0))[..., None, :]
+                .expand(g_depth.shape),
+                g_rest[..., None, :].expand(g_depth.shape))))
+            n_active = n_active + torch.sum(g_active, dim=(-2, -1)).to(torch.int32)
+            if warm is not None:
+                warm[0]["g"] = tuple(rk(carry[1][..., j, :, :]) for j in range(3))
+        if ck is not None:
+            miss = miss + column_window_miss(s_mn, s_mx, rk(ck), K, occ=s_occ)
+        elif len(orders) == 1:
+            miss = miss + window_miss(s_mn, s_mx, K, occ=s_occ)
+        n_active = n_active + torch.sum(sw["p_active"], dim=(-3, -2, -1)).to(torch.int32)
+        sweeps.append(sw)
+    return sweeps, warm, miss, n_active
+
+
+def banded_carry(sweeps, lams, ranks, glam):
+    """The warm-start carry that the next frame's banded_sweeps takes, from
+    the solve's per-sweep lambdas: (the pair lambdas [..., S, 3, k, K, NB],
+    each sweep's in its rank space; sweep 0's ground lambdas [..., 3, G, NB]
+    in body order, or `glam` where sweep 0 holds no ground grids; the rank
+    maps, int32 [..., S, NB])."""
+    new_lam = torch.stack([torch.stack(lam[3:6], dim=-4) for lam in lams], dim=-5)
+    if "g_active" in sweeps[0]:
+        glam = unrank(torch.stack(lams[0][0:3], dim=-3), sweeps[0]["order"])
+    return new_lam, glam, torch.stack(ranks, dim=-2).to(torch.int32)
+
+
 def exact_window_miss(mn, mx, occ, dyn, ranks, K: int, block: int = 512,
                       min_overlap: float = 0.0):
     """The exact count of AABB-overlapping (occupied, at least one dynamic)
@@ -878,13 +996,14 @@ def make_banded_world_step(shape_np: np.ndarray, radius_np, half_extents_np, dyn
     axes allowed: step(pos, rot, vel, angvel, dt) → (pos, rot, vel, angvel,
     counters {active_contacts, sap_window_miss}).
 
-    n_sweeps > 1 runs the multi-sweep pipeline (sweep_orders); exact_miss
-    puts exact_window_miss (min overlap 5 mm) in the counters in place of
-    the per-step certificate. warm_start (any n_sweeps; the multi-sweep
-    pipeline) carries the contact impulses across frames (match_warm_lams):
-    step(pos, rot, vel, angvel, dt, carry) → (..., counters, carry'), the
-    cold carry from step.init_carry(device, batch=()). The tables move to
-    the state's device on first use."""
+    The sweeps of sweep_orders (n_sweeps) through banded_sweeps, every body
+    occupied, no layers, no hulls, the ground's restitution the body's own;
+    exact_miss puts exact_window_miss (min overlap 5 mm) in the counters in
+    place of the per-step certificate. warm_start carries the contact
+    impulses across frames (banded_carry): step(pos, rot, vel, angvel, dt,
+    carry) → (..., counters, carry'), the cold carry from
+    step.init_carry(device, batch=()). The tables move to the state's
+    device on first use."""
     nb = shape_np.shape[0]
     K, k, gslots = neighbors, points_per_pair, 4
     any_caps = bool(np.any(np.asarray(shape_np) == P.SHAPE_CAPSULE))
@@ -900,70 +1019,23 @@ def make_banded_world_step(shape_np: np.ndarray, radius_np, half_extents_np, dyn
         return {name: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
                 for name, (a, dt) in tables.items()}
 
-    def ranked(t, order):
-        """The per-body tables in `order`'s rank space."""
-        body = order.shape
-        out = {}
-        for name in ("shape", "radius", "dyn", "im", "fric", "rest"):
-            out[name] = take_ranked(t[name].expand(body), order)
-        for name in ("he", "iib"):
-            out[name] = take_ranked(t[name].expand(body[:-1] + t[name].shape), order)
-        return SimpleNamespace(**out)
-
-    def ground_grids(sp, sr, s):
-        g = P.ground_contacts(sp, sr, s.shape, s.radius, s.he, s.dyn, ground_y=ground_y,
-                              slots_per_body=gslots)
-        g_point = g.point.reshape(g.point.shape[:-1] + (gslots, nb))
-        g_depth = g.depth.reshape(g.depth.shape[:-1] + (gslots, nb))
-        return dict(g_point=g_point, g_normal=g.normal.reshape(g_point.shape), g_depth=g_depth,
-                    g_active=g.active.reshape(g_depth.shape),
-                    g_fric=torch.sqrt(torch.clamp_min(s.fric * ground_friction, 0.0))[
-                        ..., None, :].expand(g_depth.shape),
-                    g_rest=s.rest[..., None, :].expand(g_depth.shape))
-
-    def pair_grids(sp, sr, s, s_mn, s_mx):
-        p_point, p_normal, p_depth, p_raw, ok = banded_pair_grids(
-            sp, sr, s.radius, s.he, s.shape, s_mn, s_mx, K, k, any_caps)
-        either_dyn = s.dyn[..., None, :] | banded_pair_data(s.dyn, K)
-        fric = torch.sqrt(torch.clamp_min(s.fric[..., None, :] * banded_pair_data(s.fric, K), 0.0))
-        rest = torch.maximum(s.rest[..., None, :], banded_pair_data(s.rest, K))
-        return (dict(p_point=p_point, p_normal=p_normal, p_depth=p_depth,
-                     p_fric=fric.unsqueeze(-3).expand(p_depth.shape),
-                     p_rest=rest.unsqueeze(-3).expand(p_depth.shape)),
-                p_raw, ok & either_dyn)
-
     def init_carry(device, batch=()):
         return (torch.zeros(batch + (n_s, 3, k, K, nb), device=device),
                 torch.zeros(batch + (3, gslots, nb), device=device),
                 torch.full(batch + (n_s, nb), -1, dtype=torch.int32, device=device))
 
-    def step_multi(pos, rot, vel, angvel, dt, carry=None):
+    def step(pos, rot, vel, angvel, dt, carry=None):
         t = on(pos.device)
         vel, angvel = P.integrate_velocities(vel, angvel, dt, t["gravity"], lin_damping,
                                              ang_damping, t["dyn"])
         mn, mx = P.world_aabb(pos, rot, t["shape"], t["radius"], t["he"])
         orders, ranks, col_keys = sweep_orders(mn, mx, t["occ"], n_sweeps)
-        warm_in = [] if (warm_start and carry is not None) else None
-        sweeps = []
-        for s, order in enumerate(orders):
-            tb = ranked(t, order)
-            sp, sr = take_ranked(pos, order), take_ranked(rot, order)
-            sw, p_raw, act_kn = pair_grids(sp, sr, tb, take_ranked(mn, order),
-                                           take_ranked(mx, order))
-            if s > 0:
-                act_kn = act_kn & ~cross_sweep_coverage(order, ranks[:s], K)
-            sw["order"] = order
-            sw["p_active"] = p_raw & act_kn.unsqueeze(-3)
-            if warm_in is not None:
-                wl = match_warm_lams(carry[0][..., s, :, :, :, :], carry[2][..., s, :], order, K)
-                warm_in.append({"p": tuple(wl[..., j, :, :, :] for j in range(3))})
-            if s == 0:
-                sw.update(ground_grids(sp, sr, tb))
-                if warm_in is not None:
-                    warm_in[0]["g"] = tuple(take_ranked(carry[1][..., j, :, :], order)
-                                            for j in range(3))
-            sweeps.append(sw)
-
+        gc = P.ground_contacts(pos, rot, t["shape"], t["radius"], t["he"], t["dyn"],
+                               ground_y=ground_y, slots_per_body=gslots)
+        sweeps, warm_in, miss, n_act = banded_sweeps(
+            pos, rot, mn, mx, orders, ranks, col_keys, t["shape"], t["radius"], t["he"], t["dyn"],
+            t["occ"], t["fric"], t["rest"], K, k, any_caps, (gc, ground_friction, None),
+            carry if warm_start else None, None, None)
         iiw_body = P.inv_inertia_world_diag(rot, t["iib"])
         vel, angvel, lams = solve_contacts_banded_multi(
             vel, angvel, t["im"], iiw_body, pos, sweeps, dt, iterations=iterations,
@@ -972,66 +1044,10 @@ def make_banded_world_step(shape_np: np.ndarray, radius_np, half_extents_np, dyn
         pos = project_positions_banded_multi(pos, sweeps, t["im"], iterations=position_iterations)
         if exact_miss:
             miss = exact_window_miss(mn, mx, t["occ"], t["dyn"], ranks, K, min_overlap=0.005)
-        else:
-            # the per-step certificate: only the column sweeps certify (every
-            # overlapping pair shares a column in one of them); a lone
-            # classic sweep certifies by its x-window bound
-            miss = torch.zeros(pos.shape[:-2], dtype=torch.int32, device=pos.device)
-            for order, ck in zip(orders, col_keys):
-                s_mn, s_mx = take_ranked(mn, order), take_ranked(mx, order)
-                if ck is None:
-                    if len(orders) == 1:
-                        miss = miss + window_miss(s_mn, s_mx, K)
-                    continue
-                miss = miss + column_window_miss(s_mn, s_mx, take_ranked(ck, order), K)
-        n_act = sum(torch.sum(sw["p_active"], dim=(-3, -2, -1)) for sw in sweeps) \
-            + torch.sum(sweeps[0]["g_active"], dim=(-2, -1))
-        counters = {"active_contacts": n_act.to(torch.int32), "sap_window_miss": miss}
+        counters = {"active_contacts": n_act, "sap_window_miss": miss}
         if warm_start:
-            new_lam = torch.stack([torch.stack(lam[3:6], dim=-4) for lam in lams], dim=-5)
-            new_glam = unrank(torch.stack(lams[0][0:3], dim=-3), orders[0])
-            carry_out = (new_lam, new_glam, torch.stack(ranks, dim=-2).to(torch.int32))
-            return pos, rot, vel, angvel, counters, carry_out
+            return pos, rot, vel, angvel, counters, banded_carry(sweeps, lams, ranks, None)
         return pos, rot, vel, angvel, counters
 
-    if n_sweeps > 1 or warm_start:
-        step_multi.init_carry = init_carry
-        return step_multi
-
-    def step(pos, rot, vel, angvel, dt):
-        t = on(pos.device)
-        vel, angvel = P.integrate_velocities(vel, angvel, dt, t["gravity"], lin_damping,
-                                             ang_damping, t["dyn"])
-        mn, mx = P.world_aabb(pos, rot, t["shape"], t["radius"], t["he"])
-        order = torch.argsort(mn[..., 0, :], dim=-1, stable=True)
-        tb = ranked(t, order)
-        sp, sr = take_ranked(pos, order), take_ranked(rot, order)
-        sv, sw_ = take_ranked(vel, order), take_ranked(angvel, order)
-        s_mn, s_mx = take_ranked(mn, order), take_ranked(mx, order)
-        if exact_miss:
-            iota = torch.arange(nb, dtype=torch.int32, device=pos.device)
-            rank0 = unrank(iota.expand(order.shape), order)
-            miss = exact_window_miss(mn, mx, t["occ"], t["dyn"], [rank0], K, min_overlap=0.005)
-        else:
-            miss = window_miss(s_mn, s_mx, K)
-        grids, p_raw, act_kn = pair_grids(sp, sr, tb, s_mn, s_mx)
-        p_active = p_raw & act_kn.unsqueeze(-3)
-        g = ground_grids(sp, sr, tb)
-        iiw = P.inv_inertia_world_diag(sr, tb.iib)
-        sv, sw_ = solve_contacts_banded(
-            sv, sw_, tb.im, iiw, g["g_point"], g["g_normal"], g["g_depth"], g["g_active"],
-            g["g_fric"], g["g_rest"], grids["p_point"], grids["p_normal"], grids["p_depth"],
-            p_active, grids["p_fric"], grids["p_rest"], sp, dt, iterations=iterations,
-            baumgarte=0.0)
-        sp, sr = P.integrate_positions(sp, sr, sv, sw_, dt, tb.dyn)
-        sp = project_positions_banded(sp, g["g_normal"], g["g_depth"], g["g_active"],
-                                      grids["p_normal"], grids["p_depth"], p_active, tb.im,
-                                      iterations=position_iterations)
-        counters = {"active_contacts": (torch.sum(p_active, dim=(-3, -2, -1))
-                                        + torch.sum(g["g_active"], dim=(-2, -1))).to(torch.int32),
-                    "sap_window_miss": miss}
-        return (unrank(sp, order), unrank(sr, order), unrank(sv, order), unrank(sw_, order),
-                counters)
-
+    step.init_carry = init_carry
     return step
-

@@ -1203,21 +1203,19 @@ class PhysicsModule(IModule):
 
     def _banded_solve(self, st: PhysStatics, d, c, ms: PhysicsState):
         """The multi-sweep banded pipeline over the whole batch (each world
-        sorts its own bodies): one banded grid per sweep order
-        (sweep_orders: offset cell columns put every overlapping pair in
-        some sweep's window), pairs an earlier sweep already holds masked
-        out, solved jointly by solve_contacts_banded_multi in body order.
-        The miss count is the per-step window certificate (0: no contact was
-        dropped). Last frame's lambdas are re-matched through the previous
-        rank maps and seed the solve. The stages record the spans
-        physics.banded_sort (bounds, sweep orders, rank maps),
-        physics.banded_grids (each sweep's grids, masks, certificate and
-        warm-start match), physics.banded_jacobi (the solve) and, where the
-        projection is applied, physics.banded_project. Returns (vel, angvel,
-        n_active, miss, projection, warm-start carry)."""
+        sorts its own bodies): the sweep orders of sweep_orders (offset cell
+        columns put every overlapping pair in some sweep's window), each
+        sweep's grids by the banded contact stage (PBD.banded_sweeps: the
+        layer matrix, the hulls and the ground stream `c.gc` applied, last
+        frame's lambdas re-matched through the previous rank maps), solved
+        jointly by solve_contacts_banded_multi in body order. The miss count
+        is the per-step window certificate (0: no contact was dropped). The
+        stages record the spans physics.banded_sort (bounds, sweep orders,
+        rank maps), physics.banded_grids (the stage), physics.banded_jacobi
+        (the solve) and, where the projection is applied,
+        physics.banded_project. Returns (vel, angvel, n_active, miss,
+        projection, warm-start carry)."""
         pos, rot, vel, angvel, gc = c.pos, c.rot, c.vel, c.angvel, c.gc
-        K, k, nb = self.sap_neighbors, self.points_per_pair, pos.shape[-1]
-        batch = pos.shape[:-2]
         sys = self.system
         occ = d.occ
         with profiler.block("physics.banded_sort"):
@@ -1225,94 +1223,30 @@ class PhysicsModule(IModule):
             far = torch.where(occ, 0.0, 1e9)   # dead slots park far +x, never pair
             mn, mx = mn + far, mx + far
             orders, ranks, col_keys = PBD.sweep_orders(mn, mx, occ, self.sap_sweeps)
+        carry = (ms.sap_lam, ms.sap_glam, ms.sap_rank)
+        warm_ok = ms.sap_rank.numel() > 0
         with profiler.block("physics.banded_grids"):
-            warm_in, sweeps = [], []
-            warm_ok = ms.sap_rank.numel() > 0
-            miss = torch.zeros(batch, dtype=torch.int32, device=pos.device)
-            n_active = torch.zeros(batch, dtype=torch.int32, device=pos.device)
-            for s, (order, ck) in enumerate(zip(orders, col_keys)):
-                def rk(x, _o=order):
-                    """A per-world row in this sweep's rank space."""
-                    return PBD.take_ranked(x, _o)
-
-                def rks(x, _o=order):
-                    """A per-body table in this sweep's rank space."""
-                    return PBD.take_ranked(x.expand(batch + x.shape), _o)
-
-                sp, sr = rk(pos), rk(rot)
-                s_dyn, s_occ, s_layer = rks(d.dyn), rks(occ), rks(d.layer)
-                s_fric, s_rest = rks(d.friction_body), rks(d.restitution_body)
-                s_mn, s_mx = rk(mn), rk(mx)
-                p_point, p_normal, p_depth, p_raw, ok = PBD.banded_pair_grids(
-                    sp, sr, rks(d.radius), rks(d.he), rks(d.shape), s_mn, s_mx, K, k,
-                    any_caps=st.any_caps)
-                if st.has_convex:
-                    # pairs with a hull take the polytope SAT instead
-                    c_pt, c_n, c_d, c_act = PBD.banded_polytope_grids(
-                        sp, sr, rks(d.poly_verts), rks(d.poly_axes), rks(d.poly_rad), K, k)
-                    s_cvx = rks(d.is_convex)
-                    cvx_pair = s_cvx[..., None, :] | PBD.banded_pair_data(s_cvx, K)   # [.., K, NB]
-                    cv3 = cvx_pair[..., None, None, :, :]
-                    p_point = torch.where(cv3, c_pt, p_point)
-                    p_normal = torch.where(cv3, c_n, p_normal)
-                    p_depth = torch.where(cvx_pair.unsqueeze(-3), c_d, p_depth)
-                    p_raw = torch.where(cvx_pair.unsqueeze(-3), c_act, p_raw)
-                layer_ok = d.layer_matrix[s_layer[..., None, :] * MAX_LAYERS
-                                          + PBD.banded_pair_data(s_layer, K)]
-                ok = (ok & layer_ok & (s_dyn[..., None, :] | PBD.banded_pair_data(s_dyn, K))
-                      & s_occ[..., None, :] & PBD.banded_pair_data(s_occ, K))
-                if s > 0:
-                    ok = ok & ~PBD.cross_sweep_coverage(order, ranks[:s], K)
-                fric_b, rest_b = PBD.banded_pair_data(s_fric, K), PBD.banded_pair_data(s_rest, K)
-                sw = {"order": order, "p_point": p_point, "p_normal": p_normal, "p_depth": p_depth,
-                      "p_active": p_raw & ok.unsqueeze(-3),
-                      "p_fric": torch.sqrt(torch.clamp_min(s_fric[..., None, :] * fric_b, 0.0))
-                      .unsqueeze(-3).expand(p_depth.shape),
-                      "p_rest": torch.maximum(s_rest[..., None, :], rest_b).unsqueeze(-3)
-                      .expand(p_depth.shape)}
-                if warm_ok:
-                    wl = PBD.match_warm_lams(ms.sap_lam[..., s, :, :, :, :],
-                                             ms.sap_rank[..., s, :], order, K)
-                    warm_in.append({"p": tuple(wl[..., j, :, :, :] for j in range(3))})
-                if s == 0 and gc is not None:
-                    gsl = gc.depth.shape[-1] // nb
-                    sw["g_point"] = rk(gc.point.reshape(batch + (3, gsl, nb)))
-                    sw["g_normal"] = rk(gc.normal.reshape(batch + (3, gsl, nb)))
-                    sw["g_depth"] = rk(gc.depth.reshape(batch + (gsl, nb)))
-                    sw["g_active"] = rk(gc.active.reshape(batch + (gsl, nb))) & s_occ[..., None, :]
-                    sw["g_fric"] = torch.sqrt(torch.clamp_min(s_fric * sys.ground_friction, 0.0))[
-                        ..., None, :].expand(sw["g_depth"].shape)
-                    sw["g_rest"] = torch.clamp_min(s_rest, sys.ground_restitution)[
-                        ..., None, :].expand(sw["g_depth"].shape)
-                    n_active = n_active + torch.sum(sw["g_active"], dim=(-2, -1)).to(torch.int32)
-                    if warm_ok:
-                        warm_in[0]["g"] = tuple(rk(ms.sap_glam[..., j, :, :]) for j in range(3))
-                if ck is not None:
-                    miss = miss + PBD.column_window_miss(s_mn, s_mx, rk(ck), K, occ=s_occ)
-                elif len(orders) == 1:
-                    miss = miss + PBD.window_miss(s_mn, s_mx, K, occ=s_occ)
-                n_active = n_active + torch.sum(sw["p_active"], dim=(-3, -2, -1)).to(torch.int32)
-                sweeps.append(sw)
+            sweeps, warm_in, miss, n_active = PBD.banded_sweeps(
+                pos, rot, mn, mx, orders, ranks, col_keys, d.shape, d.radius, d.he, d.dyn, occ,
+                d.friction_body, d.restitution_body, self.sap_neighbors, self.points_per_pair,
+                st.any_caps,
+                None if gc is None else (gc, sys.ground_friction, sys.ground_restitution),
+                carry if warm_ok else None, (d.layer, d.layer_matrix),
+                (d.poly_verts, d.poly_axes, d.poly_rad, d.is_convex) if st.has_convex else None)
 
         with profiler.block("physics.banded_jacobi"):
             iiw = P.inv_inertia_world_diag(rot, d.inv_inertia_body)
             vel, angvel, lams = PBD.solve_contacts_banded_multi(
                 vel, angvel, d.inv_mass, iiw, pos, sweeps, c.dt_c,
-                iterations=self.solver_iterations, warm=warm_in if warm_ok else None,
-                **self._solver_kwargs())
+                iterations=self.solver_iterations, warm=warm_in, **self._solver_kwargs())
 
         def proj(p):
             with profiler.block("physics.banded_project"):
                 return PBD.project_positions_banded_multi(p, sweeps, d.inv_mass,
                                                           iterations=self.position_iterations)
 
-        if not warm_ok:
-            return vel, angvel, n_active, miss, proj, (ms.sap_lam, ms.sap_glam, ms.sap_rank)
-        new_lam = torch.stack([torch.stack(lam[3:6], dim=-4) for lam in lams], dim=-5)
-        new_glam = ms.sap_glam
-        if gc is not None:
-            new_glam = PBD.unrank(torch.stack(lams[0][0:3], dim=-3), orders[0])
-        carry = (new_lam, new_glam, torch.stack(ranks, dim=-2).to(torch.int32))
+        if warm_ok:
+            carry = PBD.banded_carry(sweeps, lams, ranks, ms.sap_glam)
         return vel, angvel, n_active, miss, proj, carry
 
     def _sap_contacts(self, st: PhysStatics, d, pos, rot, gc):

@@ -194,9 +194,42 @@ def check_project_positions_banded_multi(b):
     print("project_positions_banded_multi max abs err", err)
 
 
+def _first_sweep_ranked(b):
+    """Sweep 0's grids and the bodies' arrays in its rank space, as the
+    single-sweep functions take them."""
+    sweeps, _ = _sweeps(b)
+    sw, order = sweeps[0], b["orders"][0]
+    body = {k: b[k][..., order] for k in ("vel", "ang", "im", "iiw", "pos")}
+    return sw, body
+
+
+def check_solve_contacts_banded(b):
+    sw, r = _first_sweep_ranked(b)
+    grids = [sw[k] for k in ("g_point", "g_normal", "g_depth", "g_active", "g_fric", "g_rest",
+                             "p_point", "p_normal", "p_depth", "p_active", "p_fric", "p_rest")]
+    ins = [r["vel"], r["ang"], r["im"], r["iiw"], *grids, r["pos"]]
+    got = PB.solve_contacts_banded(*_torch(ins), DT, iterations=10)
+    ref = RB.solve_contacts_banded(*_jax(ins), DT, iterations=10)
+    errs = [_close(got[0], ref[0], SOLVE_ATOL, "vel"), _close(got[1], ref[1], SOLVE_ATOL, "angvel")]
+    assert np.abs(np.asarray(ref[0]) - r["vel"]).max() > 0.1
+    print("solve_contacts_banded max abs err", max(errs))
+
+
+def check_project_positions_banded(b):
+    sw, r = _first_sweep_ranked(b)
+    ins = [r["pos"]] + [sw[k] for k in ("g_normal", "g_depth", "g_active", "p_normal", "p_depth",
+                                        "p_active")] + [r["im"]]
+    got = PB.project_positions_banded(*_torch(ins))
+    ref = RB.project_positions_banded(*_jax(ins))
+    err = _close(got, ref, 1e-6, "pos")
+    assert np.abs(np.asarray(ref) - r["pos"]).max() > 1e-3
+    print("project_positions_banded max abs err", err)
+
+
 CHECKS = {f.__name__[len("check_"):]: f for f in (
     check_banded_pair_grids, check_cross_sweep_coverage, check_match_warm_lams, check_back_sum,
-    check_solve_contacts_banded_multi, check_project_positions_banded_multi)}
+    check_solve_contacts_banded_multi, check_project_positions_banded_multi,
+    check_solve_contacts_banded, check_project_positions_banded)}
 
 
 @pytest.mark.parametrize("fn", list(CHECKS))
