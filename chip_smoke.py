@@ -7,7 +7,7 @@ Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of the hand-written kernels (nvcc, sm_90a) from lumixengine_tpu_torch/csrc,
      with what ptxas reports for each kernel (registers, shared memory, spills;
-     the Threefry kernels must spill nothing);
+     the Threefry kernels and BG, the banded grids kernel, must spill nothing);
   3. K1 (frustum cull) against its plain PyTorch version on the cull pass's
      own operands at [1024, 10240]: bit for bit;
   4. K2 (fused contact solve) against its plain version on the contact sets
@@ -79,7 +79,13 @@ Phases, each printed on its own line:
      BJ_PLAIN_ATOL of its plain version, inactive slots' lambdas 0, two
      calls bit-identical, its launches in each stepped frame, its ms over
      BJ_REPS calls with CUDA events beside the plain version's and its bound
-     (physics_banded.banded_jacobi_bytes);
+     (physics_banded.banded_jacobi_bytes); then BG, the banded contact stage's
+     kernel, on the same frame's stage operands: every flag equal to the
+     plain version's except within BG_DEPTH_TIE of depth 0, active slots
+     within BG_PLAIN_ATOL, friction, restitution, warm-start lambdas, ground
+     grids and the certificate exact, two calls bit-identical, one launch a
+     sweep in each stepped frame, its ms over BJ_REPS calls beside the plain
+     version's and its bound (physics_banded.banded_grids_bytes);
   7. the PhysicsModule beyond the flagship, each path with the launch counts
      set to 0 just before it and read just after: the nine committed
      goldens (tests/data/golden_*.npz) at W=1 for their full step counts,
@@ -277,6 +283,7 @@ the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -434,6 +441,8 @@ TF_WORLDS = 4096            # the Threefry kernel's timed shape: the flagship ce
 KERNEL_REPS = 50
 BJ_WORLDS, BJ_LAND_FRAMES, BJ_REPS = 4, 60, 20   # the box-drop cell's W; the lattice has landed
 BJ_PLAIN_ATOL = 1e-4        # the kernel sums a body's impulses in another order than plain
+BG_PLAIN_ATOL = 1e-5        # BG's narrowphase keeps plain's order of operations
+BG_DEPTH_TIE = 1e-5         # a BG flag may differ from plain's only this close to depth 0
 NO_LIBRARY = "no single PyTorch call computes it"
 
 
@@ -573,10 +582,12 @@ def main() -> int:
     report = ptxas_report(native.build_log())
     for line in report:
         log(f"[2 ptxas] {line}")
-    spills = [line for line in report if line.startswith("TF") and "spill" in line
+    spills = [line for line in report if line.startswith(("TF", "BG")) and "spill" in line
               and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    if spills or not any(line.startswith("TF draw uniform") for line in report):
-        raise AssertionError(f"the Threefry kernels spill, or ptxas reports none of them: {spills}")
+    if spills or not all(any(line.startswith(name) for line in report)
+                         for name in ("TF draw uniform", "BG grids")):
+        raise AssertionError(f"the Threefry or banded grids kernels spill, or ptxas reports none "
+                             f"of them: {spills}")
 
     engine, world, _renderer, _anim, _phys = full_frame_world(N_ENTITIES, 0, N_BODIES, 0)
     rm, pm = world.modules["renderer"], world.modules["physics"]
@@ -660,7 +671,10 @@ def main() -> int:
 
     # 6. the 10k-box drop
     boxes = run_boxes(dev)
-    bj = check_banded_jacobi(dev, card)
+    drop = box_drop_operands(dev)
+    bj = check_banded_jacobi(card, drop)
+    bg = check_banded_grids(card, drop)
+    del drop
     mark("phase 6")
 
     # 7. the PhysicsModule: the goldens, the farm, the banded branch
@@ -919,6 +933,17 @@ def main() -> int:
                                      "plain_ms", "bytes", "bound_ms", "bound_by",
                                      "share_of_bound")},
          "bound_of": bj["bound_by"], "library_ms": None, "library_note": NO_LIBRARY},
+        {"name": "BG banded_grids", "route": "cuda",
+         "source": "lumixengine_tpu_torch/csrc/banded_grids.cu", "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package's banded contact stage is jnp, which "
+         "XLA fuses", "launches": bg["launches_frame"],
+         "launches_banded_block": banded["launches"].get("BG"),
+         "launches_banded_props": banded_props["launches"].get("BG"),
+         "launches_sim_tier": {k: v.get("BG") for k, v in sim_launches.items()},
+         **{key: bg[key] for key in ("max_abs_err", "flags_at_ties", "bit_identical", "shape",
+                                     "n_active", "ms", "plain_ms", "bytes", "bound_ms",
+                                     "bound_by", "share_of_bound")},
+         "bound_of": bg["bound_by"], "library_ms": None, "library_note": NO_LIBRARY},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -2954,7 +2979,8 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            name = ("K2 compact" if "solve_kernelILb1" in fn else "K2 in place"
+            name = ("BG grids" if "grids_kernel" in fn else "K2 compact" if "solve_kernelILb1" in fn
+                    else "K2 in place"
                     if "solve_kernel" in fn else "K1" if "cull" in fn else "TF fold"
                     if "fold_kernel" in fn else "TF draw uniform" if "draw_kernelILb1" in fn
                     else "TF draw bits" if "draw_kernel" in fn
@@ -3023,13 +3049,13 @@ def check_threefry(dev, num_worlds):
             "fold_uniform": [num_worlds, N_PARTICLES]}
 
 
-def check_banded_jacobi(dev, card):
-    """BJ on the 10k-box drop's own operands: box_drop_world at BJ_WORLDS
-    worlds, BJ_LAND_FRAMES frames through the engine's step (the launches of
-    each frame counted), then the next frame's solve operands caught on
-    their way in; the kernel against the plain version on them (within
-    BJ_PLAIN_ATOL, inactive slots' lambdas exactly 0, a second call
-    bit-identical), then both timed with CUDA events beside the bound."""
+def box_drop_operands(dev):
+    """Phase 6's operands of the banded kernels on the 10k-box drop:
+    box_drop_world at BJ_WORLDS worlds, BJ_LAND_FRAMES frames through the
+    engine's step (the launches of BJ and of BG counted each frame), then
+    the next frame's stage and solve operands caught on their way in:
+    {"stage": (args, kwargs), "solve": (args, kwargs), "per_frame": [(BJ,
+    BG) launches a frame]}."""
     import torch
 
     from lumixengine_tpu_torch.models.demo_scenes import box_drop_world
@@ -3042,21 +3068,39 @@ def check_banded_jacobi(dev, card):
                             torch.Generator(device=dev).manual_seed(5))
     per_frame = []
     for _ in range(BJ_LAND_FRAMES):
-        before = PB.solve_contacts_banded_cuda.launches
+        before = (PB.solve_contacts_banded_cuda.launches, PB.banded_sweeps_cuda.launches)
         state = step(state, DT)
-        per_frame.append(PB.solve_contacts_banded_cuda.launches - before)
-    seen, kernel = [], PB.solve_contacts_banded_multi
+        per_frame.append((PB.solve_contacts_banded_cuda.launches - before[0],
+                          PB.banded_sweeps_cuda.launches - before[1]))
+    seen = {"per_frame": per_frame}
+    solve, stage = PB.solve_contacts_banded_multi, PB.banded_sweeps
 
-    def spy(*a, **kw):
-        seen.append((a, kw))
-        return kernel(*a, **kw)
+    def spy(name, fn):
+        def call(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return call
 
-    PB.solve_contacts_banded_multi = spy
+    PB.solve_contacts_banded_multi, PB.banded_sweeps = spy("solve", solve), spy("stage", stage)
     try:
         step(state, DT)
     finally:
-        PB.solve_contacts_banded_multi = kernel
-    args, kw = seen[0]
+        PB.solve_contacts_banded_multi, PB.banded_sweeps = solve, stage
+    return seen
+
+
+def check_banded_jacobi(card, ops):
+    """BJ on the 10k-box drop's own operands (box_drop_operands): the
+    kernel against the plain version on the solve's operands (within
+    BJ_PLAIN_ATOL, inactive slots' lambdas exactly 0, a second call
+    bit-identical), its launches in each stepped frame, then both timed
+    with CUDA events beside the bound."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import physics_banded as PB
+
+    per_frame = [bj for bj, _ in ops["per_frame"]]
+    args, kw = ops["solve"]
     sweeps = args[5]
 
     def solve_kernel():
@@ -3094,6 +3138,80 @@ def check_banded_jacobi(dev, card):
         f"{nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound {bound_ms / ms:.3f}")
     return {"max_abs_err": gap, "bit_identical": same, "launches_frame": per_frame[-1],
             "shape": [w_, nb, len(sweeps), k, K, g],
+            "n_active": n_active, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms}
+
+
+def check_banded_grids(card, ops):
+    """BG on the 10k-box drop's own stage operands (box_drop_operands): the
+    kernel against the plain version (flags equal except on slots whose
+    plain depth lies within BG_DEPTH_TIE of 0; active slots' point, normal
+    and depth within BG_PLAIN_ATOL; friction, restitution, the warm-start
+    lambdas, the ground grids and the certificate exact; the active count
+    the sum of the kernel's flags), a second call bit-identical, its
+    launches in each stepped frame (one a sweep), then both timed with CUDA
+    events beside the bound (physics_banded.banded_grids_bytes)."""
+    import torch
+
+    from lumixengine_tpu_torch.ops import physics_banded as PB
+
+    per_frame = [bg for _, bg in ops["per_frame"]]
+    args, kw = ops["stage"]
+
+    def run_kernel():
+        return PB.banded_sweeps_cuda(*args, **kw)
+
+    def run_plain():
+        return PB.banded_sweeps_plain(*args, **kw)
+
+    def grids(r):
+        return ([sw[key] for sw in r[0] for key in PB.PAIR_KEYS + PB.GROUND_KEYS if key in sw]
+                + [t for w in r[1] or () for v in w.values() for t in v])
+
+    got, again, ref = run_kernel(), run_kernel(), run_plain()
+    same = all(torch.equal(a, b) for a, b in zip(grids(got), grids(again)))
+    flips = far = stray = 0
+    gap = 0.0
+    own = torch.zeros_like(got[3])
+    for a, b in zip(got[0], ref[0]):
+        ka, ra = a["p_active"], b["p_active"]
+        flips += int((ka != ra).sum())
+        far += int(((ka != ra) & (b["p_depth"].abs() > BG_DEPTH_TIE)).sum())
+        both = (ka & ra).unsqueeze(-4)
+        for key in ("p_point", "p_normal"):
+            gap = max(gap, float(torch.where(both, (a[key] - b[key]).abs(), 0.0).max()))
+        gap = max(gap, float(torch.where(ka & ra, (a["p_depth"] - b["p_depth"]).abs(), 0.0).max()))
+        stray += sum(int(not torch.equal(a[key], b[key]))
+                     for key in ("p_fric", "p_rest") + PB.GROUND_KEYS if key in a)
+        own = own + ka.sum(dim=(-3, -2, -1)).to(own.dtype)
+        if "g_active" in a:
+            own = own + a["g_active"].sum(dim=(-2, -1)).to(own.dtype)
+    stray += sum(int(not torch.equal(x, y)) for w, v in zip(got[1] or (), ref[1] or ())
+                 for key in w for x, y in zip(w[key], v[key]))
+    stray += int(not torch.equal(got[2], ref[2])) + int(not torch.equal(got[3], own))
+    named = inspect.signature(PB.banded_sweeps_plain).bind(*args, **kw).arguments
+    w_, nb, n_s = named["pos"].shape[0], named["pos"].shape[-1], len(named["orders"])
+    k, K, warm = named["k"], named["K"], named["carry"] is not None
+    g = got[0][0]["g_active"].shape[-2] if "g_active" in got[0][0] else 0
+    n_active = int(got[3].sum())
+    log(f"[6 BG] box drop W={w_} NB={nb} sweeps={n_s} k={k} K={K} G={g}, {n_active} active "
+        f"contacts ({int(ref[3].sum())} plain): flags differing {flips} ({far} away from "
+        f"depth 0 by more than {BG_DEPTH_TIE:g}), largest gap on slots active in both "
+        f"{gap:.3e} (limit {BG_PLAIN_ATOL:g}), exact outputs differing {stray}, second call "
+        f"bit-identical {same}; launches a frame over {BJ_LAND_FRAMES} frames "
+        f"{sorted(set(per_frame))}")
+    if far or stray or not gap <= BG_PLAIN_ATOL or not same:
+        raise AssertionError(f"BG: flags {far}, exact outputs {stray}, gap {gap}, same {same}")
+    if set(per_frame) != {n_s}:
+        raise AssertionError(f"BG launches a frame: {per_frame}")
+    del got, again, ref
+    ms, plain_ms = alternate(run_plain, run_kernel, 3, BJ_REPS)
+    nbytes = PB.banded_grids_bytes(w_, nb, n_s, k, K, g, warm=warm)
+    bound_ms, by = bound(nbytes, 0)
+    log(f"[6 BG] {card}: {ms:.4f} ms a stage over {BJ_REPS} calls, plain {plain_ms:.4f} ms, "
+        f"{nbytes} bytes, bound {bound_ms:.4f} ms ({by}), share of bound {bound_ms / ms:.3f}")
+    return {"max_abs_err": gap, "flags_at_ties": flips, "bit_identical": same,
+            "launches_frame": per_frame[-1], "shape": [w_, nb, n_s, k, K, g],
             "n_active": n_active, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
             "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms}
 
@@ -3472,6 +3590,7 @@ def _zero_launches():
     S.solve_cuda.launches = 0
     prng.threefry_cuda.launches = 0
     PB.solve_contacts_banded_cuda.launches = 0
+    PB.banded_sweeps_cuda.launches = 0
 
 
 def _launches():
@@ -3481,7 +3600,8 @@ def _launches():
     from lumixengine_tpu_torch.ops import solver as S
 
     return {"K1": cull.frustum_cull_cuda.launches, "K2": S.solve_cuda.launches,
-            "TF": prng.threefry_cuda.launches, "BJ": PB.solve_contacts_banded_cuda.launches}
+            "TF": prng.threefry_cuda.launches, "BJ": PB.solve_contacts_banded_cuda.launches,
+            "BG": PB.banded_sweeps_cuda.launches}
 
 
 def _launched(launches, k1: int, k2: int) -> bool:

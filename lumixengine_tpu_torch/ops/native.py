@@ -23,7 +23,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cull.cu", "solver.cu", "threefry.cu", "banded_jacobi.cu")
+SOURCES = ("cull.cu", "solver.cu", "threefry.cu", "banded_jacobi.cu", "banded_grids.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +97,10 @@ def library() -> ctypes.CDLL:
     lib.lumix_banded_jacobi_workspace.restype = _I64
     lib.lumix_banded_jacobi.argtypes = [_P, _P]
     lib.lumix_banded_jacobi.restype = _I
+    lib.lumix_banded_grids_abi.argtypes = [_P]
+    lib.lumix_banded_grids_abi.restype = None
+    lib.lumix_banded_grids.argtypes = [_P, _P, _P]
+    lib.lumix_banded_grids.restype = _I
     return lib
 
 

@@ -11,8 +11,9 @@ stage ``banded_sweeps`` / ``banded_carry`` and the stand-alone world step
 stand-alone step build their sweeps through that one stage; the
 slot-compacted pipeline (``physics_slots.py``) stands on the sweeps and
 views. On the card the multi-sweep Jacobi solve is one hand-written
-kernel, ``csrc/banded_jacobi.cu`` (``solve_contacts_banded_cuda``); CPU
-tensors take its plain version.
+kernel, ``csrc/banded_jacobi.cu`` (``solve_contacts_banded_cuda``), and the
+contact stage another, ``csrc/banded_grids.cu`` (``banded_sweeps_cuda``);
+CPU tensors take their plain versions.
 
 After a sweep's sort every candidate pair joins rank i to rank i+d, d <= K,
 so a pair's data is a shifted view and an impulse's scatter a shifted sum:
@@ -512,22 +513,23 @@ class _BJCall(ctypes.Structure):
                    ("launches", ctypes.c_int), ("pad2", ctypes.c_int)])
 
 
-def _bj_view(name: str, t, dev, dtype, batch: tuple, tail: tuple, axes: str) -> _BJView:
+def _bj_view(name: str, t, dev, dtype, batch: tuple, tail: tuple, axes: str,
+             who: str = "banded jacobi") -> _BJView:
     """`t` as the kernel reads it: broadcast to batch + tail (stride 0 where
     it broadcasts; nothing is copied), the batch axes as one axis w, and the
     strides of `axes`, one letter of "cadi" per axis of `tail`. Raises on
     another device or dtype, or a shape that does not broadcast to one
-    strided batch axis."""
+    strided batch axis; `who` names the kernel in the message."""
     if not isinstance(t, torch.Tensor):
-        raise ValueError(f"banded jacobi: {name} must be a tensor, not {type(t).__name__}")
+        raise ValueError(f"{who}: {name} must be a tensor, not {type(t).__name__}")
     if t.device != dev:
-        raise ValueError(f"banded jacobi: {name} is on {t.device}, expected {dev}")
+        raise ValueError(f"{who}: {name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
-        raise ValueError(f"banded jacobi: {name} must be {dtype}, not {t.dtype}")
+        raise ValueError(f"{who}: {name} must be {dtype}, not {t.dtype}")
     try:
         flat = t.expand(batch + tail).view((math.prod(batch),) + tail)
     except RuntimeError as e:
-        raise ValueError(f"banded jacobi: {name} of shape {tuple(t.shape)} is not a strided "
+        raise ValueError(f"{who}: {name} of shape {tuple(t.shape)} is not a strided "
                          f"{batch + tail}") from e
     strides = dict(zip("w" + axes, flat.stride()))
     return _BJView(flat.data_ptr(), *(strides.get(ax, 0) for ax in "wcadi"))
@@ -862,7 +864,26 @@ def banded_sweeps(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, 
     warm: the solve's per-sweep warm-start dicts, or None; miss: the
     per-step window certificate, int32 [...]: only the column sweeps
     certify, a lone classic sweep by its x-window bound; n_active: the
-    active contacts, int32 [...])."""
+    active contacts, int32 [...]).
+
+    CPU tensors take the plain version (banded_sweeps_plain); CUDA tensors
+    launch the kernel csrc/banded_grids.cu (banded_sweeps_cuda), which
+    raises on operands it does not take; there is no fallback between the
+    two."""
+    args = (pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ, fric, rest, K,
+            k, any_caps, ground, carry, layers, hulls)
+    if pos.device.type == "cpu":
+        return banded_sweeps_plain(*args)
+    if pos.device.type == "cuda":
+        return banded_sweeps_cuda(*args)
+    raise ValueError(f"banded_sweeps: unsupported device {pos.device}")
+
+
+def banded_sweeps_plain(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ,
+                        fric, rest, K: int, k: int, any_caps: bool, ground, carry, layers, hulls):
+    """The plain version of banded_sweeps, same contract: per sweep the
+    analytic narrowphase over every slot of the [.., K, NB] window (eager
+    torch, each intermediate a full grid), then the masks ANDed in."""
     batch, nb = pos.shape[:-2], pos.shape[-1]
     warm = None if carry is None else []
     sweeps = []
@@ -935,6 +956,264 @@ def banded_sweeps(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, 
         n_active = n_active + torch.sum(sw["p_active"], dim=(-3, -2, -1)).to(torch.int32)
         sweeps.append(sw)
     return sweeps, warm, miss, n_active
+
+
+# ---------------------------------------------------------------------------
+# the stage's kernel (csrc/banded_grids.cu)
+
+BG_MAX_SWEEPS = 5      # sweep_orders makes at most 5
+BG_MAX_POINTS = 8      # the box-box manifold is at most a box's 8 corners
+
+
+class _BGSweep(ctypes.Structure):
+    """banded_grids.cu's Sweep: one sweep's operands and outputs."""
+    _fields_ = ([(f, _BJView) for f in ("order", "col", "prev_lam", "prev_rank", "h_point",
+                                       "h_normal", "h_depth", "h_active")]
+                + [(f, ctypes.c_void_p) for f in ("point", "normal", "depth", "active", "fric",
+                                                  "rest", "warm")]
+                + [("window_miss", ctypes.c_int), ("pad", ctypes.c_int)])
+
+
+class _BGCall(ctypes.Structure):
+    """banded_grids.cu's Call: sizes, scalars, operands, outputs."""
+    _fields_ = ([(f, ctypes.c_int) for f in ("W", "NB", "S", "k", "K", "G", "L", "any_caps",
+                                             "warm", "ground", "hulls", "layers", "g_rest_on")]
+                + [(f, ctypes.c_float) for f in ("g_fric", "g_rest")] + [("pad0", ctypes.c_int)]
+                + [(f, _BJView) for f in ("pos", "rot", "mn", "mx", "shape", "radius", "he",
+                                          "dyn", "occ", "fric", "rest", "layer", "cvx", "matrix")]
+                + [("rank", _BJView * BG_MAX_SWEEPS)]
+                + [(f, _BJView) for f in ("gc_point", "gc_normal", "gc_depth", "gc_active",
+                                          "carry_g")]
+                + [(f, ctypes.c_void_p) for f in ("g_point", "g_normal", "g_depth", "g_active",
+                                                  "g_fric_out", "g_rest_out", "g_warm", "counts")]
+                + [("launches", ctypes.c_int), ("pad1", ctypes.c_int)])
+
+
+def _bg_operands(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ, fric,
+                 rest, K, k, any_caps, ground, carry, layers, hulls):
+    """The stage's operands checked and laid out for the kernel: (call with
+    its operand views and scalars, the sweeps' array, (batch, NB, G), the
+    tensors the views read that the caller does not hold). Raises
+    ValueError on what the kernel does not take: another device or dtype,
+    shapes that do not broadcast, sweep lists of other lengths, k outside
+    1..8. Touches no device memory; the hull grids and the outputs are
+    filled in by the caller."""
+    who = "banded grids"
+    if not isinstance(pos, torch.Tensor) or pos.dim() < 2 or pos.shape[-2] != 3:
+        raise ValueError(f"{who}: pos must be [..., 3, NB]")
+    dev, f32, i32 = pos.device, torch.float32, torch.int32
+    batch, nb = tuple(pos.shape[:-2]), pos.shape[-1]
+
+    def view(name, t, dtype, tail, axes, b=batch):
+        return _bj_view(name, t, dev, dtype, b, tail, axes, who=who)
+
+    n_s = len(orders)
+    if not 1 <= n_s <= BG_MAX_SWEEPS or len(ranks) != n_s or len(col_keys) != n_s:
+        raise ValueError(f"{who}: {n_s} orders, {len(ranks)} ranks and {len(col_keys)} column "
+                         f"keys; 1 to {BG_MAX_SWEEPS} sweeps")
+    if not 1 <= k <= BG_MAX_POINTS or K < 1:
+        raise ValueError(f"{who}: k = {k} (1..{BG_MAX_POINTS}) and K = {K} (>= 1)")
+    call, keep = _BGCall(), []
+    for f, t, c in (("pos", pos, 3), ("rot", rot, 4), ("mn", mn, 3), ("mx", mx, 3),
+                    ("he", he, 3)):
+        setattr(call, f, view(f, t, f32, (c, nb), "ci"))
+    for f, t, dtype in (("shape", shape, torch.int64), ("radius", radius, f32),
+                        ("dyn", dyn, torch.bool), ("occ", occ, torch.bool), ("fric", fric, f32),
+                        ("rest", rest, f32)):
+        setattr(call, f, view(f, t, dtype, (nb,), "i"))
+    if layers is not None:
+        layer, matrix = layers
+        n = matrix.shape[-1] if isinstance(matrix, torch.Tensor) and matrix.dim() == 1 else -1
+        if n < 0 or math.isqrt(n) ** 2 != n:
+            raise ValueError(f"{who}: the layer matrix must be a flattened [L * L]")
+        call.layers, call.L = 1, math.isqrt(n)
+        call.layer = view("layer", layer, torch.int64, (nb,), "i")
+        call.matrix = view("matrix", matrix, torch.bool, (n,), "i", b=())
+    if hulls is not None:
+        call.hulls = 1
+        call.cvx = view("is_convex", hulls[3], torch.bool, (nb,), "i")
+    arr = (_BGSweep * n_s)()
+    for s, (order, rank, ck) in enumerate(zip(orders, ranks, col_keys)):
+        x = arr[s]
+        x.order = view(f"sweep {s} order", order, torch.int64, (nb,), "i")
+        call.rank[s] = view(f"sweep {s} ranks", rank, i32, (nb,), "i")
+        if ck is not None:
+            x.col = view(f"sweep {s} column keys", ck, i32, (nb,), "i")
+        x.window_miss = int(ck is None and n_s == 1)
+    g_n = 0
+    if ground is not None:
+        gc, g_fric, g_rest = ground
+        g_n = gc.depth.shape[-1] // nb if isinstance(gc.depth, torch.Tensor) else -1
+        if g_n < 0 or gc.depth.shape[-1] != g_n * nb:
+            raise ValueError(f"{who}: the ground stream is not [..., G * NB]")
+        try:
+            parts = dict(gc_point=gc.point.reshape(batch + (3, g_n, nb)),
+                         gc_normal=gc.normal.reshape(batch + (3, g_n, nb)),
+                         gc_depth=gc.depth.reshape(batch + (g_n, nb)),
+                         gc_active=gc.active.reshape(batch + (g_n, nb)))
+        except (RuntimeError, AttributeError) as e:
+            raise ValueError(f"{who}: the ground stream does not reshape to "
+                             f"{batch} + ([3,] {g_n}, {nb})") from e
+        keep += parts.values()
+        for f, t in parts.items():
+            vec = f in ("gc_point", "gc_normal")
+            setattr(call, f, view(f, t, torch.bool if f == "gc_active" else f32,
+                                  ((3,) if vec else ()) + (g_n, nb), "cai" if vec else "ai"))
+        call.ground, call.G, call.g_fric = 1, g_n, float(g_fric)
+        if g_rest is not None:
+            call.g_rest_on, call.g_rest = 1, float(g_rest)
+    if carry is not None:
+        lam, glam, prev = carry
+        if not (isinstance(lam, torch.Tensor) and lam.dim() >= 5 and lam.shape[-5] >= n_s
+                and isinstance(prev, torch.Tensor) and prev.dim() >= 2 and prev.shape[-2] >= n_s):
+            raise ValueError(f"{who}: the carry must hold [..., S, 3, k, K, NB] lambdas and "
+                             f"[..., S, NB] ranks for {n_s} sweeps")
+        call.warm = 1
+        for s in range(n_s):
+            arr[s].prev_lam = view(f"carry lambdas {s}", lam.select(-5, s), f32, (3, k, K, nb),
+                                   "cadi")
+            arr[s].prev_rank = view(f"carry ranks {s}", prev.select(-2, s), i32, (nb,), "i")
+        if ground is not None:
+            call.carry_g = view("carry ground lambdas", glam, f32, (3, g_n, nb), "cai")
+    call.W, call.NB, call.S, call.k, call.K = math.prod(batch), nb, n_s, k, K
+    call.any_caps = int(bool(any_caps))
+    return call, arr, (batch, nb, g_n), keep
+
+
+@functools.cache
+def _bg_library():
+    """The kernel library, its view of the structures checked against ours."""
+    lib = native.library()
+    sizes = (ctypes.c_longlong * 4)()
+    lib.lumix_banded_grids_abi(sizes)
+    ours = (ctypes.sizeof(_BJView), ctypes.sizeof(_BGSweep), ctypes.sizeof(_BGCall),
+            _BGCall.launches.offset)
+    if tuple(sizes) != ours:
+        raise RuntimeError(f"banded_grids.cu's structures {tuple(sizes)} differ from the "
+                           f"wrapper's {ours}")
+    return lib
+
+
+def _carve(buf, parts):
+    """Views of one uint8 buffer: parts (name, dtype, shape) each at a
+    256-byte boundary → {name: tensor}; with buf None, the bytes needed."""
+    out, at = {}, 0
+    for name, dtype, shp in parts:
+        n = math.prod(shp) * dtype.itemsize
+        if buf is not None:
+            out[name] = buf[at:at + n].view(dtype).view(shp)
+        at += -(-n // 256) * 256
+    return out if buf is not None else at
+
+
+def banded_sweeps_cuda(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ,
+                       fric, rest, K: int, k: int, any_caps: bool, ground, carry, layers, hulls):
+    """banded_sweeps on the card: one launch of csrc/banded_grids.cu a sweep
+    on the current stream, their number added to `.launches`, and no sync.
+    Operands are read through their strides (broadcast tables stay views);
+    the grids come back as views of one buffer, in banded_sweeps' shapes
+    and dtypes (p_fric and p_rest [..., 1, K, NB] expanded over k, g_fric
+    and g_rest over G). Worlds with hulls have the polytope SAT's grids
+    computed first in plain torch, as banded_sweeps_plain does; the kernel
+    takes them for the pairs that hold a hull."""
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"banded_sweeps_cuda takes CUDA tensors, got {dev}")
+    call, arr, (batch, nb, g_n), keep = _bg_operands(
+        pos, rot, mn, mx, orders, ranks, col_keys, shape, radius, he, dyn, occ, fric, rest, K, k,
+        any_caps, ground, carry, layers, hulls)
+    lib = _bg_library()
+    n_s, w_n, f32 = call.S, call.W, torch.float32
+    if hulls is not None:
+        verts, axes, prad, _ = hulls
+        for s, order in enumerate(orders):
+            def rks(x, _o=order):
+                return take_ranked(x.expand(batch + x.shape), _o)
+
+            grids = banded_polytope_grids(take_ranked(pos, order), take_ranked(rot, order),
+                                          rks(verts), rks(axes), rks(prad), K, k)
+            keep += grids
+            for f, t in zip(("h_point", "h_normal", "h_depth", "h_active"), grids):
+                vec = f in ("h_point", "h_normal")
+                setattr(arr[s], f, _bj_view(f"sweep {s} {f}", t, dev,
+                                            torch.bool if f == "h_active" else f32, batch,
+                                            ((3,) if vec else ()) + (k, K, nb),
+                                            "cadi" if vec else "adi", who="banded grids"))
+    grid3, grid1, band = (n_s, w_n, 3, k, K, nb), (n_s, w_n, k, K, nb), (n_s, w_n, K, nb)
+    parts = [("point", f32, grid3), ("normal", f32, grid3), ("depth", f32, grid1),
+             ("fric", f32, band), ("rest", f32, band), ("active", torch.bool, grid1)]
+    if call.warm:
+        parts.append(("warm", f32, grid3))
+    if call.ground:
+        g3, g1 = (w_n, 3, g_n, nb), (w_n, g_n, nb)
+        parts += [("g_point", f32, g3), ("g_normal", f32, g3), ("g_depth", f32, g1),
+                  ("g_fric", f32, (w_n, nb)), ("g_rest", f32, (w_n, nb)),
+                  ("g_active", torch.bool, g1)]
+        if call.warm:
+            parts.append(("g_warm", f32, g3))
+    out = _carve(torch.empty(_carve(None, parts), dtype=torch.uint8, device=dev), parts)
+    counts = torch.empty((2, w_n), dtype=torch.int32, device=dev)
+    for s in range(n_s):
+        for f in ("point", "normal", "depth", "active", "fric", "rest", "warm"):
+            if f in out:
+                setattr(arr[s], f, out[f][s].data_ptr())
+    for f in ("g_point", "g_normal", "g_depth", "g_active", "g_warm"):
+        if f in out:
+            setattr(call, f, out[f].data_ptr())
+    if call.ground:
+        call.g_fric_out, call.g_rest_out = out["g_fric"].data_ptr(), out["g_rest"].data_ptr()
+    call.counts = counts.data_ptr()
+    rc = lib.lumix_banded_grids(ctypes.addressof(call), ctypes.addressof(arr),
+                                native.stream_handle(dev))
+    native.check(rc, "lumix_banded_grids")
+    banded_sweeps_cuda.launches += call.launches
+    grid, kk = batch + (k, K, nb), batch + (1, K, nb)
+    sweeps = []
+    for s, order in enumerate(orders):
+        sw = dict(zip(PAIR_KEYS, (
+            out["point"][s].view(batch + (3, k, K, nb)), out["normal"][s].view(batch + (3, k, K, nb)),
+            out["depth"][s].view(grid), out["active"][s].view(grid),
+            out["fric"][s].view(kk).expand(grid), out["rest"][s].view(kk).expand(grid))),
+            order=order)
+        if s == 0 and call.ground:
+            g1 = batch + (g_n, nb)
+            sw.update(zip(GROUND_KEYS, (
+                out["g_point"].view(batch + (3, g_n, nb)), out["g_normal"].view(batch + (3, g_n, nb)),
+                out["g_depth"].view(g1), out["g_active"].view(g1),
+                out["g_fric"].view(batch + (1, nb)).expand(g1),
+                out["g_rest"].view(batch + (1, nb)).expand(g1))))
+        sweeps.append(sw)
+    warm = None
+    if call.warm:
+        warm = [{"p": tuple(out["warm"][s, :, j].view(grid) for j in range(3))} for s in range(n_s)]
+        if call.ground:
+            warm[0]["g"] = tuple(out["g_warm"][:, j].view(batch + (g_n, nb)) for j in range(3))
+    return sweeps, warm, counts[0].view(batch), counts[1].view(batch)
+
+
+banded_sweeps_cuda.launches = 0  # kernel launches, counted where the kernel is launched
+
+
+def banded_grids_bytes(w: int, nb: int, sweeps: int, k: int, K: int, ground_slots: int,
+                       warm: bool = True) -> int:
+    """Bytes the banded contact stage must move over `w` worlds of `nb`
+    bodies, with `sweeps` pair grids of k x K slots a body and
+    `ground_slots` ground slots a body on the first: every pair slot's
+    point, normal, depth and flag written (29 B), and where `warm` its
+    three warm-start lambdas written and last frame's read (24 B); per
+    sweep and (d, i) its friction and restitution written (8 B); per body
+    and sweep its order entry, position, rotation, half extents, radius,
+    AABB, friction, restitution, shape, dynamics and occupancy flags and
+    column key read (98 B), last frame's rank where `warm` (4 B), and the
+    earlier sweeps' ranks (4 B each); each ground slot's point, normal,
+    depth and flag read and written (58 B), its lambdas where `warm` (24
+    B), and per body the ground friction and restitution written (8 B)."""
+    slots = w * nb * sweeps * k * K
+    body = w * nb * sweeps
+    ground = w * nb * ground_slots
+    return (slots * (29 + 24 * int(warm)) + body * (K * 8 + 98 + 4 * int(warm))
+            + w * nb * sweeps * (sweeps - 1) // 2 * 4
+            + ground * (58 + 24 * int(warm)) + (w * nb * 8 if ground_slots else 0))
 
 
 def banded_carry(sweeps, lams, ranks, glam):
