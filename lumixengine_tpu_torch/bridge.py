@@ -117,8 +117,11 @@ def state_from_numpy(tree: Dict[str, np.ndarray], device) -> WorldState:
                                          **fields_of(AnimState, p, ("counters",)))
     if any(k.startswith("modules.physics.") for k in tree):
         p = "modules.physics"
+        # hull_active: the port's count of a banded world with hulls, from its first frame on
+        optional = tuple(n for n in ("hull_active",) if f"{p}.counters.{n}" in tree)
         modules["physics"] = PhysicsState(
-            counters=counters(p, ("active_contacts", "sap_window_miss", "pruned_pair_miss")),
+            counters=counters(p, ("active_contacts", "sap_window_miss", "pruned_pair_miss")
+                              + optional),
             **fields_of(PhysicsState, p, ("counters",)))
     for name, cls, names in (("navigation", NavState, ("navigating",)),
                              ("gui", GuiState, ("clicks",)),

@@ -8,7 +8,8 @@ the headless demo tick (~2k props in a hierarchy of depth <= 4, a camera and
 the crowd and the 1M-particle stress; ``box_drop_pile`` is the 10k-box drop
 on the slot pipeline (the scene the reference's ``bench.py --config boxes``
 builds), and ``box_drop_world`` the same boxes as a rendered world on the
-engine's step and the PhysicsModule's banded branch. ``script_stress_world``
+engine's step and the PhysicsModule's banded branch; ``hull_debris_world``
+is convex-hull debris over a static mesh collider on that branch. ``script_stress_world``
 is the scripts config: every entity runs a
 Lua update() compiled to the device fast path, built through
 ``app.create_full_engine``. Each makes the same numpy RNG draws in the same
@@ -230,6 +231,52 @@ def box_drop_world(num_bodies: int = 10_000, capacity: int = 10_240, window: int
         world.create_component(e, "rigid_actor", motion="dynamic", shape="box",
                                half_extents=(0.5, 0.5, 0.5), mass=1.0, friction=0.6)
         world.create_component(e, "model_instance", model="cube")
+    world.modules["physics"].sap_neighbors = window
+    return engine, world, renderer, phys
+
+
+HULL_DEBRIS_WINDOW = 24   # the debris level's sweep window (PERF.md: its certificate's readings)
+
+
+def hull_debris_world(num_hulls: int = 10_000, capacity: int = 10_240,
+                      window: int = HULL_DEBRIS_WINDOW, seed: int = 0):
+    """Convex-hull debris over static level geometry as a rendered game
+    world on the engine's own step: the hulls of
+    `physics_scenes.banded_pile` (random 10-point hulls at most 0.9 m
+    across, cooked, in stacks of five at 2 m pitch; the points drawn from
+    numpy's generator seeded with `seed`, in hull order), each an entity
+    with a dynamic convex ``rigid_actor`` (mass 1, friction 0.6) and a
+    ``model_instance`` "hull" (bounding radius 0.78 m, a 0.9 m hull's
+    half diagonal), over the 8 x 1 x 8 m slab as a ``mesh_collider`` (SDF
+    at resolution 24) and the ground plane, with a camera that sees the
+    whole pile, in a world of `capacity` entity slots whose PhysicsModule
+    has `capacity` actor slots. Entity 0 is the camera, entity 1 the slab,
+    entity 2 + i hull i (actor slot i, model instance i). Above 256 actor
+    slots ``broadphase="auto"`` takes the banded branch, whose sweep window
+    (``sap_neighbors``) is `window`. Returns (engine, world, renderer,
+    physics_system)."""
+    from lumixengine_tpu_torch.models.physics_scenes import (BOX_MESH_T, SLAB, banded_pile,
+                                                             box_mesh)
+    from lumixengine_tpu_torch.physics.module import PhysicsSystem
+
+    engine, renderer = build_engine(model_instances=capacity, actors=capacity)
+    renderer.add_model(Model(name="hull", bounding_radius=0.78, material_id=2))
+    phys = PhysicsSystem(engine)
+    engine.add_system(phys)
+    world = engine.create_world(capacity=capacity)
+    pile = banded_pile(num_hulls, seed)
+    # level with the pile's top, 80 m beyond its near edge, looking along -z
+    near = max(p[2] for p, _ in pile) + 80.0
+    cam = world.create_entity(position=(0.0, 4.0, near), name="camera")
+    world.create_component(cam, "camera", fov=np.radians(70.0), near=0.3, far=300.0)
+    slab = world.create_entity(name="slab")
+    world.create_component(slab, "mesh_collider", vertices=box_mesh(*SLAB), triangles=BOX_MESH_T,
+                           resolution=24)
+    for p, points in pile:
+        e = world.create_entity(position=p)
+        world.create_component(e, "rigid_actor", motion="dynamic", shape="convex", mass=1.0,
+                               friction=0.6, points=points)
+        world.create_component(e, "model_instance", model="hull")
     world.modules["physics"].sap_neighbors = window
     return engine, world, renderer, phys
 

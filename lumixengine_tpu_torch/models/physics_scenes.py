@@ -814,30 +814,23 @@ def check_terrain(sc: Scene, pos, radius, ctrl_pos, ctrl_grounded, walker_world)
 SLAB = ((-4.0, 4.0), (0.0, 1.0), (-4.0, 4.0))   # the banded level's SDF slab, x, y, z
 
 
-def banded_props_level(api=None, hulls: int = 1024, capacity: int = 1024, seed: int = 7,
-                       neighbors: int = 16, stack: int = 5, pitch: float = 2.0,
-                       grid: bool = False) -> Scene:
-    """The banded props level: `hulls` random 10-point hulls (at most 0.9 m
-    across) over the 8 x 1 x 8 SDF slab of tests/test_physics_big.py and
-    the ground plane, piled as tests/test_physics_convex.py's banded pile:
-    stacks of `stack` hulls 0.85 m apart from 0.8 m above the surface, each
-    hull offset as that test's (x ±0.125, z -0.2 to 0.24), the stacks on a
-    square grid of an even side at `pitch` (at 2 m their centres lie on odd
-    metres, and none straddles the slab's edge). With `grid`, the hulls lie
-    instead in `stack` full layers 1 m apart from 2 m up, on a square grid
-    at `pitch`. With `capacity` above 256 actor slots, `broadphase="auto"`
-    picks the banded branch, whose sweep window is `neighbors`."""
-    engine, world, _phys = _game_world(api, capacity, True, False, capacity + 8)
-    pm = world.modules["physics"]
-    pm.sap_neighbors = neighbors
-    sc = Scene(engine, world)
-    slab = world.create_entity()
-    world.create_component(slab, "mesh_collider", vertices=box_mesh(*SLAB), triangles=BOX_MESH_T,
-                           resolution=24)
+def banded_pile(hulls: int, seed: int, stack: int = 5, pitch: float = 2.0,
+                grid: bool = False):
+    """The banded pile of tests/test_physics_convex.py, laid out for `hulls`
+    hulls: [(position, points)] in hull order, each hull's 10 points drawn
+    U(-0.45, 0.45)^3 (at most 0.9 m across) from numpy's generator seeded
+    with `seed`, in hull order. Stacks of `stack` hulls 0.85 m apart from
+    0.8 m above the surface below them (the ground, or the top of the SDF
+    slab SLAB), each hull offset as that test's (x ±0.125, z -0.2 to 0.24),
+    the stacks on a square grid of an even side at `pitch` (at 2 m their
+    centres lie on odd metres, and none straddles the slab's edge). With
+    `grid`, the hulls lie instead in `stack` full layers 1 m apart from 2 m
+    up, on a square grid at `pitch`."""
     (x0, x1), (_y0, top), (z0, z1) = SLAB
     rng = np.random.default_rng(seed)
     side = int(np.ceil(np.sqrt(np.ceil(hulls / stack))))
     side += side % 2
+    out = []
     for i in range(hulls):
         if grid:
             col, j = i % (side * side), i // (side * side)
@@ -849,9 +842,30 @@ def banded_props_level(api=None, hulls: int = 1024, capacity: int = 1024, seed: 
         else:
             floor = top if x0 < x < x1 and z0 < z < z1 else 0.0
             p = (x + 0.25 * (j % 2) - 0.125, floor + 0.8 + 0.85 * j, z + 0.22 * (j // 2) - 0.2)
+        out.append((p, rng.uniform(-0.45, 0.45, (10, 3)).astype(np.float32)))
+    return out
+
+
+def banded_props_level(api=None, hulls: int = 1024, capacity: int = 1024, seed: int = 7,
+                       neighbors: int = 16, stack: int = 5, pitch: float = 2.0,
+                       grid: bool = False) -> Scene:
+    """The banded props level: the hulls of `banded_pile` (random 10-point
+    hulls piled as tests/test_physics_convex.py's banded pile) over the
+    8 x 1 x 8 SDF slab of tests/test_physics_big.py and the ground plane,
+    at `capacity` actor slots. With `capacity` above 256 actor slots,
+    `broadphase="auto"` picks the banded branch, whose sweep window is
+    `neighbors`."""
+    engine, world, _phys = _game_world(api, capacity, True, False, capacity + 8)
+    pm = world.modules["physics"]
+    pm.sap_neighbors = neighbors
+    sc = Scene(engine, world)
+    slab = world.create_entity()
+    world.create_component(slab, "mesh_collider", vertices=box_mesh(*SLAB), triangles=BOX_MESH_T,
+                           resolution=24)
+    for i, (p, points) in enumerate(banded_pile(hulls, seed, stack, pitch, grid)):
         e = world.create_entity(position=p)
         world.create_component(e, "rigid_actor", motion="dynamic", shape="convex", mass=1.0,
-                               points=rng.uniform(-0.45, 0.45, (10, 3)).astype(np.float32))
+                               points=points)
         sc.slots[f"hull{i}"] = pm.actors.slot_of(e)
     return sc
 

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from lumixengine_tpu_torch.core import math as lm
+from lumixengine_tpu_torch.core import profiler
 from lumixengine_tpu_torch.ops import native
 from lumixengine_tpu_torch.ops import physics_ops as P
 
@@ -247,32 +248,67 @@ def banded_pair_grids(sp, sr, s_rad, s_he, s_shape, s_mn, s_mx, K: int, k: int,
     return grid(point), grid(normal), grid(depth), grid(active), ok
 
 
+# bytes the polytope SAT's vertex-by-axis products may hold at once: the
+# window's partner ranks are taken in chunks that keep them under it
+HULL_SAT_BYTES = 1 << 30
+
+
+def hull_sat_chunk(batch: int, v: int, f: int, nb: int, K: int) -> int:
+    """Partner ranks a chunk of banded_polytope_grids takes: the most whose
+    two [batch, V, 2F + 1, chunk * NB] float32 vertex-by-axis products fit
+    in HULL_SAT_BYTES together, at least 1 and at most K."""
+    per_rank = 2 * 4 * batch * v * (2 * f + 1) * nb
+    return max(1, min(K, HULL_SAT_BYTES // max(per_rank, 1)))
+
+
 def banded_polytope_grids(sp, sr, s_pv, s_pax, s_prad, K: int, k: int):
     """The padded-polytope SAT (convex_ops.polytope_pair_contacts_from_data,
     the narrowphase of the all-pairs branch's convex pairs) over the banded
     partner views. Inputs rank-ordered: s_pv [.., 3, V, NB] local vertices,
     s_pax [.., 3, F, NB] local unit face axes, s_prad [.., NB] support radii.
     Returns [.., (3,) k, K, NB] grids (point, normal, depth, active), the
-    contract of banded_pair_grids without its ok mask."""
+    contract of banded_pair_grids without its ok mask.
+
+    The window's partner ranks d = 1..K are taken hull_sat_chunk's number
+    at a time, each chunk's slots through the SAT at once: every slot's
+    numbers are computed by the same operations whatever the chunk, so the
+    chunks only bound the intermediates' bytes."""
     from lumixengine_tpu_torch.ops import convex_ops as CV
 
     nb = sp.shape[-1]
+    chunk = hull_sat_chunk(math.prod(sp.shape[:-2]), s_pv.shape[-2], s_pax.shape[-2], nb, K)
+    parts = []
+    for d0 in range(0, K, chunk):
+        c = min(chunk, K - d0)
 
-    def bcast(x):
-        return x.unsqueeze(-2).expand(x.shape[:-1] + (K, nb)).reshape(x.shape[:-1] + (K * nb,))
+        def bcast(x, c=c):
+            return x.unsqueeze(-2).expand(x.shape[:-1] + (c, nb)).reshape(x.shape[:-1] + (c * nb,))
 
-    def partner(x):
-        return banded_pair_data(x, K).reshape(x.shape[:-1] + (K * nb,))
+        def partner(x, d0=d0, c=c):
+            return banded_pair_data(x, K)[..., d0:d0 + c, :].reshape(x.shape[:-1] + (c * nb,))
 
-    point, normal, depth, active = CV.polytope_pair_contacts_from_data(
-        bcast(sp), bcast(sr), bcast(s_pv), bcast(s_pax), bcast(s_prad),
-        partner(sp), partner(sr), partner(s_pv), partner(s_pax), partner(s_prad),
-        points_per_pair=k)
+        out = CV.polytope_pair_contacts_from_data(
+            bcast(sp), bcast(sr), bcast(s_pv), bcast(s_pax), bcast(s_prad),
+            partner(sp), partner(sr), partner(s_pv), partner(s_pax), partner(s_prad),
+            points_per_pair=k)
+        parts.append([x.reshape(x.shape[:-1] + (k, c, nb)) for x in out])
+    if len(parts) == 1:
+        return tuple(parts[0])
+    return tuple(torch.cat(xs, dim=-2) for xs in zip(*parts))
 
-    def grid(x):
-        return x.reshape(x.shape[:-1] + (k, K, nb))
 
-    return grid(point), grid(normal), grid(depth), grid(active)
+def hull_pair_active(sweeps, is_convex, K: int):
+    """The active pair slots that hold a hull, over every sweep of the
+    banded contact stage (its sweep dicts), int32 [...]: is_convex [NB] in
+    body order."""
+    n = None
+    for sw in sweeps:
+        order = sw["order"]
+        cvx = take_ranked(is_convex.expand(order.shape), order)
+        pair = cvx.unsqueeze(-2) | banded_pair_data(cvx, K)                 # [.., K, NB]
+        c = torch.sum(sw["p_active"] & pair.unsqueeze(-3), dim=(-3, -2, -1))
+        n = c if n is None else n + c
+    return n.to(torch.int32)
 
 
 def _degree(sw, K: int):
@@ -906,8 +942,9 @@ def banded_sweeps_plain(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius
         if hulls is not None:
             # pairs with a hull take the polytope SAT instead
             verts, axes, prad, is_convex = hulls
-            c_pt, c_n, c_d, c_act = banded_polytope_grids(sp, sr, rks(verts), rks(axes), rks(prad),
-                                                          K, k)
+            with profiler.block("physics.banded_hulls"):
+                c_pt, c_n, c_d, c_act = banded_polytope_grids(sp, sr, rks(verts), rks(axes),
+                                                              rks(prad), K, k)
             s_cvx = rks(is_convex)
             cvx_pair = s_cvx[..., None, :] | banded_pair_data(s_cvx, K)          # [.., K, NB]
             cv3 = cvx_pair[..., None, None, :, :]
@@ -1130,8 +1167,9 @@ def banded_sweeps_cuda(pos, rot, mn, mx, orders, ranks, col_keys, shape, radius,
             def rks(x, _o=order):
                 return take_ranked(x.expand(batch + x.shape), _o)
 
-            grids = banded_polytope_grids(take_ranked(pos, order), take_ranked(rot, order),
-                                          rks(verts), rks(axes), rks(prad), K, k)
+            with profiler.block("physics.banded_hulls"):
+                grids = banded_polytope_grids(take_ranked(pos, order), take_ranked(rot, order),
+                                              rks(verts), rks(axes), rks(prad), K, k)
             keep += grids
             for f, t in zip(("h_point", "h_normal", "h_depth", "h_active"), grids):
                 vec = f in ("h_point", "h_normal")

@@ -18,7 +18,10 @@ its ``broadphase="sap"``:
   pipeline of ``ops/physics_banded.py``, with its warm-start carry and its
   per-frame window certificate; pairs with a hull take the polytope SAT, and
   the hulls' ground contacts and the SDF streams join the per-body stream;
-  each world of a batch sorts its own bodies, in one pass over the batch;
+  each world of a batch sorts its own bodies, in one pass over the batch; a
+  world with hulls counts its active hull-pair slots in the counter
+  ``hull_active`` from its first frame on (the start state keeps the
+  reference's counters);
 * sap (forced): the sweep-and-prune pairs of ``ops/physics_big.py``, each
   body with its next ``sap_neighbors`` in min-x order, solved by the Jacobi
   solve on data body indices with a position projection; no warm start; the
@@ -998,14 +1001,15 @@ class PhysicsModule(IModule):
         point with its support radius."""
         if not st.sdf_colliders:
             return []
-        vw = CV.polytope_world_verts(pos.index_select(-1, d.sdf_sel), rot.index_select(-1, d.sdf_sel),
-                                     d.sdf_verts)                    # [..,3,V,Nd]
-        pts = vw.reshape(vw.shape[:-2] + (-1,))
-        out = []
-        for grid, origin, cell, mpos, mrot in d.sdf_colliders:
-            sc = CV.sdf_contacts(pts, d.sdf_eff_r, d.sdf_body, grid, origin, cell, mpos, mrot)
-            out.append(sc._replace(active=sc.active & d.sdf_valid))
-        return out
+        with profiler.block("physics.sdf_streams"):
+            vw = CV.polytope_world_verts(pos.index_select(-1, d.sdf_sel),
+                                         rot.index_select(-1, d.sdf_sel), d.sdf_verts)  # [..,3,V,Nd]
+            pts = vw.reshape(vw.shape[:-2] + (-1,))
+            out = []
+            for grid, origin, cell, mpos, mrot in d.sdf_colliders:
+                sc = CV.sdf_contacts(pts, d.sdf_eff_r, d.sdf_body, grid, origin, cell, mpos, mrot)
+                out.append(sc._replace(active=sc.active & d.sdf_valid))
+            return out
 
     def _contact_stage(self, state: WorldState, dt):
         """Everything before the contact solve: the clamped dt, the poses,
@@ -1031,8 +1035,9 @@ class PhysicsModule(IModule):
         if st.sap:
             # every per-body stream joins gc, which the sweeps re-rank whole
             if st.has_conv_gnd:
-                cg = CV.polytope_ground_grids(pos, rot, d.poly_verts, d.poly_rad, d.conv_dyn,
-                                              sys.ground_y)
+                with profiler.block("physics.hull_ground"):
+                    cg = CV.polytope_ground_grids(pos, rot, d.poly_verts, d.poly_rad, d.conv_dyn,
+                                                  sys.ground_y)
                 gc = cg if gc is None else P.concat_contacts(gc, cg)
             for sc in sdf_streams:
                 gc = sc if gc is None else P.concat_contacts(gc, sc)
@@ -1110,8 +1115,10 @@ class PhysicsModule(IModule):
         dpos = proj = None
         with profiler.block("physics.solve"):
             if st.banded:
-                vel, angvel, n_active, miss, proj, carry = self._banded_solve(st, d, c, ms)
+                vel, angvel, n_active, miss, proj, carry, n_hull = self._banded_solve(st, d, c, ms)
                 ms = ms.replace(sap_lam=carry[0], sap_glam=carry[1], sap_rank=carry[2])
+                if n_hull is not None:
+                    counters["hull_active"] = n_hull
             elif st.sap:
                 vel, angvel, n_active, miss, proj = self._sap_solve(st, d, c)
             elif c.contacts is not None:
@@ -1213,8 +1220,10 @@ class PhysicsModule(IModule):
         stages record the spans physics.banded_sort (bounds, sweep orders,
         rank maps), physics.banded_grids (the stage), physics.banded_jacobi
         (the solve) and, where the projection is applied,
-        physics.banded_project. Returns (vel, angvel, n_active, miss,
-        projection, warm-start carry)."""
+        physics.banded_project; inside physics.banded_grids, the hulls' SAT
+        records physics.banded_hulls. Returns (vel, angvel, n_active, miss,
+        projection, warm-start carry, the active pair slots that hold a hull
+        (None in a world without hulls))."""
         pos, rot, vel, angvel, gc = c.pos, c.rot, c.vel, c.angvel, c.gc
         sys = self.system
         occ = d.occ
@@ -1233,6 +1242,8 @@ class PhysicsModule(IModule):
                 None if gc is None else (gc, sys.ground_friction, sys.ground_restitution),
                 carry if warm_ok else None, (d.layer, d.layer_matrix),
                 (d.poly_verts, d.poly_axes, d.poly_rad, d.is_convex) if st.has_convex else None)
+            n_hull = (PBD.hull_pair_active(sweeps, d.is_convex, self.sap_neighbors)
+                      if st.has_convex else None)
 
         with profiler.block("physics.banded_jacobi"):
             iiw = P.inv_inertia_world_diag(rot, d.inv_inertia_body)
@@ -1247,7 +1258,7 @@ class PhysicsModule(IModule):
 
         if warm_ok:
             carry = PBD.banded_carry(sweeps, lams, ranks, ms.sap_glam)
-        return vel, angvel, n_active, miss, proj, carry
+        return vel, angvel, n_active, miss, proj, carry, n_hull
 
     def _sap_contacts(self, st: PhysStatics, d, pos, rot, gc):
         """The sap branch's contact set: each body paired with its next
